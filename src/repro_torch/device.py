@@ -1,0 +1,30 @@
+"""Device policy of the port.
+
+Entry points (``generate_cluster``, ``make_problem``, ``Sptlb``,
+``solve_local``, ``HostScheduler``) take ``device=`` and default to
+``"cuda"``.  Asking for CUDA where there is no card raises: the port never
+quietly runs on the CPU.  Callers that want the CPU (the parity tests) say
+so with ``device="cpu"``.
+
+Values are f32 and assignments i32, as in the reference; index tensors are
+cast to int64 only where they index.
+"""
+from __future__ import annotations
+
+import torch
+
+DEFAULT_DEVICE = "cuda"
+
+
+def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
+    """The ``torch.device`` for ``device``; raises if it names CUDA and no
+    card is present."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {str(device)!r} was requested but torch.cuda.is_available() "
+                "is False; pass device='cpu' to run the plain PyTorch path")
+        if dev.index is None:            # compare equal to tensor.device
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -1,0 +1,245 @@
+// Hopper (sm_90a) kernels for the SPTLB candidate-move sweep.
+//
+// Replaces the Pallas TPU kernels of src/repro/kernels/move_eval.py:
+//   move_eval_best_kernel <- move_eval_best_pallas (_move_eval_best_kernel)
+//   move_eval_kernel      <- move_eval_pallas      (_move_eval_kernel)
+// Both share pair_delta(), the counterpart of the Pallas _block_delta.
+//
+// What it computes: for app n and tier t, the exact change of the scalarized
+// objective if n moved to t (core/delta.py closed form), plus the destination
+// capacity / task-limit fit in load-fraction space
+// (f_dst + dC <= 1 + FEAS_TOL * inv_cap, the Pallas kernel's own form).  The
+// best kernel masks by fit, the static feasible[N, T] mask, the movement
+// budget, no self-move, and reduces each app to (best score, best tier), ties
+// to the lowest tier and +inf / tier 0 where nothing is feasible.
+//
+// Design.  The O(N) source-side quantities are gathered in torch before the
+// launch (kernels/move_eval.py::prepare, as the Pallas _prepare does); the
+// kernel does the O(N*T) part.  A group of G lanes (G = the power of two
+// >= T, capped at 32) serves one app: lane j evaluates tiers j, j+G, ...,
+// keeps a running minimum with a strict '<' (lowest tier among its equals),
+// and the group reduces with xor shuffles, again preferring the lower tier
+// on equal scores.  Small T packs several apps per warp.  Per-tier statistics
+// sit in shared memory; feasible is read as bytes, not padded floats.  No
+// tier padding: the TPU's 128-lane padding is not carried over.
+//
+// Bound on this card: per app the function reads 8 four-byte values and T
+// feasibility bytes and writes 8 bytes; about 94 f32 operations per
+// (app, tier) at R = 2.  At T = 5 the bytes bound it, at T = 128 the f32
+// operations (see PERF.md).
+//
+// Numerics.  At fleet scale an app's delta is tiny beside the tier fractions,
+// so f'^2 - f^2 cancels: one ulp of difference in f' shows as ~1e-4 of the
+// delta.  The kernel therefore repeats the plain torch version's operations
+// one for one — d / C by division, not d * (1/C) as the Pallas kernel does —
+// and is compiled with -fmad=false, so each operation rounds on its own as
+// the separate elementwise ops do.  Only the fit test keeps the kernel's own
+// load-fraction form (f_dst + dC <= 1 + FEAS_TOL * inv_cap).
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#define FEAS_TOL 1e-6f
+#define MAX_R 4
+// app row layout [N, 5R + 7]: f_src[R], f_src_new[R], dC_src[R], ideal_src[R],
+// demand[R], g_src, g_src_new, dK_src, gideal_src, k, mc, cc
+// tier layout [4R + 4, T]: f[R], cap[R], inv_cap[R], ideal[R], g, klim,
+// inv_klim, gideal
+// consts [R + 1 + 5]: mean_f[R], mean_g, w[5]
+
+__device__ __forceinline__ float h2(float x, float ideal) {
+  float h = fmaxf(x - ideal, 0.0f);
+  return h * h;
+}
+
+struct AppRow {
+  float f_src[MAX_R], f_src_new[MAX_R], dC_src[MAX_R], ideal_src[MAX_R], demand[MAX_R];
+  float g_src, g_src_new, dK_src, gideal_src, k, mc, cc;
+  int a_src, a0;
+};
+
+__device__ __forceinline__ void load_app(AppRow& a, const float* row, int R) {
+#pragma unroll
+  for (int r = 0; r < MAX_R; ++r) {
+    if (r < R) {
+      a.f_src[r] = row[r];
+      a.f_src_new[r] = row[R + r];
+      a.dC_src[r] = row[2 * R + r];
+      a.ideal_src[r] = row[3 * R + r];
+      a.demand[r] = row[4 * R + r];
+    }
+  }
+  const float* s = row + 5 * R;
+  a.g_src = s[0]; a.g_src_new = s[1]; a.dK_src = s[2]; a.gideal_src = s[3];
+  a.k = s[4]; a.mc = s[5]; a.cc = s[6];
+}
+
+// The delta of moving app `a` to tier t, and whether t has the headroom.
+// Operation order follows core/delta.py::move_delta_cost term by term.
+__device__ __forceinline__ float pair_delta(const AppRow& a, int t, int T, int R,
+                                            const float* tier, const float* c,
+                                            bool* fits_out) {
+  const float Tf = (float)T;
+  float d_under = 0.0f, d_res = 0.0f;
+  bool fits = true;
+#pragma unroll
+  for (int r = 0; r < MAX_R; ++r) {
+    if (r < R) {
+      float f_dst = tier[r * T + t];
+      float cap = tier[(R + r) * T + t];
+      float inv_cap = tier[(2 * R + r) * T + t];
+      float ideal = tier[(3 * R + r) * T + t];
+      float dC = a.demand[r] / cap;
+      float f_dst_new = f_dst + dC;
+      fits = fits && (f_dst_new <= 1.0f + FEAS_TOL * inv_cap);
+      float d_sumsq = a.f_src_new[r] * a.f_src_new[r] - a.f_src[r] * a.f_src[r]
+                      + f_dst_new * f_dst_new - f_dst * f_dst;
+      float d_mean = (dC - a.dC_src[r]) / Tf;
+      float mean_f = c[r];
+      float new_mean = mean_f + d_mean;
+      d_res += d_sumsq - Tf * (new_mean * new_mean - mean_f * mean_f);
+      d_under += h2(a.f_src_new[r], a.ideal_src[r]) - h2(a.f_src[r], a.ideal_src[r])
+                 + h2(f_dst_new, ideal) - h2(f_dst, ideal);
+    }
+  }
+  float g_dst = tier[(4 * R) * T + t];
+  float klim = tier[(4 * R + 1) * T + t];
+  float inv_klim = tier[(4 * R + 2) * T + t];
+  float gideal = tier[(4 * R + 3) * T + t];
+  float dK = a.k / klim;
+  float g_dst_new = g_dst + dK;
+  fits = fits && (g_dst_new <= 1.0f + FEAS_TOL * inv_klim);
+  float d_sumsq_t = a.g_src_new * a.g_src_new - a.g_src * a.g_src
+                    + g_dst_new * g_dst_new - g_dst * g_dst;
+  float d_mean_t = (dK - a.dK_src) / Tf;
+  float mean_g = c[R];
+  float new_mean_t = mean_g + d_mean_t;
+  float d_task = d_sumsq_t - Tf * (new_mean_t * new_mean_t - mean_g * mean_g);
+  d_under += h2(a.g_src_new, a.gideal_src) - h2(a.g_src, a.gideal_src)
+             + h2(g_dst_new, gideal) - h2(g_dst, gideal);
+
+  float was_moved = (a.a_src != a.a0) ? 1.0f : 0.0f;
+  float will_move = (t != a.a0) ? 1.0f : 0.0f;
+  float d_moved = will_move - was_moved;
+  const float* w = c + R + 1;
+  *fits_out = fits;
+  return w[0] * d_under + w[1] * d_res + w[2] * d_task
+         + w[3] * (d_moved * a.mc) + w[4] * (d_moved * a.cc);
+}
+
+__device__ __forceinline__ void stage_tiers(float* sm, const float* tier, int count) {
+  for (int i = threadIdx.x; i < count; i += blockDim.x) sm[i] = tier[i];
+  __syncthreads();
+}
+
+__global__ void move_eval_best_kernel(int N, int T, int R, int G,
+                                      const float* __restrict__ app,
+                                      const int* __restrict__ a_src,
+                                      const int* __restrict__ a0,
+                                      const float* __restrict__ tier,
+                                      const float* __restrict__ consts,
+                                      const uint8_t* __restrict__ feasible,
+                                      const int* __restrict__ moves_left,
+                                      float* __restrict__ best_score,
+                                      int* __restrict__ best_tier) {
+  extern __shared__ float sm_tier[];
+  stage_tiers(sm_tier, tier, (4 * R + 4) * T);
+  int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  int n = gid / G;
+  int j = gid % G;
+  if (n >= N) return;                      // whole groups leave together
+  unsigned lane = threadIdx.x & 31u;
+  unsigned gmask = (G == 32) ? 0xffffffffu : (((1u << G) - 1u) << (lane - lane % G));
+
+  AppRow a;
+  load_app(a, app + (size_t)n * (5 * R + 7), R);
+  a.a_src = a_src[n];
+  a.a0 = a0[n];
+  bool budget_ok = (a.a_src != a.a0) || (*moves_left > 0);
+  const uint8_t* feas_row = feasible + (size_t)n * T;
+
+  float s = INFINITY;
+  int bt = T;                              // sentinel: no feasible tier yet
+  for (int t = j; t < T; t += G) {
+    bool fits;
+    float d = pair_delta(a, t, T, R, sm_tier, consts, &fits);
+    bool ok = fits && feas_row[t] && budget_ok && (t != a.a_src);
+    if (ok && d < s) { s = d; bt = t; }
+  }
+  for (int off = G >> 1; off > 0; off >>= 1) {
+    float os = __shfl_xor_sync(gmask, s, off);
+    int ot = __shfl_xor_sync(gmask, bt, off);
+    if (os < s || (os == s && ot < bt)) { s = os; bt = ot; }
+  }
+  if (j == 0) {
+    best_score[n] = s;
+    best_tier[n] = (bt == T) ? 0 : bt;     // argmin of an all-inf row is 0
+  }
+}
+
+__global__ void move_eval_kernel(int N, int T, int R, int G,
+                                 const float* __restrict__ app,
+                                 const int* __restrict__ a_src,
+                                 const int* __restrict__ a0,
+                                 const float* __restrict__ tier,
+                                 const float* __restrict__ consts,
+                                 float* __restrict__ delta) {
+  extern __shared__ float sm_tier[];
+  stage_tiers(sm_tier, tier, (4 * R + 4) * T);
+  int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  int n = gid / G;
+  int j = gid % G;
+  if (n >= N) return;
+  AppRow a;
+  load_app(a, app + (size_t)n * (5 * R + 7), R);
+  a.a_src = a_src[n];
+  a.a0 = a0[n];
+  float* out = delta + (size_t)n * T;
+  for (int t = j; t < T; t += G) {
+    bool fits;
+    float d = pair_delta(a, t, T, R, sm_tier, consts, &fits);
+    out[t] = (t == a.a_src) ? 0.0f : d;    // self-moves pinned to 0
+  }
+}
+
+static int group_width(int T) {
+  int g = 1;
+  while (g < T && g < 32) g <<= 1;
+  return g;
+}
+
+static const int kThreads = 256;
+
+extern "C" int move_eval_best_launch(int N, int T, int R, const void* app, const void* a_src,
+                                     const void* a0, const void* tier, const void* consts,
+                                     const void* feasible, const void* moves_left,
+                                     void* best_score, void* best_tier, void* stream) {
+  if (N == 0) return 0;
+  int G = group_width(T);
+  long long threads = (long long)N * G;
+  int blocks = (int)((threads + kThreads - 1) / kThreads);
+  size_t smem = sizeof(float) * (size_t)(4 * R + 4) * T;
+  move_eval_best_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      N, T, R, G, (const float*)app, (const int*)a_src, (const int*)a0, (const float*)tier,
+      (const float*)consts, (const uint8_t*)feasible, (const int*)moves_left,
+      (float*)best_score, (int*)best_tier);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int move_eval_launch(int N, int T, int R, const void* app, const void* a_src,
+                                const void* a0, const void* tier, const void* consts,
+                                void* delta, void* stream) {
+  if (N == 0) return 0;
+  int G = group_width(T);
+  long long threads = (long long)N * G;
+  int blocks = (int)((threads + kThreads - 1) / kThreads);
+  size_t smem = sizeof(float) * (size_t)(4 * R + 4) * T;
+  move_eval_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      N, T, R, G, (const float*)app, (const int*)a_src, (const int*)a0, (const float*)tier,
+      (const float*)consts, (float*)delta);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* cuda_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -1,0 +1,66 @@
+"""Dispatch wrappers: one entry point per kernel.
+
+A tensor on a CUDA device goes to the hand-written kernel; a tensor on the
+CPU goes to the kernel's plain PyTorch version (``kernels.ref``).  There is
+no other switch and no fallback: a CUDA call that cannot build or launch its
+kernel raises.
+
+``launch_counts`` counts kernel launches per kernel (plain-version calls do
+not count), so a run can show that its path really went through the
+kernels; ``reset_launch_counts`` zeroes them.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import ref as _ref
+
+launch_counts = {"move_eval": 0, "move_eval_best": 0, "commit_topk": 0, "pack_ffd_tiers": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def move_eval(*args):
+    """delta[N, T] — see core.delta.move_delta_cost for the signature."""
+    if args[0].is_cuda:
+        from repro_torch.kernels.move_eval import move_eval_cuda
+        out = move_eval_cuda(*args)
+        launch_counts["move_eval"] += 1
+        return out
+    return _ref.move_eval_ref(*args)
+
+
+def move_eval_best(*args):
+    """Fused sweep + move-mask + per-app argmin -> (best_score[N],
+    best_tier[N]); see core.delta.move_best_per_app for the signature."""
+    if args[0].is_cuda:
+        from repro_torch.kernels.move_eval import move_eval_best_cuda
+        out = move_eval_best_cuda(*args)
+        launch_counts["move_eval_best"] += 1
+        return out
+    return _ref.move_eval_best_ref(*args)
+
+
+def commit_topk(*args, neg_tol: float, batch_quality: float):
+    """LocalSearch's commit scan over the sweep's candidates, in place ->
+    status i32[2] = (improving, accepted); see kernels.ref.commit_topk_ref
+    for the signature."""
+    if args[0].is_cuda:
+        from repro_torch.kernels.commit import commit_topk_cuda
+        out = commit_topk_cuda(*args, neg_tol=neg_tol, batch_quality=batch_quality)
+        launch_counts["commit_topk"] += 1
+        return out
+    return _ref.commit_topk_ref(*args, neg_tol=neg_tol, batch_quality=batch_quality)
+
+
+def pack_ffd_tiers(demand_sorted, capacity, hosts_per_tier, *, num_hosts_pad: int):
+    """All-tier FFD reject mask bool[T, M] — see kernels.pack."""
+    if demand_sorted.is_cuda:
+        from repro_torch.kernels.pack import pack_ffd_tiers_cuda
+        out = pack_ffd_tiers_cuda(demand_sorted, capacity, hosts_per_tier,
+                                  num_hosts_pad=num_hosts_pad)
+        launch_counts["pack_ffd_tiers"] += 1
+        return out
+    return _ref.pack_ffd_tiers_ref(demand_sorted, capacity, hosts_per_tier,
+                                   num_hosts_pad=num_hosts_pad)

@@ -1,0 +1,128 @@
+"""Plain PyTorch versions of every kernel of the port (the ``ref.py``
+contract): ``kernels.ops`` runs them for tensors on the CPU, the tests hold
+the reference against them, and ``chip_smoke.py`` holds each CUDA kernel
+against them on the card.  Nothing on the main path calls them when the
+tensors are on a card.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.constraints import FEAS_TOL
+# move_eval plain versions == the solver's torch-ops path (one source of truth).
+from repro_torch.core.delta import move_best_per_app as move_eval_best_ref  # noqa: F401
+from repro_torch.core.delta import move_delta_cost as move_eval_ref  # noqa: F401
+from repro_torch.core.delta import single_move_delta
+
+
+def commit_topk_ref(cand_n, best_s, best_t, x, util, tier_tasks, demand, tasks,
+                    criticality, assignment0, capacity, task_limit, ideal_frac,
+                    ideal_task_frac, weights, totals, moves_left, *, neg_tol: float,
+                    batch_quality: float) -> torch.Tensor:
+    """LocalSearch's sequential commit over the sweep's candidates.
+
+    ``cand_n`` (i64[k]) lists the candidate apps in ascending-score order.
+    Each is committed if it is no self-move, still fits its destination
+    (``util + d <= cap + FEAS_TOL``), the movement budget allows it, and —
+    after the first, which saw exactly this state in the sweep — its exact
+    delta against the updated state is improving and within
+    ``batch_quality`` of the sweep-best score (re-targets of already-moved
+    apps skip the window).  ``x``, ``util`` and ``tier_tasks`` are updated
+    in place with the reference's f32 arithmetic.  Returns status i32[2] =
+    (improving, accepted); improving is 0 when the sweep-best score is not
+    below -tol.  Scores ascend, so the scan stops at the first that cannot
+    improve.
+    """
+    scores = best_s[cand_n]
+    s_all = scores.tolist()
+    t_all = best_t[cand_n].tolist()
+    n_all = cand_n.tolist()
+    status = torch.zeros((2,), dtype=torch.int32, device=x.device)
+    if not s_all[0] < neg_tol:
+        return status
+    left = int(moves_left)
+    accepted = 0
+    for i, (n, s, t) in enumerate(zip(n_all, s_all, t_all)):
+        if not s < neg_tol:
+            break
+        src, home = int(x[n]), int(assignment0[n])
+        if t == src:
+            continue
+        already = src != home
+        d, k = demand[n], tasks[n]
+        fits = bool(torch.all(util[t] + d <= capacity[t] + FEAS_TOL)
+                    and tier_tasks[t] + k <= task_limit[t] + FEAS_TOL)
+        if not (fits and (already or left > 0)):
+            continue
+        if i > 0:
+            d_exact = single_move_delta(
+                n, t, src, demand, tasks, criticality, assignment0, capacity,
+                task_limit, ideal_frac, ideal_task_frac, util, tier_tasks, weights,
+                totals[0], totals[1])
+            window_ok = bool(d_exact <= batch_quality * scores[0])
+            if not (bool(d_exact < neg_tol) and (window_ok or already)):
+                continue
+        x[n] = t
+        util[src] = util[src] + (-d)
+        util[t] = util[t] + d
+        tier_tasks[src] = tier_tasks[src] + (-k)
+        tier_tasks[t] = tier_tasks[t] + k
+        left -= (-1 if t == home else 0) if already else 1
+        accepted += 1
+    status[0], status[1] = 1, accepted
+    return status
+
+
+def pack_ffd_tiers_ref(demand_sorted: torch.Tensor, capacity: torch.Tensor,
+                       hosts_per_tier: torch.Tensor, *, num_hosts_pad: int) -> torch.Tensor:
+    """First-fit scan of each tier's pre-sorted items, batched over tiers.
+
+    Dead bins (index >= the tier's live count) start at -inf capacity so
+    they never accept; the step is the reference scan's:
+    fit = all(hosts >= d), first fit = lowest index, hosts[h] += -d.
+    """
+    T, M, R = demand_sorted.shape
+    dev = demand_sorted.device
+    live = (torch.arange(num_hosts_pad, device=dev)[None, :]
+            < hosts_per_tier.to(torch.int64)[:, None])                  # [T, H]
+    hosts = torch.where(live[:, :, None], capacity[None, None, :],
+                        torch.full((), float("-inf"), device=dev))      # [T, H, R]
+    rows = torch.arange(T, device=dev)
+    rejected = torch.empty((T, M), dtype=torch.bool, device=dev)
+    for i in range(M):
+        d = demand_sorted[:, i, :]                                      # [T, R]
+        fit = torch.all(hosts >= d[:, None, :], dim=-1)                 # [T, H]
+        any_fit = torch.any(fit, dim=-1)
+        h = torch.argmax(fit.to(torch.uint8), dim=-1)                   # first fit
+        step = torch.where(any_fit[:, None], -d, torch.zeros_like(d))
+        hosts[rows, h] = hosts[rows, h] + step
+        rejected[:, i] = ~any_fit
+    return rejected
+
+
+def random_problem_arrays(N: int, T: int, seed: int = 0, device="cpu"):
+    """Flat random arrays in the move_eval kernel signature order: the
+    port's copy of ``benchmarks/common.py::random_problem_arrays`` (the same
+    numpy draws in the same order)."""
+    rng = np.random.default_rng(seed)
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    demand = f32(rng.lognormal(1, 0.8, (N, 2)))
+    tasks = f32(rng.integers(1, 40, N))
+    crit = f32(rng.random(N))
+    x = torch.as_tensor(rng.integers(0, T, N).astype(np.int32), device=device)
+    x0 = torch.as_tensor(rng.integers(0, T, N).astype(np.int32), device=device)
+    cap = f32(rng.uniform(400, 900, (T, 2)))
+    klim = f32(rng.uniform(800, 2000, T))
+    ideal = torch.full((T, 2), 0.7, dtype=torch.float32, device=device)
+    ideal_t = torch.full((T,), 0.8, dtype=torch.float32, device=device)
+    util = torch.zeros((T, 2), dtype=torch.float32, device=device).index_add_(
+        0, x.long(), demand)
+    ttasks = torch.zeros((T,), dtype=torch.float32, device=device).index_add_(
+        0, x.long(), tasks)
+    w = torch.tensor([1e4, 1e3, 1e2, 1e1, 1e0], dtype=torch.float32, device=device)
+    return (demand, tasks, crit, x, x0, cap, klim, ideal, ideal_t,
+            util, ttasks, w)

@@ -1,0 +1,135 @@
+"""One SPTLB balancing pass in the port vs the live JAX reference.
+
+Every comparison passes ``CoopConfig(timeout_s=1e9)`` so no wall-clock
+deadline decides a round in either package.  Held: the same ``validate``
+verdict and rounds, objective and difference-to-balance within rel 1e-4,
+and assignment agreement >= 0.98 (printed).
+"""
+import numpy as np
+import pytest
+import torch
+
+import repro.core as R
+import repro_torch.core as P
+import repro.core.planner as RP
+import repro_torch.core.planner as PP
+from repro.core.planner import move_costs as ref_move_costs
+from repro_torch.core.health import BreakerBoard
+from repro_torch.core.planner import move_costs
+
+from _torch_port import assert_rel, host
+
+torch.set_num_threads(1)
+
+CASES = {
+    "no_cnst": {"variant": "no_cnst"},
+    "w_cnst": {"variant": "w_cnst"},
+    "manual_cnst": {},
+    "manual_cnst/unmasked": {"premask": False},
+    "manual_cnst/shard": {"levels": ("region", "host", "shard")},
+}
+
+
+@pytest.fixture(scope="module")
+def clusters():
+    return (R.generate_cluster(num_apps=300, seed=3),
+            P.generate_cluster(num_apps=300, seed=3, device="cpu"))
+
+
+def _both(clusters, engine="local", **kw):
+    cj, ct = clusters
+    dj = R.Sptlb(cj).balance(engine, timeout_s=4,
+                             config=R.CoopConfig(max_rounds=8, timeout_s=1e9, **kw))
+    dt = P.Sptlb(ct, device="cpu").balance(
+        engine, timeout_s=4, config=P.CoopConfig(max_rounds=8, timeout_s=1e9, **kw))
+    return dj, dt
+
+
+def _assert_same_decision(dj, dt, name):
+    assert dt.violations.ok == dj.violations.ok
+    assert dt.violations.num_moved == dj.violations.num_moved
+    assert_rel(dt.solve.objective, dj.solve.objective, 1e-4, f"{name} objective")
+    assert_rel(dt.difference_to_balance, dj.difference_to_balance, 1e-4, f"{name} d2b")
+    agree = float(np.mean(np.asarray(dj.assignment) == host(dt.assignment)))
+    print(f"{name}: assignment agreement {agree:.4f}")
+    assert agree >= 0.98
+    return agree
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_balance_matches_reference(clusters, name):
+    dj, dt = _both(clusters, **CASES[name])
+    _assert_same_decision(dj, dt, name)
+    tj, tt = dj.cooperation.timings, dt.cooperation.timings
+    assert tt["rounds"] == tj["rounds"]
+    assert dt.cooperation.accepted == dj.cooperation.accepted
+    assert tt["region_rejections"] == tj["region_rejections"]
+    assert tt["host_rejections"] == tj["host_rejections"]
+    assert dt.network_p99_ms == dj.network_p99_ms
+    assert sorted(tt.keys()) == sorted(tj.keys())
+    assert sorted(dt.solve.extra) == sorted(dj.solve.extra)
+
+
+def test_restarts_and_cost_budget_match_reference(clusters):
+    cj, ct = clusters
+    dj = R.Sptlb(cj).balance("local", timeout_s=4, config=R.CoopConfig(
+        max_rounds=8, timeout_s=1e9, restart_rounds=2, cost_budget=12.0,
+        move_cost=ref_move_costs(cj.problem)))
+    dt = P.Sptlb(ct, device="cpu").balance("local", timeout_s=4, config=P.CoopConfig(
+        max_rounds=8, timeout_s=1e9, restart_rounds=2, cost_budget=12.0,
+        move_cost=move_costs(ct.problem)))
+    np.testing.assert_array_equal(move_costs(ct.problem), ref_move_costs(cj.problem))
+    _assert_same_decision(dj, dt, "restarts+budget")
+    assert dt.budget_trimmed == dj.budget_trimmed > 0
+    assert dt.movement_cost <= 12.0 + 1e-6
+    assert dt.cooperation.timings.restarts == dj.cooperation.timings.restarts
+
+
+def _advisories(pkg):
+    return [pkg.Advisory(at=10, kind=pkg.CAPACITY, tier=2, scale=0.4),
+            pkg.Advisory(at=14, kind=pkg.CAPACITY, tier=2, scale=0.05),
+            pkg.Advisory(at=6, kind=pkg.OUTAGE, region=1)]
+
+
+@pytest.mark.parametrize("now", [5, 9])
+def test_planned_pass_matches_reference(clusters, now):
+    """A proactive pass: the maintenance planner's outlook steers the solver
+    (tightened targets; at now=9 a premasked will-drain tier and relaxed
+    region budgets for its residents)."""
+    cj, ct = clusters
+    cfg = dict(max_rounds=8, timeout_s=1e9)
+    pj = RP.MaintenancePlanner(_advisories(RP), RP.PlannerConfig(horizon=8)).outlook(now, cj)
+    pt = PP.MaintenancePlanner(_advisories(PP), PP.PlannerConfig(horizon=8)).outlook(now, ct)
+    assert pt.active and pj.active
+    np.testing.assert_allclose(pt.tier_factor, pj.tier_factor, rtol=1e-6)
+    np.testing.assert_array_equal(pt.avoid_tiers, pj.avoid_tiers)
+    np.testing.assert_array_equal(pt.relax_home_tiers, pj.relax_home_tiers)
+    dj = R.Sptlb(cj).balance("local", timeout_s=4, plan=pj, config=R.CoopConfig(**cfg))
+    dt = P.Sptlb(ct, device="cpu").balance("local", timeout_s=4, plan=pt,
+                                           config=P.CoopConfig(**cfg))
+    _assert_same_decision(dj, dt, f"planned now={now}")
+    assert dt.solve.extra["plan"] == dj.solve.extra["plan"]
+
+
+def test_greedy_baseline_matches_reference(clusters):
+    dj, dt = _both(clusters, engine="greedy-cpu")
+    _assert_same_decision(dj, dt, "greedy-cpu")
+    assert np.array_equal(np.asarray(dj.assignment), host(dt.assignment))
+
+
+def test_healthy_breaker_board_changes_nothing(clusters):
+    _, ct = clusters
+    cfg = dict(max_rounds=8, timeout_s=1e9)
+    base = P.Sptlb(ct, device="cpu").balance("local", timeout_s=4, config=P.CoopConfig(**cfg))
+    board = BreakerBoard()
+    d = P.Sptlb(ct, device="cpu").balance(
+        "local", timeout_s=4, config=P.CoopConfig(breakers=board, **cfg))
+    assert torch.equal(d.assignment, base.assignment)
+    snap = d.cooperation.timings.breakers
+    assert snap["bypassed"] == [] and snap["trips"] == 0
+
+
+def test_unported_shedding_is_refused(clusters):
+    _, ct = clusters
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        P.Sptlb(ct, device="cpu").balance("local", config=P.CoopConfig(shed=object()))

@@ -1,0 +1,134 @@
+"""The port's CUDA kernels on a card, against their plain PyTorch versions.
+
+Every test here needs an NVIDIA card (``cuda`` marker; the ``cuda_device``
+fixture skips without one).  The file imports neither JAX nor the reference
+package, so it also runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python3 -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances are those of the CPU parity tests: the sweep within scaled atol
+1e-5; the fused best with the same +inf set, scores within scaled 1e-5 and
+the same tiers except at ties (scaled gap < 1e-6; the kernel tests its fit
+in load-fraction space, the plain version in absolute units); the commit
+scan and packing bit-identical.
+"""
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.core as P
+from repro_torch.core.delta import move_best_per_app, move_delta_cost
+from repro_torch.kernels import ops
+from repro_torch.kernels.pack import pack_ffd, pack_ffd_tiers
+from repro_torch.kernels.ref import commit_topk_ref, pack_ffd_tiers_ref, random_problem_arrays
+
+from _torch_port import assert_rel, cuda_device, host  # noqa: F401
+
+torch.set_num_threads(1)
+
+
+def _assert_best(s_k, t_k, s_p, t_p, d_plain):
+    s_k, t_k, s_p, t_p, d = (host(v) for v in (s_k, t_k, s_p, t_p, d_plain))
+    finite = np.isfinite(s_p)
+    assert np.array_equal(np.isfinite(s_k), finite)
+    scale = float(np.max(np.abs(np.where(finite, s_p, 0.0)))) + 1e-9
+    np.testing.assert_allclose(s_k[finite] / scale, s_p[finite] / scale, atol=1e-5)
+    differ = np.where(finite & (t_k != t_p))[0]
+    if differ.size:
+        gap = np.abs(d[differ, t_k[differ]] - d[differ, t_p[differ]]) / scale
+        assert gap.max() < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,T", [(300, 5), (500, 17), (4096, 128)])
+def test_move_eval_kernels_match_plain_versions(cuda_device, N, T):
+    args = random_problem_arrays(N, T, seed=N + T, device=cuda_device)
+    feas = torch.as_tensor(np.random.default_rng(N).random((N, T)) > 0.2, device=cuda_device)
+    ops.reset_launch_counts()
+    d_kernel = ops.move_eval(*args)
+    d_plain = move_delta_cost(*args)
+    scale = float(d_plain.abs().max()) + 1e-9
+    assert float((d_kernel - d_plain).abs().max()) / scale <= 1e-5
+    for ml in (0, 5):
+        moves_left = torch.tensor(ml, dtype=torch.int32, device=cuda_device)
+        s_k, t_k = ops.move_eval_best(*args, feas, moves_left)
+        s_p, t_p = move_best_per_app(*args, feas, moves_left)
+        _assert_best(s_k, t_k, s_p, t_p, d_plain)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["move_eval"] == 1
+    assert ops.launch_counts["move_eval_best"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,M", [(1, 40), (5, 128), (5, 1024)])
+def test_pack_kernel_matches_plain_version(cuda_device, T, M):
+    rng = np.random.default_rng(M)
+    demand = rng.lognormal(0.0, 1.0, size=(T, M, 2)).astype(np.float32)
+    demand = np.take_along_axis(demand, np.argsort(-demand.max(axis=2), axis=1)[:, :, None], 1)
+    demand[:, M - M // 8:] = 0.0                                 # zero padding rows
+    hosts = rng.integers(40, 120, size=T).astype(np.int32)
+    capacity = (demand.sum(axis=(0, 1)) / (0.9 * hosts.sum())).astype(np.float32)
+    d = torch.as_tensor(demand, device=cuda_device)
+    c = torch.as_tensor(capacity, device=cuda_device)
+    h = torch.as_tensor(hosts, device=cuda_device)
+    ops.reset_launch_counts()
+    got = pack_ffd_tiers(d, c, h, num_hosts_pad=128)
+    want = pack_ffd_tiers_ref(d, c, h, num_hosts_pad=128)
+    assert torch.equal(got, want) and bool(got.any())
+    assert torch.equal(pack_ffd(d[0], c, int(hosts[0]), num_hosts_pad=128), want[0])
+    assert ops.launch_counts["pack_ffd_tiers"] == 2
+
+
+@pytest.mark.cuda
+def test_balance_on_the_card_goes_through_the_kernels(cuda_device):
+    ct = P.generate_cluster(num_apps=300, seed=3, device=cuda_device)
+    cfg = P.CoopConfig(max_rounds=8, timeout_s=1e9)
+    ops.reset_launch_counts()
+    d = P.Sptlb(ct, device=cuda_device).balance("local", timeout_s=4, config=cfg)
+    assert d.violations.ok and d.assignment.is_cuda
+    for name in ("move_eval_best", "commit_topk", "pack_ffd_tiers"):
+        assert ops.launch_counts[name] > 0, name
+    d_cpu = P.Sptlb(ct.to("cpu"), device="cpu").balance("local", timeout_s=4, config=cfg)
+    assert d.cooperation.timings["rounds"] == d_cpu.cooperation.timings["rounds"]
+    assert_rel(d.solve.objective, d_cpu.solve.objective, 1e-4, "objective")
+    agree = float((d.assignment.cpu() == d_cpu.assignment).float().mean())
+    assert agree >= 0.98, agree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,T,ml", [(300, 5, 0), (300, 5, 5), (500, 17, 5), (4096, 128, 5)])
+def test_commit_kernel_matches_plain_version(cuda_device, N, T, ml):
+    args = random_problem_arrays(N, T, seed=N + T, device=cuda_device)
+    if N > 1000:                                  # keep the large case's tiers movable
+        args = list(args)
+        args[5], args[6] = args[5] * (N / (50.0 * T)), args[6] * (N / (50.0 * T))
+    feas = torch.as_tensor(np.random.default_rng(N).random((N, T)) > 0.2, device=cuda_device)
+    moves_left = torch.tensor(ml, dtype=torch.int32, device=cuda_device)
+    best_s, best_t = move_best_per_app(*args, feas, moves_left)
+    cand_n = torch.sort(best_s, stable=True).indices[:16]
+    totals = torch.stack([args[1].sum().clamp(min=1.0), args[2].sum().clamp(min=1.0)])
+    demand, tasks, crit, x, a0, cap, klim, ideal, ideal_t, util, tt, w = args
+    states = [(x.clone(), util.clone(), tt.clone()) for _ in range(2)]
+    ops.reset_launch_counts()
+    status = []
+    for fn, (xs, us, ts) in zip((ops.commit_topk, commit_topk_ref), states):
+        status.append(fn(cand_n, best_s, best_t, xs, us, ts, demand, tasks, crit, a0, cap,
+                         klim, ideal, ideal_t, w, totals, moves_left,
+                         neg_tol=float(np.float32(-1e-7)), batch_quality=0.9).tolist())
+    assert ops.launch_counts["commit_topk"] == 1
+    assert status[0] == status[1] and status[0][0] == 1 and status[0][1] > 0
+    for a, b in zip(*states):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_tier_loads_on_the_card_are_reproducible(cuda_device):
+    """The card's tier loads come out bit for bit the same on every call
+    (no atomics) and agree with the CPU's app-order sums."""
+    p = P.generate_cluster(num_apps=4096, seed=1, device=cuda_device).problem
+    util_a, tasks_a = P.tier_loads(p, p.assignment0)
+    util_b, tasks_b = P.tier_loads(p, p.assignment0)
+    assert torch.equal(util_a, util_b) and torch.equal(tasks_a, tasks_b)
+    util_c, tasks_c = P.tier_loads(p.to("cpu"), p.assignment0.cpu())
+    assert_rel(util_a, util_c, 1e-6, "util")
+    assert_rel(tasks_a, tasks_c, 1e-6, "tasks")
