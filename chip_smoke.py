@@ -29,14 +29,33 @@ Phases (each raises on failure, so the script exits non-zero):
      ``torch.profiler`` (device busy share, kernel time by name); and the
      N=300 pass on the card and on the CPU's plain path, which must agree
      (same rounds, objective within rel 1e-4, assignments >= 0.98 equal).
-  4. A ``{"kernels": [...]}`` line, then the card line again, then the
+  4. The serving slice: ``flash_attention`` and ``flash_decode`` against
+     their plain versions at the serve path's shapes (prefill B=8, S=1024,
+     H=16, KV=2, D=128 in bf16 and f32; a window + softcap case at D=256,
+     H=16, KV=8; odd lengths; decode at B=8, Smax=1064 for kv_len 1, 17,
+     1000, Smax and with a softcap), each timed beside its plain version and
+     ``F.scaled_dot_product_attention`` (timed only, used nowhere; in bf16
+     prefill also a control that the tolerance must reject; decode timed
+     over cache copies past the L2); then
+     full-width ``qwen2.5-3b`` in bf16 with seeded random weights serves 16
+     requests (prompts of 128-1024 tokens, 32 new tokens each) in 2 waves
+     of 8 slots through ``ServeEngine``, with the launch counters zeroed
+     just before and read just after (``flash_attention`` must have
+     launched 36 x waves times, ``flash_decode`` 36 x decode steps); TTFT
+     and decode ms per step per wave, peak device memory, the idle share of
+     one profiled decode step; a repeat run must give the same tokens, and
+     one wave's first decode logits must match a teacher-forced
+     ``forward_train`` over its padded prompt plus that token.
+  5. A ``{"kernels": [...]}`` line, then the card line again, then the
      final ``{"ok": true, "device": {...}}`` line.
 
 It imports nothing of JAX or of the JAX reference package.
 """
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -45,10 +64,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth and the
-# f32 rate outside the tensor cores.
+# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth, the
+# f32 rate outside the tensor cores and the dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 # f32 operations per (app, tier) pair as the kernels compute them (counted
 # from csrc/move_eval.cu::pair_delta: 26 per resource, 24 for the task
 # terms, 14 for movement + weighting; the best kernel adds the fit test's
@@ -66,6 +86,35 @@ PROFILE_SWEEPS = 16
 MOVE_EVAL_SRC = "src/repro_torch/kernels/csrc/move_eval.cu"
 COMMIT_SRC = "src/repro_torch/kernels/csrc/commit.cu"
 PACK_SRC = "src/repro_torch/kernels/csrc/pack.cu"
+FLASH_ATTENTION_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_DECODE_SRC = "src/repro_torch/kernels/csrc/flash_decode.cu"
+# The serving slice: full-width qwen2.5-3b, 16 requests in waves of 8 slots,
+# prompts of 128-1024 tokens drawn from the seed, 32 new tokens each; the
+# cache holds the longest prompt, the new tokens and the reference CLI's 8
+# spare positions.
+SERVE_ARCH = "qwen2.5-3b"
+SERVE_SEED = 0
+SERVE_REQUESTS = 16
+SERVE_SLOTS = 8
+SERVE_NEW = 32
+PROMPT_MIN, PROMPT_MAX = 128, 1024
+SERVE_MAX_SEQ = PROMPT_MAX + SERVE_NEW + 8
+# The flash kernels against their plain versions, (atol, rtol).  f32: the
+# reference's flash test tolerance.  bf16: kernel and plain version both
+# compute in f32 and round the output once, so they part by at most one
+# bf16 ulp (<= 2^-7 of the value) where their f32 sums straddle a rounding
+# point; the atol covers outputs near zero.  A kernel that rounds its
+# probabilities to bf16 before P.V, as SDPA does, parts by more: SDPA is
+# held against the same bound as a control that must fail.
+FLASH_TOL = {"float32": (3e-5, 3e-5), "bfloat16": (2e-3, 2.0 ** -7)}
+# Bytes a timed decode rotates through, over the 50 MB L2: on the serve
+# path each layer reads its own cache cold behind the weights.
+L2_FLUSH_BYTES = 100e6
+# Teacher-forced consistency at full width in bf16: the decode step and the
+# forward pass run different kernels and different matmul shapes, so their
+# bf16 roundings part from the first layer on and add up over 36 layers;
+# a wrong position or mask moves logits by O(max |logit|).
+TEACHER_TOL = 2.0 ** -4
 
 
 def card_line() -> str:
@@ -434,23 +483,43 @@ def device_profile(fn) -> dict:
             "kernels": sorted(by_name.items(), key=lambda kv: -kv[1])}
 
 
-def host_profile(fn) -> tuple[float, dict]:
+def _ops_call(name):
+    return lambda f, n: n == name and f.endswith("ops.py")
+
+
+def _layers_call(*names):
+    return lambda f, n: n in names and f.endswith("layers.py")
+
+
+# Host phases of a LocalSearch solve and of a decode step (cProfile
+# (file, function) matchers; cumulative seconds, so nested phases overlap).
+SOLVER_PHASES = {
+    "commit scan (launch)": _ops_call("commit_topk"),
+    "sweep (precompute + kernel launch)": _ops_call("move_eval_best"),
+    "copies and waits for the card": lambda f, n: any(
+        f"'{m}' of 'torch._C" in n for m in ("to", "cpu", "tolist", "item")),
+    "candidate sort": lambda f, n: n == "<built-in method torch.sort>",
+}
+DECODE_PHASES = {
+    "linear layers (mm + bias + cast)": _layers_call("linear"),
+    "norms": _layers_call("rmsnorm", "layernorm"),
+    "rope (tables + rotation)": _layers_call("rope_tables", "rotate"),
+    "flash_decode (checks + 2 launches)": _ops_call("flash_decode"),
+    "cache writes": lambda f, n: "index_copy_" in n,
+    "unembedding": lambda f, n: n == "_unembed",
+    "wait for the card (token copy)": lambda f, n: "'cpu' of 'torch._C" in n,
+}
+
+
+def host_profile(fn, phases=SOLVER_PHASES) -> tuple[float, dict]:
     """Run ``fn`` under ``cProfile``: wall seconds and the cumulative seconds
-    of the solver's host phases (cProfile's own cost inflates the Python
-    parts, so these are shares of a profiled run)."""
+    of each host phase (cProfile's own cost inflates the Python parts, so
+    these are shares of a profiled run)."""
     import cProfile
     import pstats
 
     import torch
 
-    phases = {
-        "commit scan (launch)": lambda f, n: n == "commit_topk" and f.endswith("ops.py"),
-        "sweep (precompute + kernel launch)": lambda f, n: (
-            n == "move_eval_best" and f.endswith("ops.py")),
-        "copies and waits for the card": lambda f, n: any(
-            f"'{m}' of 'torch._C" in n for m in ("to", "cpu", "tolist", "item")),
-        "candidate sort": lambda f, n: n == "<built-in method torch.sort>",
-    }
     prof = cProfile.Profile()
     t = time.perf_counter()
     prof.enable()
@@ -464,6 +533,411 @@ def host_profile(fn) -> tuple[float, dict]:
             if match(file, name):
                 out[label] += cum
     return wall, out
+
+
+def attention_work(B, Sq, Skv, H, KV, D, itemsize, causal=True, window=None) -> tuple[float, float]:
+    """(bytes, operations) flash attention needs: q, k, v read once and the
+    output written once; 4 D operations (the q.k and p.v products) for
+    every (query, key) pair the masks leave visible."""
+    import numpy as np
+
+    i = np.arange(Sq)[:, None]
+    j = np.arange(Skv)[None, :]
+    visible = np.ones((Sq, Skv), bool)
+    if causal:
+        visible &= j <= i
+    if window is not None:
+        visible &= j > i - window
+    nbytes = (2 * B * Sq * H * D + 2 * B * Skv * KV * D) * itemsize
+    return float(nbytes), float(4 * D * B * H * int(visible.sum()))
+
+
+def decode_work(B, kv_len, H, KV, D, itemsize) -> tuple[float, float]:
+    """(bytes, operations) one decode step's attention needs: the written
+    cache rows of k and v, the query and the output, kv_len; 4 D
+    operations for every visible cache position of every query head."""
+    nbytes = (2 * B * H * D + 2 * B * kv_len * KV * D) * itemsize + 4
+    return float(nbytes), float(4 * D * B * H * kv_len)
+
+
+def flash_bound_ms(nbytes: float, nops: float, dtype) -> tuple[float, str]:
+    """The larger of bytes over the HBM rate and operations over the peak
+    rate for the inputs' type (bf16 tensor cores; f32 outside them)."""
+    import torch
+
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_close(got, want) -> tuple[bool, float]:
+    """(all of |got - want| <= atol + rtol |want| at FLASH_TOL of want's
+    dtype, max |got - want|)."""
+    atol, rtol = FLASH_TOL[str(want.dtype).split(".")[-1]]
+    diff = (got.float() - want.float()).abs()
+    return bool((diff <= atol + rtol * want.float().abs()).all()), float(diff.max())
+
+
+def tol_text(dtype) -> str:
+    atol, rtol = FLASH_TOL[str(dtype).split(".")[-1]]
+    return f"atol {atol:g}, rtol {rtol:g}"
+
+
+def seeded_normal(shape, dtype, dev, gen):
+    import torch
+
+    return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+
+def sdpa_prefill(q, k, v):
+    """One PyTorch call that computes the causal, no-window, no-softcap
+    case (timed as the yardstick only)."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                          v.transpose(1, 2), is_causal=True,
+                                          enable_gqa=True).transpose(1, 2)
+
+
+def sdpa_decode(q, k, v, kv_len: int):
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q.transpose(1, 2), k[:, :kv_len].transpose(1, 2),
+                                          v[:, :kv_len].transpose(1, 2),
+                                          enable_gqa=True).transpose(1, 2)
+
+
+def check_flash_attention(label, shape, dtype, dev, gen, record, *, window=None, softcap=None,
+                          timed=False) -> dict:
+    """Hold the flash_attention kernel against its plain version on the
+    card (FLASH_TOL); with ``timed``, time the kernel, the plain version
+    and, for the causal no-window no-softcap case, SDPA."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    B, S, H, KV, D = shape
+    q = seeded_normal((B, S, H, D), dtype, dev, gen)
+    k = seeded_normal((B, S, KV, D), dtype, dev, gen)
+    v = seeded_normal((B, S, KV, D), dtype, dev, gen)
+    kw = dict(window=window, softcap=softcap)
+    got = flash_attention_cuda(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ok, err = flash_close(got, want)
+    if not ok:
+        raise AssertionError(f"flash_attention {label}: max abs err {err:.3e} beyond "
+                             f"{tol_text(dtype)}")
+    record["flash_attention"]["max_abs_err"] = max(record["flash_attention"]["max_abs_err"], err)
+    line = f"flash_attention {label:>40}: max abs err {err:.3e} ({tol_text(dtype)})"
+    out = {}
+    if timed:
+        itemsize = torch.finfo(dtype).bits // 8
+        b, by = flash_bound_ms(*attention_work(B, S, S, H, KV, D, itemsize, window=window), dtype)
+        out = {"ms": time_ms(lambda: flash_attention_cuda(q, k, v, **kw)),
+               "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v, **kw), reps=5),
+               "bound_ms": b, "bound_by": by, "library_ms": None}
+        if window is None and softcap is None:
+            lib_ok, lib_err = flash_close(sdpa_prefill(q, k, v), want)
+            if dtype == torch.bfloat16 and lib_ok:
+                raise AssertionError(f"flash_attention {label}: the control (SDPA, bf16 "
+                                     f"probabilities, max abs err {lib_err:.3e}) passes "
+                                     f"{tol_text(dtype)}, which then cannot tell it from "
+                                     "the kernel")
+            out["library_ms"] = time_ms(lambda: sdpa_prefill(q, k, v))
+            line += f", SDPA err vs plain {lib_err:.3e} (control, outside the bound)"
+        line += (f" | kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, SDPA "
+                 f"{out['library_ms']} ms, bound {b:.4f} ms ({by})")
+    print(line, flush=True)
+    return out
+
+
+def check_flash_decode(label, shape, dtype, dev, gen, record, kv_lens, *, softcap=None,
+                       timed_len=None) -> dict:
+    """Hold the flash_decode kernel against its plain version on the card
+    at each kv_len (an int32 on the card); with ``timed_len``, time the
+    kernel, the plain version and SDPA over the written positions there,
+    each launch on another copy of the cache (L2_FLUSH_BYTES in all), so
+    that it reads the cache from HBM as the serve path does."""
+    import torch
+    from repro_torch.kernels.flash_decode import flash_decode_cuda
+    from repro_torch.kernels.ref import flash_decode_ref
+
+    B, Smax, H, KV, D = shape
+    q = seeded_normal((B, 1, H, D), dtype, dev, gen)
+    k = seeded_normal((B, Smax, KV, D), dtype, dev, gen)
+    v = seeded_normal((B, Smax, KV, D), dtype, dev, gen)
+    errs = []
+    for n in kv_lens:
+        n_dev = torch.tensor(n, dtype=torch.int32, device=dev)
+        got = flash_decode_cuda(q, k, v, n_dev, softcap=softcap)
+        want = flash_decode_ref(q, k, v, n_dev, softcap=softcap)
+        torch.cuda.synchronize()
+        ok, err = flash_close(got, want)
+        errs.append(err)
+        if not ok:
+            raise AssertionError(f"flash_decode {label} kv_len={n}: max abs err {err:.3e} "
+                                 f"beyond {tol_text(dtype)}")
+    record["flash_decode"]["max_abs_err"] = max(record["flash_decode"]["max_abs_err"], *errs)
+    line = (f"flash_decode {label:>37}: kv_len {list(kv_lens)} max abs err "
+            f"{', '.join(f'{e:.2e}' for e in errs)} ({tol_text(dtype)})")
+    out = {}
+    if timed_len is not None:
+        n_dev = torch.tensor(timed_len, dtype=torch.int32, device=dev)
+        itemsize = torch.finfo(dtype).bits // 8
+        b, by = flash_bound_ms(*decode_work(B, timed_len, H, KV, D, itemsize), dtype)
+        copies = max(1, math.ceil(L2_FLUSH_BYTES / (2 * k.nbytes)))
+        caches = itertools.cycle([(k.clone(), v.clone()) for _ in range(copies)])
+
+        def rotated(fn):
+            def call():
+                kc, vc = next(caches)
+                return fn(kc, vc)
+            return call
+
+        out = {"ms": time_ms(rotated(lambda kc, vc: flash_decode_cuda(q, kc, vc, n_dev,
+                                                                       softcap=softcap))),
+               "plain_ms": time_ms(rotated(lambda kc, vc: flash_decode_ref(q, kc, vc, n_dev,
+                                                                            softcap=softcap))),
+               "bound_ms": b, "bound_by": by, "library_ms": None}
+        if softcap is None:
+            want = flash_decode_ref(q, k, v, n_dev)
+            lib_err = float((sdpa_decode(q, k, v, timed_len).float() - want.float()).abs().max())
+            out["library_ms"] = time_ms(rotated(lambda kc, vc: sdpa_decode(q, kc, vc,
+                                                                           timed_len)))
+            line += f", SDPA err vs plain {lib_err:.3e}"
+        line += (f" | at kv_len {timed_len}, over {copies} cache copies (L2 cold): kernel "
+                 f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, SDPA "
+                 f"{out['library_ms']} ms, bound {b:.6f} ms ({by})")
+    print(line, flush=True)
+    return out
+
+
+def serve_requests(cfg):
+    """The slice's requests, drawn from SERVE_SEED: prompt lengths uniform
+    in [PROMPT_MIN, PROMPT_MAX], token ids uniform over the vocabulary, SLO
+    classes as the reference CLI draws them."""
+    import numpy as np
+    from repro_torch.launch.serve import Request
+
+    rng = np.random.default_rng(SERVE_SEED)
+    reqs = []
+    for i in range(SERVE_REQUESTS):
+        n = int(rng.integers(PROMPT_MIN, PROMPT_MAX + 1))
+        reqs.append(Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                            slo=int(rng.choice(4, p=[0.2, 0.2, 0.45, 0.15])),
+                            max_new_tokens=SERVE_NEW))
+    return reqs
+
+
+def serve_once(model, cfg, dev):
+    """One run of the slice through the user's entry points: the requests
+    queued, ``ServeEngine`` built, ``serve_all`` drained -> (finished
+    requests in serving order, wall seconds, the engine)."""
+    import torch
+    from repro_torch.launch.serve import RequestQueue, ServeEngine, serve_all
+
+    queue = RequestQueue()
+    t0 = time.perf_counter()
+    for r in serve_requests(cfg):
+        r.arrival_s = t0
+        queue.push(r)
+    engine = ServeEngine(model, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, device=dev)
+    finished = serve_all(engine, queue)
+    torch.cuda.synchronize()
+    return finished, time.perf_counter() - t0, engine
+
+
+def wave_stats(finished, t0: float) -> list[dict]:
+    """Per wave (SERVE_SLOTS requests in serving order): its longest prompt,
+    decode steps, prefill seconds (first token minus the previous wave's
+    end), decode ms per step."""
+    waves, start = [], t0
+    for w in range(0, len(finished), SERVE_SLOTS):
+        reqs = finished[w:w + SERVE_SLOTS]
+        first = reqs[0].first_token_s
+        done = max(r.done_s for r in reqs)
+        steps = max(len(r.tokens) for r in reqs) - 1
+        waves.append({"prompt_len": max(len(r.prompt) for r in reqs), "steps": steps,
+                      "prefill_s": first - start, "ttft_s": first - t0,
+                      "decode_ms_per_step": (done - first) / steps * 1e3})
+        start = done
+    return waves
+
+
+def teacher_forced_check(model, reqs, dev) -> dict:
+    """The wave's padded prompts through ``prefill`` and one ``decode_step``
+    of its first generated tokens, against ``forward_train`` over the
+    padded prompts plus those tokens (the reference's own check,
+    tests/test_models.py:63); returns the errors."""
+    import numpy as np
+    import torch
+
+    maxlen = max(len(r.prompt) for r in reqs)
+    batch = np.zeros((SERVE_SLOTS, maxlen), np.int32)
+    first = np.zeros((SERVE_SLOTS, 1), np.int32)
+    for i, r in enumerate(reqs):
+        batch[i, maxlen - len(r.prompt):] = r.prompt
+        first[i, 0] = r.tokens[0]
+    tokens = torch.as_tensor(batch, device=dev)
+    tok0 = torch.as_tensor(first, device=dev)
+    cache = model.init_cache(SERVE_SLOTS, SERVE_MAX_SEQ)
+    pre, cache = model.prefill({"tokens": tokens}, cache)
+    dec, cache = model.decode_step(tok0, cache)
+    full, _ = model.forward_train({"tokens": torch.cat([tokens, tok0], dim=1)})
+    want = full[:, -1].float()
+    got = dec[:, 0].float()
+    n = len(reqs)
+    out = {"finite": bool(torch.isfinite(pre).all() and torch.isfinite(dec).all()
+                          and torch.isfinite(full).all()),
+           "max_abs_err": float((got - want).abs().max()),
+           "scale": float(want.abs().max()),
+           "mean_abs_err": float((got - want).abs().mean()),
+           "argmax_agree": int((got.argmax(-1) == want.argmax(-1))[:n].sum()),
+           "prefill_tokens_agree": int((pre[:n, -1].argmax(-1).cpu().numpy()
+                                        == first[:n, 0]).sum()),
+           "rows": n}
+    del full
+    return out
+
+
+def serving_phase(dev, record) -> dict:
+    """Phase 4: the flash kernels at the serve path's shapes, then the slice."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False       # f32 plain versions in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    cfg = get_config(SERVE_ARCH)
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    reqs = serve_requests(cfg)
+    # the main path's shapes: each wave's longest prompt (waves follow SLO priority)
+    from repro_torch.launch.serve import RequestQueue
+    q = RequestQueue()
+    for r in reqs:
+        q.push(r)
+    order = [q.pop() for _ in range(len(reqs))]
+    wave_lens = [max(len(r.prompt) for r in order[w:w + SERVE_SLOTS])
+                 for w in range(0, len(order), SERVE_SLOTS)]
+
+    # -- 4a. kernels against their plain versions --------------------------------
+    times = {}
+    check_flash_attention(f"B=8 S={PROMPT_MAX} H=16 KV=2 D=128 f32", (8, PROMPT_MAX, H, KV, D),
+                          f32, dev, gen, record)
+    times["prefill_1024"] = check_flash_attention(
+        f"B=8 S={PROMPT_MAX} H=16 KV=2 D=128 bf16", (8, PROMPT_MAX, H, KV, D), bf16, dev, gen,
+        record, timed=True)
+    times["prefill_main"] = check_flash_attention(
+        f"main path wave 1 B=8 S={wave_lens[0]} bf16", (SERVE_SLOTS, wave_lens[0], H, KV, D),
+        bf16, dev, gen, record, timed=True)
+    for dtype in (f32, bf16):
+        check_flash_attention(f"window 256 softcap 50 D=256 KV=8 {str(dtype)[6:]}",
+                              (2, 1024, 16, 8, 256), dtype, dev, gen, record, window=256,
+                              softcap=50.0, timed=dtype == bf16)
+    check_flash_attention("odd B=3 S=777 D=128 bf16", (3, 777, H, KV, D), bf16, dev, gen, record)
+    check_flash_attention("odd smollm B=2 S=333 H=15 KV=5 D=64 f32", (2, 333, 15, 5, 64), f32,
+                          dev, gen, record)
+    check_flash_attention("odd B=2 S=45 H=4 KV=2 D=16 f32", (2, 45, 4, 2, 16), f32, dev, gen,
+                          record)
+    dshape = (SERVE_SLOTS, SERVE_MAX_SEQ, H, KV, D)
+    main_len = wave_lens[0] + SERVE_NEW - 1        # the wave's last decode step
+    times["decode_main"] = check_flash_decode(
+        f"B=8 Smax={SERVE_MAX_SEQ} bf16", dshape, bf16, dev, gen, record,
+        (1, 17, 1000, SERVE_MAX_SEQ, main_len), timed_len=main_len)
+    check_flash_decode(f"B=8 Smax={SERVE_MAX_SEQ} f32", dshape, f32, dev, gen, record,
+                       (1, 17, 1000, SERVE_MAX_SEQ))
+    check_flash_decode(f"softcap 50 B=8 Smax={SERVE_MAX_SEQ} bf16", dshape, bf16, dev, gen,
+                       record, (17, 517, SERVE_MAX_SEQ), softcap=50.0)
+    check_flash_decode("odd B=3 Smax=777 D=256 KV=8 f32", (3, 777, 16, 8, 256), f32, dev, gen,
+                       record, (1, 333, 777))
+
+    # -- 4b. the slice -------------------------------------------------------------
+    t = time.perf_counter()
+    model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(
+        SERVE_SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    finished, wall, _ = serve_once(model, cfg, dev)
+    launches = dict(ops.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    waves = wave_stats(finished, t0)
+    steps = sum(w["steps"] for w in waves)
+    want = {"flash_attention": cfg.num_layers * len(waves),
+            "flash_decode": cfg.num_layers * steps}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"serve launched {name} {launches[name]} times, expected {n}")
+    for r in finished:
+        if len(r.tokens) != SERVE_NEW or not all(0 <= x < cfg.vocab_size for x in r.tokens):
+            raise AssertionError(f"request {r.rid}: tokens {r.tokens}")
+    if sorted(r.rid for r in finished) != list(range(SERVE_REQUESTS)):
+        raise AssertionError("not every request was served once")
+    for i, w in enumerate(waves):
+        print(f"serve wave {i + 1}: B={SERVE_SLOTS} prompt_len {w['prompt_len']} (left-padded), "
+              f"prefill {w['prefill_s'] * 1e3:.3f} ms, TTFT from arrival {w['ttft_s'] * 1e3:.3f} "
+              f"ms, {w['steps']} decode steps at {w['decode_ms_per_step']:.4f} ms per step "
+              f"({w['decode_ms_per_step'] / SERVE_SLOTS:.4f} ms per token)", flush=True)
+    from repro_torch.launch.serve import latency_report
+    report = latency_report(finished)
+    print(f"serve {SERVE_ARCH} full width ({n_params / 1e9:.4f} B params, bf16, init "
+          f"{init_s:.3f} s): {len(finished)} requests in {len(waves)} waves, wall {wall:.4f} s, "
+          f"{SERVE_REQUESTS * SERVE_NEW / wall:.2f} generated tokens/s, launches {launches}, "
+          f"peak memory {peak / 2**30:.3f} GiB; latency by SLO "
+          + json.dumps({f"SLO{k + 1}": v for k, v in report.items()}), flush=True)
+
+    # -- 4c. checks: repeat, teacher forcing, finite logits ------------------------
+    t0 = time.perf_counter()
+    again, wall2, engine = serve_once(model, cfg, dev)
+    same = {r.rid: r.tokens for r in again} == {r.rid: r.tokens for r in finished}
+    print(f"repeat serve: wall {wall2:.4f} s, tokens identical {same}; per wave " + "; ".join(
+        f"prefill {w['prefill_s'] * 1e3:.3f} ms, {w['decode_ms_per_step']:.4f} ms per step"
+        for w in wave_stats(again, t0)), flush=True)
+    if not same:
+        raise AssertionError("a second serve of the same requests gave other tokens")
+    tf = teacher_forced_check(model, finished[:SERVE_SLOTS], dev)
+    print(f"teacher-forced check (wave 1, {tf['rows']} rows): decode vs forward_train max abs "
+          f"err {tf['max_abs_err']:.4f} of max |logit| {tf['scale']:.4f} (tol {TEACHER_TOL:g} "
+          f"x scale), mean abs err {tf['mean_abs_err']:.5f}, argmax agree "
+          f"{tf['argmax_agree']}/{tf['rows']}, prefill argmax = served first token "
+          f"{tf['prefill_tokens_agree']}/{tf['rows']}, all finite {tf['finite']}", flush=True)
+    if not tf["finite"]:
+        raise AssertionError("non-finite logits at full width")
+    if not tf["max_abs_err"] <= TEACHER_TOL * tf["scale"]:
+        raise AssertionError("decode logits part from the teacher-forced forward")
+    if tf["prefill_tokens_agree"] != tf["rows"]:
+        raise AssertionError("a repeat prefill picked another first token than the served run")
+
+    # one profiled decode step (a fresh wave, then one step under torch.profiler)
+    engine.admit_wave(serve_requests(cfg)[:SERVE_SLOTS])
+    prof = device_profile(engine.step)
+    if prof["busy_s"] is None:
+        idle = None
+        print(f"profile: one decode step, wall {prof['wall_s'] * 1e3:.3f} ms; the profiler saw "
+              "no device activity (idle share not measured)", flush=True)
+    else:
+        idle = 1.0 - prof["busy_s"] / prof["span_s"]
+        top = ", ".join(f"{name[:48]} {us / 1e3:.4f} ms" for name, us in prof["kernels"][:6])
+        print(f"profile: one decode step, wall {prof['wall_s'] * 1e3:.3f} ms, device busy "
+              f"{prof['busy_s'] * 1e3:.3f} ms (idle share {idle:.4f} of the traced span "
+              f"{prof['span_s'] * 1e3:.3f} ms), {prof['launches']} device launches; kernel time "
+              f"by name: {top}", flush=True)
+    wall_h, phases = host_profile(engine.step, DECODE_PHASES)
+    print(f"host profile: one decode step under cProfile, wall {wall_h * 1e3:.3f} ms; "
+          "cumulative: " + ", ".join(f"{label} {sec * 1e3:.3f} ms ({sec / wall_h:.3f})"
+                                     for label, sec in phases.items()), flush=True)
+    del model, engine
+    torch.cuda.empty_cache()
+    return {"launches": launches, "times": times, "waves": waves, "idle": idle,
+            "peak_gib": peak / 2**30}
 
 
 def main() -> int:
@@ -498,7 +972,9 @@ def main() -> int:
     record = {"move_eval": {"max_abs_err": 0.0},
               "move_eval_best": {"max_abs_err": 0.0, "ties": 0},
               "commit_topk": {"max_abs_err": 0.0},
-              "pack_ffd_tiers": {"max_abs_err": 0.0}}
+              "pack_ffd_tiers": {"max_abs_err": 0.0},
+              "flash_attention": {"max_abs_err": 0.0},
+              "flash_decode": {"max_abs_err": 0.0}}
 
     # -- 2a. sweep kernels at the stated shapes --------------------------------
     sweep_times = {}
@@ -669,7 +1145,11 @@ def main() -> int:
             and rounds[0] == rounds[1] and agree >= 0.98):
         raise AssertionError("the card's balance disagrees with the plain path at N=300")
 
-    # -- 4. result lines --------------------------------------------------------
+    # -- 4. the serving slice: qwen2.5-3b at full width --------------------------
+    serving = serving_phase(dev, record)
+    fa, fd = serving["times"]["prefill_main"], serving["times"]["decode_main"]
+
+    # -- 5. result lines --------------------------------------------------------
     kernels = [
         {"name": "move_eval_best", "route": "cuda", "source": MOVE_EVAL_SRC,
          "replaces": "src/repro/kernels/move_eval.py:275",
@@ -701,6 +1181,18 @@ def main() -> int:
          "ms": pack_main["ms"], "plain_ms": pack_main["plain_ms"],
          "bound_ms": pack_main["bound_ms"], "bound_by": pack_main["bound_by"],
          "library_ms": None},
+        {"name": "flash_attention", "route": "cuda", "source": FLASH_ATTENTION_SRC,
+         "replaces": "src/repro/kernels/flash_attention.py:144",
+         "launches": serving["launches"]["flash_attention"],
+         "max_abs_err": record["flash_attention"]["max_abs_err"],
+         "ms": fa["ms"], "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"],
+         "bound_by": fa["bound_by"], "library_ms": fa["library_ms"]},
+        {"name": "flash_decode", "route": "cuda", "source": FLASH_DECODE_SRC,
+         "replaces": "src/repro/kernels/flash_decode.py:108",
+         "launches": serving["launches"]["flash_decode"],
+         "max_abs_err": record["flash_decode"]["max_abs_err"],
+         "ms": fd["ms"], "plain_ms": fd["plain_ms"], "bound_ms": fd["bound_ms"],
+         "bound_by": fd["bound_by"], "library_ms": fd["library_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

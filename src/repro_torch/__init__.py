@@ -2,13 +2,15 @@
 
 The public surface mirrors the reference's core: build a cluster with
 ``generate_cluster`` and run ``Sptlb(cluster).balance("local",
-config=CoopConfig())``.  Entry points run on the card (``device="cuda"``,
-the default) unless the caller asks for the CPU.
+config=CoopConfig())``.  The model side so far serves the dense family:
+``models.build_model(configs.get_config("qwen2.5-3b"))`` and
+``launch.serve.ServeEngine``.  Entry points run on the card
+(``device="cuda"``, the default) unless the caller asks for the CPU.
 """
 from repro_torch.core import (BalanceDecision, ClusterState, CoopConfig, Sptlb,
                               generate_cluster, make_problem, solve_local)
-from repro_torch.weights import from_reference, to_numpy
+from repro_torch.weights import from_reference, lm_from_reference, lm_to_numpy, to_numpy
 
 __all__ = ["BalanceDecision", "ClusterState", "CoopConfig", "Sptlb",
            "generate_cluster", "make_problem", "solve_local",
-           "from_reference", "to_numpy"]
+           "from_reference", "to_numpy", "lm_from_reference", "lm_to_numpy"]

@@ -1,0 +1,60 @@
+"""Architecture registry of the port: the dense configs it serves so far.
+
+``get_config(arch_id)`` returns the exact published config (the same
+numbers as the reference's ``repro.configs``); the CLI aliases are the
+reference's.  The other seven architectures come with their families in
+later slices of the port (ROADMAP.md, Queue 2 and Queue 1 item 8).
+"""
+from __future__ import annotations
+
+import importlib
+
+ARCHS = (
+    "qwen2p5_3b",
+    "smollm_360m",
+    "olmo_1b",
+)
+
+# The reference's CLI aliases, all ten (--arch accepts either form).
+ALIASES = {
+    "zamba2-2.7b": "zamba2_2p7b",
+    "phi-3-vision-4.2b": "phi3_vision_4p2b",
+    "gemma2-9b": "gemma2_9b",
+    "qwen2.5-3b": "qwen2p5_3b",
+    "smollm-360m": "smollm_360m",
+    "olmo-1b": "olmo_1b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "granite-moe-1b-a400m": "granite_moe_1b",
+    "xlstm-125m": "xlstm_125m",
+    "hubert-xlarge": "hubert_xlarge",
+}
+
+# Where each architecture not yet ported stands in ROADMAP.md.
+NOT_YET_PORTED = {
+    "zamba2_2p7b": "Queue 2 item 1 (the hybrid serve path: models/mamba2.py, ssd_chunk)",
+    "gemma2_9b": "Queue 1 item 8a (windowed decode and local_global_pattern)",
+    "granite_moe_1b": "Queue 1 item 8b (MoE)",
+    "deepseek_v2_lite_16b": "Queue 1 items 8b-8c (MoE and MLA)",
+    "phi3_vision_4p2b": "Queue 1 item 8d (VLM, audio and xLSTM families)",
+    "hubert_xlarge": "Queue 1 item 8d (VLM, audio and xLSTM families)",
+    "xlstm_125m": "Queue 1 item 8d (VLM, audio and xLSTM families)",
+}
+
+
+def canonical(arch: str) -> str:
+    return ALIASES.get(arch, arch)
+
+
+def get_config(arch: str):
+    name = canonical(arch)
+    if name in NOT_YET_PORTED:
+        raise NotImplementedError(
+            f"{arch!r} is not ported yet: ROADMAP.md {NOT_YET_PORTED[name]}")
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCHS}")
+    mod = importlib.import_module(f"repro_torch.configs.{name}")
+    return mod.config()
+
+
+def list_archs():
+    return list(ARCHS)

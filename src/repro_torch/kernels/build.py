@@ -28,7 +28,8 @@ COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas"
 # Per-source extra flags: the move_eval and commit kernels round every
 # operation on its own (no fused multiply-add), as the plain torch version's
 # ops do.
-EXTRA_FLAGS = {"move_eval": ["-fmad=false"], "commit": ["-fmad=false"], "pack": []}
+EXTRA_FLAGS = {"move_eval": ["-fmad=false"], "commit": ["-fmad=false"], "pack": [],
+               "flash_attention": [], "flash_decode": []}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +44,12 @@ SIGNATURES = {
     },
     "pack": {
         "pack_ffd_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P],
+    },
+    "flash_attention": {
+        "flash_attention_launch": [_I] * 7 + [_F, _I, _I, _F] + [_P] * 5,
+    },
+    "flash_decode": {
+        "flash_decode_launch": [_I] * 8 + [_F, _F] + [_P] * 9,
     },
 }
 

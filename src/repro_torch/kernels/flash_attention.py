@@ -1,0 +1,66 @@
+"""CUDA wrapper for flash attention (``csrc/flash_attention.cu``).
+
+Replaces the Pallas TPU kernel ``flash_attention`` of
+``repro/kernels/flash_attention.py``: causal GQA attention with an optional
+sliding window and logit softcap, top-left positions (query i is position
+i).  Unlike the TPU wrapper it pads nothing: D is not rounded up to 128
+lanes, and ragged sequence ends are masked inside the kernel.
+
+This wrapper takes CUDA tensors only; ``kernels.ops`` routes CPU tensors to
+the plain version ``kernels.ref.flash_attention_ref``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.build import check_launch, load_library
+
+MAX_HEAD_DIM = 256
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise unless q [B, Sq, H, D] and k, v [B, Skv, KV, D] are CUDA tensors
+    of one supported dtype with H a multiple of KV and D <= 256."""
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
+        if x.dim() != 4:
+            raise ValueError(f"{name} must be 4-D, got shape {tuple(x.shape)}")
+        if x.dtype != q.dtype:
+            raise TypeError(f"{name} is {x.dtype}, q is {q.dtype}")
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"dtype {q.dtype} not supported (float32 or bfloat16)")
+    B, _, H, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if H % k.shape[2] != 0:
+        raise ValueError(f"{H} query heads are not a multiple of {k.shape[2]} kv heads")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {D} > {MAX_HEAD_DIM}")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True, window: Optional[int] = None,
+                         softcap: Optional[float] = None,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """q [B, Sq, H, D], k/v [B, Skv, KV, D] -> [B, Sq, H, D] in q's dtype."""
+    check_qkv(q, k, v)
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"softcap must be positive, got {softcap}")
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    lib = load_library("flash_attention")
+    code = lib.flash_attention_launch(
+        B, Sq, Skv, H, KV, D, DTYPE_CODES[q.dtype], float(scale), int(causal),
+        int(window or 0), float(softcap or 0.0), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(lib, code, "flash_attention")
+    return out

@@ -11,9 +11,12 @@ kernels; ``reset_launch_counts`` zeroes them.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 from repro_torch.kernels import ref as _ref
 
-launch_counts = {"move_eval": 0, "move_eval_best": 0, "commit_topk": 0, "pack_ffd_tiers": 0}
+launch_counts = {"move_eval": 0, "move_eval_best": 0, "commit_topk": 0, "pack_ffd_tiers": 0,
+                 "flash_attention": 0, "flash_decode": 0}
 
 
 def reset_launch_counts() -> None:
@@ -64,3 +67,29 @@ def pack_ffd_tiers(demand_sorted, capacity, hosts_per_tier, *, num_hosts_pad: in
         return out
     return _ref.pack_ffd_tiers_ref(demand_sorted, capacity, hosts_per_tier,
                                    num_hosts_pad=num_hosts_pad)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None, scale: Optional[float] = None):
+    """Causal GQA attention, q [B, Sq, H, D], k/v [B, Skv, KV, D] ->
+    [B, Sq, H, D]; see kernels.ref.flash_attention_ref."""
+    if q.is_cuda:
+        from repro_torch.kernels.flash_attention import flash_attention_cuda
+        out = flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap,
+                                   scale=scale)
+        launch_counts["flash_attention"] += 1
+        return out
+    return _ref.flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
+                                    scale=scale)
+
+
+def flash_decode(q, k, v, kv_len, *, scale: Optional[float] = None,
+                 softcap: Optional[float] = None):
+    """One query token over the cache positions < kv_len, q [B, 1, H, D],
+    k/v [B, Smax, KV, D] -> [B, 1, H, D]; see kernels.ref.flash_decode_ref."""
+    if q.is_cuda:
+        from repro_torch.kernels.flash_decode import flash_decode_cuda
+        out = flash_decode_cuda(q, k, v, kv_len, scale=scale, softcap=softcap)
+        launch_counts["flash_decode"] += 1
+        return out
+    return _ref.flash_decode_ref(q, k, v, kv_len, scale=scale, softcap=softcap)

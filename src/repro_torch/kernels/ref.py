@@ -6,6 +6,8 @@ tensors are on a card.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -99,6 +101,67 @@ def pack_ffd_tiers_ref(demand_sorted: torch.Tensor, capacity: torch.Tensor,
         hosts[rows, h] = hosts[rows, h] + step
         rejected[:, i] = ~any_fit
     return rejected
+
+
+NEG_INF = -1e30
+
+
+def _flash_softmax_pv(logits: torch.Tensor, mask: torch.Tensor, v: torch.Tensor,
+                      softcap: Optional[float]) -> torch.Tensor:
+    """Softcap, mask with -1e30, softmax and P.V, all in f32 (the flash
+    kernels' arithmetic).  logits [B, KV, G, Sq, Skv]; mask broadcasts
+    to it; v [B, Skv, KV, D] -> [B, Sq, KV, G, D] f32."""
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    logits = torch.where(mask, logits, torch.full((), NEG_INF, device=logits.device))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(torch.float32))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of the flash attention kernel: q [B, Sq, H, D], k/v
+    [B, Skv, KV, D] -> [B, Sq, H, D] in q's dtype.  Top-left positions
+    (query i is position i, key j position j); q is scaled in f32 before the
+    dot and the probabilities stay f32 (reference ``kernels/ref.py:21``)."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else D ** -0.5
+    qf = (q.to(torch.float32) * scale).reshape(B, Sq, KV, G, D)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qf, k.to(torch.float32))
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    out = _flash_softmax_pv(logits, mask, v, softcap)
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len, *,
+                     scale: Optional[float] = None,
+                     softcap: Optional[float] = None) -> torch.Tensor:
+    """Plain version of the flash decode kernel: q [B, 1, H, D] over cache
+    positions < kv_len of k/v [B, Smax, KV, D] -> [B, 1, H, D] in q's dtype.
+    ``kv_len`` is an int or a one-value tensor (compared on its device, never
+    read on the host).  f32 throughout, as the flash kernels (reference
+    ``kernels/ref.py:52`` rounds the probabilities to v's dtype instead)."""
+    B, _, H, D = q.shape
+    Smax, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else D ** -0.5
+    qf = (q.to(torch.float32) * scale).reshape(B, 1, KV, G, D)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qf, k.to(torch.float32))
+    if isinstance(kv_len, torch.Tensor):
+        kv_len = kv_len.to(q.device).reshape(())
+    mask = torch.arange(Smax, device=q.device) < kv_len
+    out = _flash_softmax_pv(logits, mask, v, softcap)
+    return out.reshape(B, 1, H, D).to(q.dtype)
 
 
 def random_problem_arrays(N: int, T: int, seed: int = 0, device="cpu"):

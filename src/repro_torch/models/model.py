@@ -1,0 +1,50 @@
+"""Model builder of the port: ``build_model(cfg)`` -> a module with random
+weights on the card (the reference's ``build_model`` plus its ``init``).
+
+Only the dense family is ported so far; the others raise, naming their
+ROADMAP items.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import TransformerLM
+
+NOT_YET_PORTED = {
+    "hybrid": "Queue 2 item 1 (the Zamba2 serve path: models/mamba2.py and ssd_chunk)",
+    "moe": "Queue 1 item 8b (MoE)",
+    "vlm": "Queue 1 item 8d (VLM, audio and xLSTM families)",
+    "audio": "Queue 1 item 8d (VLM, audio and xLSTM families)",
+    "ssm": "Queue 1 item 8d (VLM, audio and xLSTM families)",
+}
+
+
+def build_model(cfg: ModelConfig, device=DEFAULT_DEVICE,
+                generator: Optional[torch.Generator] = None) -> TransformerLM:
+    """The model of ``cfg`` on ``device`` (default the card; raises without
+    one), its weights drawn from ``generator`` with the reference's
+    distributions: normal * scale / sqrt(d_in) for dense weights (scale 0.5
+    for the output projections), normal * 0.02 for the embedding, zero
+    biases, norms at one (zero with ``rms_offset``).  Without a generator,
+    one seeded with 0 on the device is used."""
+    dev = resolve_device(device)
+    if cfg.family in NOT_YET_PORTED:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet: ROADMAP.md {NOT_YET_PORTED[cfg.family]}")
+    if cfg.family != "dense":
+        raise ValueError(f"unknown family {cfg.family!r}")
+    model = empty_model(cfg, dev)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    model.reset(generator)
+    return model
+
+
+def empty_model(cfg: ModelConfig, device) -> TransformerLM:
+    """The dense model of ``cfg`` with uninitialised weights (filled by
+    ``build_model`` or ``weights.lm_from_reference``)."""
+    return TransformerLM(cfg, device=resolve_device(device)).eval()

@@ -1,0 +1,178 @@
+"""Decoder-only transformer LM of the dense family (qwen2.5, smollm, olmo).
+
+The port of ``repro/models/transformer.py`` for ``family == "dense"``: an
+``nn.ModuleList`` of blocks takes the place of the reference's stacked and
+scanned layers.  Entry points, as the reference's (the parameters live in
+the module):
+
+    model.forward_train(batch) -> (logits [B, S, V] f32, aux 0.0)
+    model.init_cache(batch, max_seq) -> cache
+    model.prefill(batch, cache) -> (logits [B, 1, V], cache)
+    model.decode_step(token [B, 1], cache) -> (logits [B, 1, V], cache)
+
+The cache is {"pos": int32 scalar on the device, "layers": [{"k", "v"}]};
+prefill and decode update it in place and return it.  A decode step never
+reads the position on the host.
+
+``post_block_norms``, ``embed_scale`` and ``final_softcap`` are honoured.
+MoE (``num_experts > 0``, ``first_dense_layers``) and
+``local_global_pattern`` raise ``NotImplementedError``; the loss and every
+backward pass wait for the training slice (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.models import layers as L
+from repro_torch.models.attention import GQAttention, gqa_cache_shape
+from repro_torch.models.config import ModelConfig
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def check_dense(cfg: ModelConfig) -> None:
+    if cfg.num_experts > 0 or cfg.first_dense_layers:
+        raise NotImplementedError("MoE layers are not ported yet: ROADMAP.md Queue 1 item 8b")
+    if cfg.local_global_pattern:
+        raise NotImplementedError("local_global_pattern (gemma2) is not ported yet: "
+                                  "ROADMAP.md Queue 1 item 8a")
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, dtype, device):
+        super().__init__()
+        self.ln1 = L.Norm(cfg, device)
+        self.attn = GQAttention(cfg, dtype=dtype, device=device)
+        self.ln2 = L.Norm(cfg, device)
+        self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.activation, dtype=dtype, device=device)
+        self.post = cfg.post_block_norms
+        if self.post:                                  # gemma2 sandwich norms
+            self.ln1_post = L.Norm(cfg, device)
+            self.ln2_post = L.Norm(cfg, device)
+
+    def reset(self, generator: torch.Generator) -> None:
+        for norm in self.norms():
+            norm.reset()
+        self.attn.reset(generator)
+        self.mlp.reset(generator)
+
+    def norms(self):
+        return [self.ln1, self.ln2] + ([self.ln1_post, self.ln2_post] if self.post else [])
+
+    def forward(self, x, *, rope, window=None, cache=None, cache_pos=None, kv_len=None):
+        attn_out = self.attn(self.ln1(x), rope=rope, cache=cache, cache_pos=cache_pos,
+                             kv_len=kv_len, window=window)
+        if self.post:
+            attn_out = self.ln1_post(attn_out)
+        x = x + attn_out
+        ffn_out = self.mlp(self.ln2(x))
+        if self.post:
+            ffn_out = self.ln2_post(ffn_out)
+        return x + ffn_out
+
+
+class TransformerLM(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        check_dense(cfg)
+        self.cfg = cfg
+        self.dtype = DTYPES[cfg.param_dtype]
+        kw = dict(dtype=self.dtype, device=device)
+        self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model, **kw),
+                                  requires_grad=False)
+        self.final_norm = L.Norm(cfg, device)
+        self.lm_head = (None if cfg.tie_embeddings else nn.Parameter(
+            torch.empty(cfg.d_model, cfg.vocab_size, **kw), requires_grad=False))
+        self.blocks = nn.ModuleList(Block(cfg, dtype=self.dtype, device=device)
+                                    for _ in range(cfg.num_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    # -- parameters ----------------------------------------------------------
+    def reset(self, generator: torch.Generator) -> None:
+        """Random weights with the reference's distributions, drawn from
+        ``generator`` in the parameters' dtype on their device."""
+        self.embed.data.normal_(0.0, 0.02, generator=generator)
+        self.final_norm.reset()
+        if self.lm_head is not None:
+            L.dense_init_(self.lm_head.data, generator)
+        for block in self.blocks:
+            block.reset(generator)
+
+    # -- caches --------------------------------------------------------------
+    def init_cache(self, batch: int, max_seq: int) -> dict:
+        """A zeroed cache in the parameters' dtype, the k/v dtype."""
+        layers = [{name: torch.zeros(shape, dtype=self.dtype, device=self.device)
+                   for name, shape in gqa_cache_shape(self.cfg, batch, max_seq).items()}
+                  for _ in self.blocks]
+        return {"pos": torch.zeros((), dtype=torch.int32, device=self.device), "layers": layers}
+
+    # -- forward -------------------------------------------------------------
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.embed[tokens.to(self.device).long()]
+        if self.cfg.embed_scale:
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype, device=x.device)
+        return x
+
+    def _unembed(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = self.final_norm(x)
+        w = self.embed.T if cfg.tie_embeddings else self.lm_head
+        logits = L.matmul_f32(x, w)
+        if cfg.final_softcap:
+            logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+        return logits
+
+    def _run_layers(self, x, positions, cache=None, cache_pos=None, kv_len=None):
+        cfg = self.cfg
+        rope = (L.rope_tables(positions, cfg.rope_dim or cfg.resolved_head_dim, cfg.rope_theta)
+                if cfg.use_rope else None)
+        for i, block in enumerate(self.blocks):
+            c = cache["layers"][i] if cache is not None else None
+            x = block(x, rope=rope, window=cfg.window, cache=c, cache_pos=cache_pos,
+                      kv_len=kv_len)
+        return x
+
+    def _positions(self, B: int, S: int) -> torch.Tensor:
+        return torch.arange(S, dtype=torch.int32, device=self.device).expand(B, S)
+
+    @torch.no_grad()
+    def forward_train(self, batch: dict):
+        """-> (logits over the S positions [B, S, V] f32, aux loss 0.0)."""
+        if batch.get("vision_embeds") is not None:
+            raise NotImplementedError("vision inputs are not ported yet: "
+                                      "ROADMAP.md Queue 1 item 8d")
+        x = self._embed(batch["tokens"])
+        B, S, _ = x.shape
+        x = self._run_layers(x, self._positions(B, S))
+        return self._unembed(x), 0.0
+
+    @torch.no_grad()
+    def prefill(self, batch: dict, cache: dict):
+        """Writes the prompt's k/v at [0, S) of every layer's cache and sets
+        ``cache["pos"]`` to S -> (logits of the last position [B, 1, V])."""
+        x = self._embed(batch["tokens"])
+        B, S, _ = x.shape
+        x = self._run_layers(x, self._positions(B, S), cache=cache, cache_pos=0)
+        cache["pos"].fill_(S)
+        return self._unembed(x[:, -1:]), cache
+
+    @torch.no_grad()
+    def decode_step(self, token: torch.Tensor, cache: dict):
+        """token int [B, 1]; the cache holds ``cache["pos"]`` tokens ->
+        (logits [B, 1, V], the cache with one more)."""
+        x = self._embed(token)
+        B = x.shape[0]
+        pos = cache["pos"]
+        positions = pos.expand(B, 1)
+        index = pos.to(torch.int64).reshape(1)
+        kv_len = pos + 1
+        x = self._run_layers(x, positions, cache=cache, cache_pos=index, kv_len=kv_len)
+        cache["pos"] = kv_len
+        return self._unembed(x), cache
+

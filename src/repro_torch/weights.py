@@ -1,10 +1,18 @@
-"""Carry the reference's problem data across to the port and back.
+"""Carry the reference's problem data and model weights across to the port
+and back.
 
 The balancer's "weights" are its problem data.  ``from_reference`` turns the
 reference ``Problem``'s fields, taken out as numpy arrays, into the port's
 ``Problem`` on a device; ``to_numpy`` goes the other way.  The dict holds
 one entry per ``Problem`` field; ``weights`` is a dict of the five goal
 weights, and the optional utility curves may be absent or None.
+
+``lm_from_reference`` builds the port's ``TransformerLM`` from the
+reference's params pytree as numpy arrays (``TransformerLM.init``'s layout:
+``embed``, ``final_norm``, optional ``lm_head``, and ``layers`` a list of
+one group whose leaves are stacked [num_layers, ...]); ``lm_to_numpy`` goes
+the other way.  Both packages store linear weights [d_in, d_out], so
+nothing is transposed: the stacked leaves are only cut per layer.
 """
 from __future__ import annotations
 
@@ -15,6 +23,7 @@ import torch
 
 from repro_torch.core.problem import GOAL_NAMES, GoalWeights, Problem
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.models.model import empty_model
 
 _CURVES = ("util_knee", "util_slope", "util_weight")
 
@@ -50,4 +59,104 @@ def to_numpy(problem: Problem) -> dict:
                               for name in GOAL_NAMES}
         elif value is not None:
             out[f.name] = value.detach().cpu().numpy()
+    return out
+
+
+_ATTN = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+_MLP = ("w_gate", "w_up", "w_down")
+
+
+def _norm_params(norm) -> dict:
+    """A port norm's parameters in the reference's form: the rmsnorm
+    weight array, {"scale", "bias"} for layernorm, None without params."""
+    if norm.kind == "rmsnorm":
+        return {"": norm.weight}
+    if norm.kind == "layernorm":
+        return {"scale": norm.weight, "bias": norm.bias}
+    return {}
+
+
+def _layer_tensors(block) -> dict:
+    """(reference path) -> port tensor for one block."""
+    out = {}
+    for name in ("ln1", "ln2", "ln1_post", "ln2_post"):
+        if hasattr(block, name):
+            for key, t in _norm_params(getattr(block, name)).items():
+                out[(name, key)] = t
+    for name in _ATTN:
+        t = getattr(block.attn, name)
+        if t is not None:
+            out[("attn", name)] = t
+    for name in _MLP:
+        out[("mlp", name)] = getattr(block.mlp, name)
+    return out
+
+
+def _get(tree, path):
+    node = tree[path[0]]
+    return node if path[1] == "" else node[path[1]]
+
+
+def lm_from_reference(cfg, params_np: dict, device=DEFAULT_DEVICE):
+    """The port's ``TransformerLM`` of ``cfg`` with the reference's weights
+    (its params pytree, leaves as numpy arrays) on ``device``."""
+    model = empty_model(cfg, device)
+    if "prefix" in params_np:
+        raise NotImplementedError("unrolled prefix layers belong to MoE configs, "
+                                  "which are not ported yet")
+    groups = params_np["layers"]
+    if len(groups) != 1:
+        raise NotImplementedError("layer groups of more than one layer belong to "
+                                  "local_global_pattern configs, which are not ported yet")
+    stacked = groups[0]
+
+    def put(t, value):
+        value = np.asarray(value)
+        if tuple(value.shape) != tuple(t.shape):
+            raise ValueError(f"shape {value.shape} does not fit {tuple(t.shape)}")
+        t.data.copy_(torch.as_tensor(value.astype(np.float32)).to(t.dtype))
+
+    put(model.embed, params_np["embed"])
+    for key, t in _norm_params(model.final_norm).items():
+        put(t, params_np["final_norm"] if key == "" else params_np["final_norm"][key])
+    if model.lm_head is not None:
+        put(model.lm_head, params_np["lm_head"])
+    for i, block in enumerate(model.blocks):
+        for path, t in _layer_tensors(block).items():
+            put(t, _get(stacked, path)[i])
+    return model
+
+
+def lm_to_numpy(model) -> dict:
+    """The inverse of ``lm_from_reference``: the reference's params pytree
+    with numpy leaves (stacked [num_layers, ...]; f32 for bf16 weights)."""
+    def arr(t):
+        t = t.detach()
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+    def norm_tree(norm, values):
+        if norm.kind == "rmsnorm":
+            return values[""]
+        if norm.kind == "layernorm":
+            return {"scale": values["scale"], "bias": values["bias"]}
+        return None
+
+    out = {"embed": arr(model.embed),
+           "final_norm": norm_tree(model.final_norm, {k: arr(t) for k, t in
+                                                      _norm_params(model.final_norm).items()})}
+    if model.lm_head is not None:
+        out["lm_head"] = arr(model.lm_head)
+    per_layer = [_layer_tensors(b) for b in model.blocks]
+    first = model.blocks[0]
+    group = {}
+    for name in ("ln1", "ln2", "ln1_post", "ln2_post"):
+        if hasattr(first, name):
+            norm = getattr(first, name)
+            group[name] = norm_tree(norm, {
+                key: np.stack([arr(layer[(name, key)]) for layer in per_layer])
+                for key in _norm_params(norm)})
+    for sub, names in (("attn", _ATTN), ("mlp", _MLP)):
+        group[sub] = {name: np.stack([arr(layer[(sub, name)]) for layer in per_layer])
+                      for name in names if (sub, name) in per_layer[0]}
+    out["layers"] = [group]
     return out

@@ -10,7 +10,12 @@ Tolerances are those of the CPU parity tests: the sweep within scaled atol
 1e-5; the fused best with the same +inf set, scores within scaled 1e-5 and
 the same tiers except at ties (scaled gap < 1e-6; the kernel tests its fit
 in load-fraction space, the plain version in absolute units); the commit
-scan and packing bit-identical.
+scan and packing bit-identical.  The flash kernels within 3e-5 in f32 (the
+reference's flash tolerance) and, in bf16, within atol 2e-3 and rtol 2^-7:
+kernel and plain version both compute in f32 and round the output once, so
+they part by at most one bf16 ulp; rounding the probabilities to bf16 would
+part them by more.  A reduced-config serve on the card gives the CPU plain
+path's tokens.
 """
 import numpy as np
 import pytest
@@ -20,7 +25,8 @@ import repro_torch.core as P
 from repro_torch.core.delta import move_best_per_app, move_delta_cost
 from repro_torch.kernels import ops
 from repro_torch.kernels.pack import pack_ffd, pack_ffd_tiers
-from repro_torch.kernels.ref import commit_topk_ref, pack_ffd_tiers_ref, random_problem_arrays
+from repro_torch.kernels.ref import (commit_topk_ref, flash_attention_ref, flash_decode_ref,
+                                    pack_ffd_tiers_ref, random_problem_arrays)
 
 from _torch_port import assert_rel, cuda_device, host  # noqa: F401
 
@@ -132,3 +138,92 @@ def test_tier_loads_on_the_card_are_reproducible(cuda_device):
     util_c, tasks_c = P.tier_loads(p.to("cpu"), p.assignment0.cpu())
     assert_rel(util_a, util_c, 1e-6, "util")
     assert_rel(tasks_a, tasks_c, 1e-6, "tasks")
+
+
+def _normal(shape, dtype, device, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randn(shape, generator=g).to(dtype).to(device)
+
+
+def _flash_tol(dtype) -> dict:
+    if dtype == torch.float32:
+        return dict(atol=3e-5, rtol=3e-5)
+    return dict(atol=2e-3, rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,window,softcap,causal", [
+    (2, 200, 200, 8, 2, 64, None, None, True),       # ragged, GQA 4:1
+    (1, 256, 256, 16, 8, 256, 64, 50.0, True),       # gemma2's head_dim, window + softcap
+    (2, 37, 37, 4, 2, 16, None, None, True),         # reduced configs' head_dim
+    (1, 100, 100, 15, 5, 64, None, None, False),     # smollm heads, not causal
+    (1, 130, 130, 16, 2, 128, 33, None, True),       # odd window, qwen heads
+    (1, 40, 72, 4, 2, 80, None, None, True),         # Sq != Skv (top-left), D = 80
+])
+def test_flash_attention_kernel_matches_plain_version(cuda_device, dtype, B, Sq, Skv, H, KV,
+                                                      D, window, softcap, causal):
+    q = _normal((B, Sq, H, D), dtype, cuda_device, 1)
+    k = _normal((B, Skv, KV, D), dtype, cuda_device, 2)
+    v = _normal((B, Skv, KV, D), dtype, cuda_device, 3)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and ops.launch_counts["flash_attention"] == 1
+    np.testing.assert_allclose(host(got.float()), host(want.float()), **_flash_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Smax,H,KV,D,softcap", [
+    (8, 1064, 16, 2, 128, None),      # the serve path's decode (qwen2.5-3b)
+    (2, 640, 16, 8, 80, 50.0),
+    (1, 512, 15, 5, 64, None),        # smollm heads
+    (2, 100, 4, 2, 16, None),         # reduced configs
+    (1, 300, 16, 8, 256, 50.0),       # gemma2's head_dim
+])
+def test_flash_decode_kernel_matches_plain_version(cuda_device, dtype, B, Smax, H, KV, D,
+                                                   softcap):
+    q = _normal((B, 1, H, D), dtype, cuda_device, 4)
+    k = _normal((B, Smax, KV, D), dtype, cuda_device, 5)
+    v = _normal((B, Smax, KV, D), dtype, cuda_device, 6)
+    tol = _flash_tol(dtype)
+    ops.reset_launch_counts()
+    for kv_len in (1, 17, Smax // 2 + 3, Smax):
+        n = torch.tensor(kv_len, dtype=torch.int32, device=cuda_device)
+        got = ops.flash_decode(q, k, v, n, softcap=softcap)
+        want = flash_decode_ref(q, k, v, n, softcap=softcap)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(host(got.float()), host(want.float()), **tol)
+    assert ops.launch_counts["flash_decode"] == 4
+
+
+@pytest.mark.cuda
+def test_reduced_serve_on_the_card_gives_the_cpu_tokens(cuda_device):
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model, reduce_for_smoke
+
+    cfg = reduce_for_smoke(get_config("smollm-360m"))
+    cpu_model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(5))
+    card_model = copy.deepcopy(cpu_model).to(cuda_device)
+    done = {}
+    for name, model, dev in (("cpu", cpu_model, "cpu"), ("card", card_model, cuda_device)):
+        rng = np.random.default_rng(0)
+        queue = serve.RequestQueue()
+        for i in range(10):
+            queue.push(serve.Request(
+                rid=i, prompt=rng.integers(0, cfg.vocab_size, rng.integers(4, 9)).astype(np.int32),
+                slo=int(rng.choice(4)), max_new_tokens=6))
+        ops.reset_launch_counts()
+        engine = serve.ServeEngine(model, slots=4, max_seq=22, device=dev)
+        done[name] = {r.rid: r.tokens for r in serve.serve_all(engine, queue)}
+        if name == "card":
+            waves, steps = 3, 3 * 5
+            assert ops.launch_counts["flash_attention"] == cfg.num_layers * waves
+            assert ops.launch_counts["flash_decode"] == cfg.num_layers * steps
+    assert done["card"] == done["cpu"]
