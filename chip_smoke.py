@@ -29,7 +29,7 @@ Phases (each raises on failure, so the script exits non-zero):
      ``torch.profiler`` (device busy share, kernel time by name); and the
      N=300 pass on the card and on the CPU's plain path, which must agree
      (same rounds, objective within rel 1e-4, assignments >= 0.98 equal).
-  4. The serving slice: ``flash_attention`` and ``flash_decode`` against
+  4. The dense serving slice: ``flash_attention`` and ``flash_decode`` against
      their plain versions at the serve path's shapes (prefill B=8, S=1024,
      H=16, KV=2, D=128 in bf16 and f32; a window + softcap case at D=256,
      H=16, KV=8; odd lengths; decode at B=8, Smax=1064 for kv_len 1, 17,
@@ -46,8 +46,18 @@ Phases (each raises on failure, so the script exits non-zero):
      one profiled decode step; a repeat run must give the same tokens, and
      one wave's first decode logits must match a teacher-forced
      ``forward_train`` over its padded prompt plus that token.
-  5. A ``{"kernels": [...]}`` line, then the card line again, then the
-     final ``{"ok": true, "device": {...}}`` line.
+  5. The hybrid serving slice: ``ssd_chunk`` against its plain version on
+     the card at the main path's shapes (x [8, 8, 128, 80, 64], N=64, timed
+     beside its plain version and its bound; wave 2's 7 chunks; a reduced
+     P=N=16 and a ragged 96-row case) within 5e-5, and ``flash_attention``
+     and ``flash_decode`` at the shared block's H=KV=32, D=80; then
+     full-width ``zamba2-2.7b`` in bf16 serves the same 16 requests in 2
+     waves through ``ServeEngine`` with the same checks as phase 4 and the
+     counts of ``ssd_chunk`` (54 a prefill), ``flash_attention`` (9 a
+     prefill) and ``flash_decode`` (9 a step), zeroed just before.
+  6. A ``{"kernels": [...]}`` line (the flash kernels' launches summed over
+     both serving runs), then the card line again, then the final
+     ``{"ok": true, "device": {...}}`` line.
 
 It imports nothing of JAX or of the JAX reference package.
 """
@@ -88,11 +98,14 @@ COMMIT_SRC = "src/repro_torch/kernels/csrc/commit.cu"
 PACK_SRC = "src/repro_torch/kernels/csrc/pack.cu"
 FLASH_ATTENTION_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_DECODE_SRC = "src/repro_torch/kernels/csrc/flash_decode.cu"
+SSD_CHUNK_SRC = "src/repro_torch/kernels/csrc/ssd_chunk.cu"
 # The serving slice: full-width qwen2.5-3b, 16 requests in waves of 8 slots,
 # prompts of 128-1024 tokens drawn from the seed, 32 new tokens each; the
 # cache holds the longest prompt, the new tokens and the reference CLI's 8
 # spare positions.
 SERVE_ARCH = "qwen2.5-3b"
+# The hybrid serving slice: full-width zamba2-2.7b on the same requests.
+HYBRID_ARCH = "zamba2-2.7b"
 SERVE_SEED = 0
 SERVE_REQUESTS = 16
 SERVE_SLOTS = 8
@@ -115,6 +128,10 @@ L2_FLUSH_BYTES = 100e6
 # bf16 roundings part from the first layer on and add up over 36 layers;
 # a wrong position or mask moves logits by O(max |logit|).
 TEACHER_TOL = 2.0 ** -4
+# The SSD chunk kernel against its plain version (abs and rel, on y, state
+# and cum): the reference's kernel tolerance, on its test's input draws
+# (dt uniform in [1e-3, 0.1], A in [-2, -0.5]).
+SSD_TOL = 5e-5
 
 
 def card_line() -> str:
@@ -511,6 +528,14 @@ DECODE_PHASES = {
 }
 
 
+# A Zamba2 decode step adds the Mamba2 layers' one-step forms.
+HYBRID_DECODE_PHASES = {
+    **DECODE_PHASES,
+    "ssd_step": lambda f, n: n == "ssd_step" and f.endswith("mamba2.py"),
+    "conv_step": lambda f, n: n == "conv_step" and f.endswith("mamba2.py"),
+}
+
+
 def host_profile(fn, phases=SOLVER_PHASES) -> tuple[float, dict]:
     """Run ``fn`` under ``cProfile``: wall seconds and the cumulative seconds
     of each host phase (cProfile's own cost inflates the Python parts, so
@@ -802,12 +827,120 @@ def teacher_forced_check(model, reqs, dev) -> dict:
     return out
 
 
+def wave_lengths(cfg) -> list[int]:
+    """Each wave's longest prompt on the main path (waves follow SLO
+    priority)."""
+    from repro_torch.launch.serve import RequestQueue
+
+    q = RequestQueue()
+    reqs = serve_requests(cfg)
+    for r in reqs:
+        q.push(r)
+    order = [q.pop() for _ in range(len(reqs))]
+    return [max(len(r.prompt) for r in order[w:w + SERVE_SLOTS])
+            for w in range(0, len(order), SERVE_SLOTS)]
+
+
+def serve_slice(cfg, dev, expected_launches, phases) -> dict:
+    """Full-width ``cfg`` in bf16 with seeded random weights serves the
+    slice's requests through ``ServeEngine``, with the launch counters
+    zeroed just before and read just after (``expected_launches(waves,
+    steps)`` names the counts each kernel must show); then the checks (a
+    repeat gives the same tokens, wave 1's first decode logits match a
+    teacher-forced ``forward_train``, all logits finite) and one profiled
+    decode step (device idle share; host phases under cProfile)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import latency_report
+    from repro_torch.models import build_model
+
+    arch = cfg.arch_id
+    t = time.perf_counter()
+    model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(
+        SERVE_SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    finished, wall, _ = serve_once(model, cfg, dev)
+    launches = dict(ops.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    waves = wave_stats(finished, t0)
+    steps = sum(w["steps"] for w in waves)
+    for name, n in expected_launches(len(waves), steps).items():
+        if launches[name] != n:
+            raise AssertionError(f"{arch} serve launched {name} {launches[name]} times, "
+                                 f"expected {n}")
+    for r in finished:
+        if len(r.tokens) != SERVE_NEW or not all(0 <= x < cfg.vocab_size for x in r.tokens):
+            raise AssertionError(f"{arch} request {r.rid}: tokens {r.tokens}")
+    if sorted(r.rid for r in finished) != list(range(SERVE_REQUESTS)):
+        raise AssertionError(f"{arch}: not every request was served once")
+    for i, w in enumerate(waves):
+        print(f"serve {arch} wave {i + 1}: B={SERVE_SLOTS} prompt_len {w['prompt_len']} "
+              f"(left-padded), prefill {w['prefill_s'] * 1e3:.3f} ms, TTFT from arrival "
+              f"{w['ttft_s'] * 1e3:.3f} ms, {w['steps']} decode steps at "
+              f"{w['decode_ms_per_step']:.4f} ms per step "
+              f"({w['decode_ms_per_step'] / SERVE_SLOTS:.4f} ms per token)", flush=True)
+    report = latency_report(finished)
+    print(f"serve {arch} full width ({n_params / 1e9:.4f} B params, bf16, init "
+          f"{init_s:.3f} s): {len(finished)} requests in {len(waves)} waves, wall {wall:.4f} s, "
+          f"{SERVE_REQUESTS * SERVE_NEW / wall:.2f} generated tokens/s, launches {launches}, "
+          f"peak memory {peak / 2**30:.3f} GiB; latency by SLO "
+          + json.dumps({f"SLO{k + 1}": v for k, v in report.items()}), flush=True)
+
+    # checks: repeat, teacher forcing, finite logits
+    t0 = time.perf_counter()
+    again, wall2, engine = serve_once(model, cfg, dev)
+    same = {r.rid: r.tokens for r in again} == {r.rid: r.tokens for r in finished}
+    print(f"repeat serve {arch}: wall {wall2:.4f} s, tokens identical {same}; per wave "
+          + "; ".join(f"prefill {w['prefill_s'] * 1e3:.3f} ms, {w['decode_ms_per_step']:.4f} ms "
+                      "per step" for w in wave_stats(again, t0)), flush=True)
+    if not same:
+        raise AssertionError(f"a second {arch} serve of the same requests gave other tokens")
+    tf = teacher_forced_check(model, finished[:SERVE_SLOTS], dev)
+    print(f"teacher-forced check {arch} (wave 1, {tf['rows']} rows): decode vs forward_train "
+          f"max abs err {tf['max_abs_err']:.4f} of max |logit| {tf['scale']:.4f} (tol "
+          f"{TEACHER_TOL:g} x scale), mean abs err {tf['mean_abs_err']:.5f}, argmax agree "
+          f"{tf['argmax_agree']}/{tf['rows']}, prefill argmax = served first token "
+          f"{tf['prefill_tokens_agree']}/{tf['rows']}, all finite {tf['finite']}", flush=True)
+    if not tf["finite"]:
+        raise AssertionError(f"non-finite logits at full width ({arch})")
+    if not tf["max_abs_err"] <= TEACHER_TOL * tf["scale"]:
+        raise AssertionError(f"{arch} decode logits part from the teacher-forced forward")
+    if tf["prefill_tokens_agree"] != tf["rows"]:
+        raise AssertionError(f"a repeat {arch} prefill picked another first token than the "
+                             "served run")
+
+    # one profiled decode step (a fresh wave, then one step under torch.profiler)
+    engine.admit_wave(serve_requests(cfg)[:SERVE_SLOTS])
+    prof = device_profile(engine.step)
+    if prof["busy_s"] is None:
+        idle = None
+        print(f"profile {arch}: one decode step, wall {prof['wall_s'] * 1e3:.3f} ms; the "
+              "profiler saw no device activity (idle share not measured)", flush=True)
+    else:
+        idle = 1.0 - prof["busy_s"] / prof["span_s"]
+        top = ", ".join(f"{name[:48]} {us / 1e3:.4f} ms" for name, us in prof["kernels"][:6])
+        print(f"profile {arch}: one decode step, wall {prof['wall_s'] * 1e3:.3f} ms, device "
+              f"busy {prof['busy_s'] * 1e3:.3f} ms (idle share {idle:.4f} of the traced span "
+              f"{prof['span_s'] * 1e3:.3f} ms), {prof['launches']} device launches; kernel "
+              f"time by name: {top}", flush=True)
+    wall_h, host_phases = host_profile(engine.step, phases)
+    print(f"host profile {arch}: one decode step under cProfile, wall {wall_h * 1e3:.3f} ms; "
+          "cumulative: " + ", ".join(f"{label} {sec * 1e3:.3f} ms ({sec / wall_h:.3f})"
+                                     for label, sec in host_phases.items()), flush=True)
+    del model, engine
+    torch.cuda.empty_cache()
+    return {"launches": launches, "waves": waves, "idle": idle, "peak_gib": peak / 2**30}
+
+
 def serving_phase(dev, record) -> dict:
     """Phase 4: the flash kernels at the serve path's shapes, then the slice."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.models import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False       # f32 plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -815,15 +948,7 @@ def serving_phase(dev, record) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
     cfg = get_config(SERVE_ARCH)
     H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    reqs = serve_requests(cfg)
-    # the main path's shapes: each wave's longest prompt (waves follow SLO priority)
-    from repro_torch.launch.serve import RequestQueue
-    q = RequestQueue()
-    for r in reqs:
-        q.push(r)
-    order = [q.pop() for _ in range(len(reqs))]
-    wave_lens = [max(len(r.prompt) for r in order[w:w + SERVE_SLOTS])
-                 for w in range(0, len(order), SERVE_SLOTS)]
+    wave_lens = wave_lengths(cfg)
 
     # -- 4a. kernels against their plain versions --------------------------------
     times = {}
@@ -856,88 +981,117 @@ def serving_phase(dev, record) -> dict:
     check_flash_decode("odd B=3 Smax=777 D=256 KV=8 f32", (3, 777, 16, 8, 256), f32, dev, gen,
                        record, (1, 333, 777))
 
-    # -- 4b. the slice -------------------------------------------------------------
-    t = time.perf_counter()
-    model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(
-        SERVE_SEED))
+    # -- 4b. the slice, 4c. its checks ---------------------------------------------
+    out = serve_slice(cfg, dev, lambda waves, steps: {
+        "flash_attention": cfg.num_layers * waves, "flash_decode": cfg.num_layers * steps},
+        DECODE_PHASES)
+    return {**out, "times": times}
+
+
+def ssd_work(B, C, Q, H, P, N) -> tuple[float, float, float]:
+    """(bytes, operations needed, operations as the kernel does them) of the
+    SSD per-chunk function.  Bytes: x, dt, A, B and C read once, y, state
+    and cum written once, f32.  Needed: C.B over the lower triangle once per
+    (b, c) (it does not depend on the head); per (b, c, h) the cumsum (2 Q),
+    the weights of the pairs j <= i (subtract, exp, two multiplies), W x over
+    those pairs, dw (3 Q), x dw (Q P) and the state product (2 Q P N).  As
+    done: C.B per head over the full square and W x over it too."""
+    tri = Q * (Q + 1) // 2
+    nbytes = 4 * (2 * B * C * Q * H * P + B * C * H * P * N + 2 * B * C * Q * H
+                  + 2 * B * C * Q * N + H)
+    per_head = 2 * Q + 4 * tri + 3 * Q + Q * P + 2 * Q * P * N
+    needed = B * C * (2 * tri * N + H * (per_head + 2 * tri * P))
+    done = B * C * H * (per_head + 2 * Q * Q * N + 2 * Q * Q * P)
+    return float(nbytes), float(needed), float(done)
+
+
+def check_ssd_chunk(label, shape, dev, gen, record, *, timed=False) -> dict:
+    """Hold the ssd_chunk kernel against its plain version on the card
+    (SSD_TOL on y, state and cum); with ``timed``, time both."""
+    import torch
+    from repro_torch.kernels.ref import ssd_chunk_ref
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
+
+    B, C, Q, H, P, N = shape
+    f32 = torch.float32
+    x = seeded_normal((B, C, Q, H, P), f32, dev, gen)
+    dt = torch.rand((B, C, Q, H), generator=gen, device=dev) * (0.1 - 1e-3) + 1e-3
+    A = -(torch.rand((H,), generator=gen, device=dev) * 1.5 + 0.5)
+    Bm = seeded_normal((B, C, Q, N), f32, dev, gen)
+    Cm = seeded_normal((B, C, Q, N), f32, dev, gen)
+    got = ssd_chunk_cuda(x, dt, A, Bm, Cm)
+    want = ssd_chunk_ref(x, dt, A, Bm, Cm)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t
-    n_params = sum(p.numel() for p in model.parameters())
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    finished, wall, _ = serve_once(model, cfg, dev)
-    launches = dict(ops.launch_counts)
-    peak = torch.cuda.max_memory_allocated()
-    waves = wave_stats(finished, t0)
-    steps = sum(w["steps"] for w in waves)
-    want = {"flash_attention": cfg.num_layers * len(waves),
-            "flash_decode": cfg.num_layers * steps}
-    for name, n in want.items():
-        if launches[name] != n:
-            raise AssertionError(f"serve launched {name} {launches[name]} times, expected {n}")
-    for r in finished:
-        if len(r.tokens) != SERVE_NEW or not all(0 <= x < cfg.vocab_size for x in r.tokens):
-            raise AssertionError(f"request {r.rid}: tokens {r.tokens}")
-    if sorted(r.rid for r in finished) != list(range(SERVE_REQUESTS)):
-        raise AssertionError("not every request was served once")
-    for i, w in enumerate(waves):
-        print(f"serve wave {i + 1}: B={SERVE_SLOTS} prompt_len {w['prompt_len']} (left-padded), "
-              f"prefill {w['prefill_s'] * 1e3:.3f} ms, TTFT from arrival {w['ttft_s'] * 1e3:.3f} "
-              f"ms, {w['steps']} decode steps at {w['decode_ms_per_step']:.4f} ms per step "
-              f"({w['decode_ms_per_step'] / SERVE_SLOTS:.4f} ms per token)", flush=True)
-    from repro_torch.launch.serve import latency_report
-    report = latency_report(finished)
-    print(f"serve {SERVE_ARCH} full width ({n_params / 1e9:.4f} B params, bf16, init "
-          f"{init_s:.3f} s): {len(finished)} requests in {len(waves)} waves, wall {wall:.4f} s, "
-          f"{SERVE_REQUESTS * SERVE_NEW / wall:.2f} generated tokens/s, launches {launches}, "
-          f"peak memory {peak / 2**30:.3f} GiB; latency by SLO "
-          + json.dumps({f"SLO{k + 1}": v for k, v in report.items()}), flush=True)
+    errs = []
+    for name, g, w in zip(("y", "state", "cum"), got, want):
+        diff = (g - w).abs()
+        errs.append(float(diff.max()))
+        if not bool((diff <= SSD_TOL + SSD_TOL * w.abs()).all()):
+            raise AssertionError(f"ssd_chunk {label}: {name} max abs err {errs[-1]:.3e} beyond "
+                                 f"atol = rtol = {SSD_TOL:g}")
+    del got, want
+    record["ssd_chunk"]["max_abs_err"] = max(record["ssd_chunk"]["max_abs_err"], *errs)
+    line = (f"ssd_chunk {label:>40}: max abs err y {errs[0]:.3e}, state {errs[1]:.3e}, cum "
+            f"{errs[2]:.3e} (atol = rtol = {SSD_TOL:g})")
+    out = {}
+    if timed:
+        nbytes, needed, done = ssd_work(B, C, Q, H, P, N)
+        b, by = bound_ms(nbytes, needed)
+        out = {"ms": time_ms(lambda: ssd_chunk_cuda(x, dt, A, Bm, Cm)),
+               "plain_ms": time_ms(lambda: ssd_chunk_ref(x, dt, A, Bm, Cm), reps=5),
+               "bound_ms": b, "bound_by": by, "library_ms": None}
+        line += (f" | kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, bound "
+                 f"{b:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {needed / 1e9:.3f} GFLOP needed; "
+                 f"{done / 1e9:.3f} GFLOP as the kernel does them, "
+                 f"{done / F32_OPS_PER_S * 1e3:.4f} ms), library none")
+    print(line, flush=True)
+    return out
 
-    # -- 4c. checks: repeat, teacher forcing, finite logits ------------------------
-    t0 = time.perf_counter()
-    again, wall2, engine = serve_once(model, cfg, dev)
-    same = {r.rid: r.tokens for r in again} == {r.rid: r.tokens for r in finished}
-    print(f"repeat serve: wall {wall2:.4f} s, tokens identical {same}; per wave " + "; ".join(
-        f"prefill {w['prefill_s'] * 1e3:.3f} ms, {w['decode_ms_per_step']:.4f} ms per step"
-        for w in wave_stats(again, t0)), flush=True)
-    if not same:
-        raise AssertionError("a second serve of the same requests gave other tokens")
-    tf = teacher_forced_check(model, finished[:SERVE_SLOTS], dev)
-    print(f"teacher-forced check (wave 1, {tf['rows']} rows): decode vs forward_train max abs "
-          f"err {tf['max_abs_err']:.4f} of max |logit| {tf['scale']:.4f} (tol {TEACHER_TOL:g} "
-          f"x scale), mean abs err {tf['mean_abs_err']:.5f}, argmax agree "
-          f"{tf['argmax_agree']}/{tf['rows']}, prefill argmax = served first token "
-          f"{tf['prefill_tokens_agree']}/{tf['rows']}, all finite {tf['finite']}", flush=True)
-    if not tf["finite"]:
-        raise AssertionError("non-finite logits at full width")
-    if not tf["max_abs_err"] <= TEACHER_TOL * tf["scale"]:
-        raise AssertionError("decode logits part from the teacher-forced forward")
-    if tf["prefill_tokens_agree"] != tf["rows"]:
-        raise AssertionError("a repeat prefill picked another first token than the served run")
 
-    # one profiled decode step (a fresh wave, then one step under torch.profiler)
-    engine.admit_wave(serve_requests(cfg)[:SERVE_SLOTS])
-    prof = device_profile(engine.step)
-    if prof["busy_s"] is None:
-        idle = None
-        print(f"profile: one decode step, wall {prof['wall_s'] * 1e3:.3f} ms; the profiler saw "
-              "no device activity (idle share not measured)", flush=True)
-    else:
-        idle = 1.0 - prof["busy_s"] / prof["span_s"]
-        top = ", ".join(f"{name[:48]} {us / 1e3:.4f} ms" for name, us in prof["kernels"][:6])
-        print(f"profile: one decode step, wall {prof['wall_s'] * 1e3:.3f} ms, device busy "
-              f"{prof['busy_s'] * 1e3:.3f} ms (idle share {idle:.4f} of the traced span "
-              f"{prof['span_s'] * 1e3:.3f} ms), {prof['launches']} device launches; kernel time "
-              f"by name: {top}", flush=True)
-    wall_h, phases = host_profile(engine.step, DECODE_PHASES)
-    print(f"host profile: one decode step under cProfile, wall {wall_h * 1e3:.3f} ms; "
-          "cumulative: " + ", ".join(f"{label} {sec * 1e3:.3f} ms ({sec / wall_h:.3f})"
-                                     for label, sec in phases.items()), flush=True)
-    del model, engine
-    torch.cuda.empty_cache()
-    return {"launches": launches, "times": times, "waves": waves, "idle": idle,
-            "peak_gib": peak / 2**30}
+def hybrid_phase(dev, record) -> dict:
+    """Phase 5: the SSD chunk kernel and the flash kernels at the Zamba2
+    path's shapes, then full-width zamba2-2.7b serves the slice's requests."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.mamba2 import CHUNK, mamba_dims
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
+    cfg = get_config(HYBRID_ARCH)
+    wave_lens = wave_lengths(cfg)
+    chunks = [-(-n // CHUNK) for n in wave_lens]   # prefill pads S to a multiple of CHUNK
+    _, Hs = mamba_dims(cfg)
+    P, N = cfg.ssm_headdim, cfg.ssm_state
+    apps = cfg.num_layers // cfg.attn_every
+
+    # -- 5a. kernels against their plain versions --------------------------------
+    times = {}
+    times["ssd_main"] = check_ssd_chunk(
+        f"main path wave 1 x [8, {chunks[0]}, {CHUNK}, {Hs}, {P}] N={N}",
+        (SERVE_SLOTS, chunks[0], CHUNK, Hs, P, N), dev, gen, record, timed=True)
+    check_ssd_chunk(f"wave 2 x [8, {chunks[1]}, {CHUNK}, {Hs}, {P}] N={N}",
+                    (SERVE_SLOTS, chunks[1], CHUNK, Hs, P, N), dev, gen, record)
+    check_ssd_chunk("reduced x [2, 3, 128, 8, 16] N=16", (2, 3, 128, 8, 16, 16), dev, gen, record)
+    check_ssd_chunk("ragged x [3, 1, 96, 4, 32] N=64", (3, 1, 96, 4, 32, 64), dev, gen, record)
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    times["prefill_d80"] = check_flash_attention(
+        f"shared block B=8 S={wave_lens[0]} H={H} KV={KV} D={D} bf16",
+        (SERVE_SLOTS, wave_lens[0], H, KV, D), bf16, dev, gen, record, timed=True)
+    check_flash_attention(f"shared block B=8 S={wave_lens[1]} H={H} KV={KV} D={D} f32",
+                          (SERVE_SLOTS, wave_lens[1], H, KV, D), f32, dev, gen, record)
+    main_len = wave_lens[0] + SERVE_NEW - 1
+    times["decode_d80"] = check_flash_decode(
+        f"shared block B=8 Smax={SERVE_MAX_SEQ} D={D} bf16", (SERVE_SLOTS, SERVE_MAX_SEQ, H, KV, D),
+        bf16, dev, gen, record, (1, 17, 1000, SERVE_MAX_SEQ, main_len), timed_len=main_len)
+    check_flash_decode(f"shared block B=8 Smax={SERVE_MAX_SEQ} D={D} f32",
+                       (SERVE_SLOTS, SERVE_MAX_SEQ, H, KV, D), f32, dev, gen, record,
+                       (1, 17, 1000, SERVE_MAX_SEQ))
+
+    # -- 5b. the slice, 5c. its checks ---------------------------------------------
+    out = serve_slice(cfg, dev, lambda waves, steps: {
+        "ssd_chunk": cfg.num_layers * waves, "flash_attention": apps * waves,
+        "flash_decode": apps * steps}, HYBRID_DECODE_PHASES)
+    return {**out, "times": times}
 
 
 def main() -> int:
@@ -974,7 +1128,8 @@ def main() -> int:
               "commit_topk": {"max_abs_err": 0.0},
               "pack_ffd_tiers": {"max_abs_err": 0.0},
               "flash_attention": {"max_abs_err": 0.0},
-              "flash_decode": {"max_abs_err": 0.0}}
+              "flash_decode": {"max_abs_err": 0.0},
+              "ssd_chunk": {"max_abs_err": 0.0}}
 
     # -- 2a. sweep kernels at the stated shapes --------------------------------
     sweep_times = {}
@@ -1149,7 +1304,14 @@ def main() -> int:
     serving = serving_phase(dev, record)
     fa, fd = serving["times"]["prefill_main"], serving["times"]["decode_main"]
 
-    # -- 5. result lines --------------------------------------------------------
+    # -- 5. the hybrid serving slice: zamba2-2.7b at full width -----------------
+    hybrid = hybrid_phase(dev, record)
+    ssd = hybrid["times"]["ssd_main"]
+    # the flash kernels' launches on both serving paths, each counted from 0
+    flash_launches = {name: serving["launches"][name] + hybrid["launches"][name]
+                      for name in ("flash_attention", "flash_decode")}
+
+    # -- 6. result lines --------------------------------------------------------
     kernels = [
         {"name": "move_eval_best", "route": "cuda", "source": MOVE_EVAL_SRC,
          "replaces": "src/repro/kernels/move_eval.py:275",
@@ -1183,16 +1345,22 @@ def main() -> int:
          "library_ms": None},
         {"name": "flash_attention", "route": "cuda", "source": FLASH_ATTENTION_SRC,
          "replaces": "src/repro/kernels/flash_attention.py:144",
-         "launches": serving["launches"]["flash_attention"],
+         "launches": flash_launches["flash_attention"],
          "max_abs_err": record["flash_attention"]["max_abs_err"],
          "ms": fa["ms"], "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"],
          "bound_by": fa["bound_by"], "library_ms": fa["library_ms"]},
         {"name": "flash_decode", "route": "cuda", "source": FLASH_DECODE_SRC,
          "replaces": "src/repro/kernels/flash_decode.py:108",
-         "launches": serving["launches"]["flash_decode"],
+         "launches": flash_launches["flash_decode"],
          "max_abs_err": record["flash_decode"]["max_abs_err"],
          "ms": fd["ms"], "plain_ms": fd["plain_ms"], "bound_ms": fd["bound_ms"],
          "bound_by": fd["bound_by"], "library_ms": fd["library_ms"]},
+        {"name": "ssd_chunk", "route": "cuda", "source": SSD_CHUNK_SRC,
+         "replaces": "src/repro/kernels/mamba_scan.py:71",
+         "launches": hybrid["launches"]["ssd_chunk"],
+         "max_abs_err": record["ssd_chunk"]["max_abs_err"],
+         "ms": ssd["ms"], "plain_ms": ssd["plain_ms"], "bound_ms": ssd["bound_ms"],
+         "bound_by": ssd["bound_by"], "library_ms": ssd["library_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -2,9 +2,10 @@
 
 The public surface mirrors the reference's core: build a cluster with
 ``generate_cluster`` and run ``Sptlb(cluster).balance("local",
-config=CoopConfig())``.  The model side so far serves the dense family:
-``models.build_model(configs.get_config("qwen2.5-3b"))`` and
-``launch.serve.ServeEngine``.  Entry points run on the card
+config=CoopConfig())``.  The model side so far serves the dense family
+(``models.build_model(configs.get_config("qwen2.5-3b"))``) and the hybrid
+one (``get_config("zamba2-2.7b")``, Mamba2 layers and a shared attention
+block) through ``launch.serve.ServeEngine``.  Entry points run on the card
 (``device="cuda"``, the default) unless the caller asks for the CPU.
 """
 from repro_torch.core import (BalanceDecision, ClusterState, CoopConfig, Sptlb,

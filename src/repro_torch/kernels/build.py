@@ -29,7 +29,7 @@ COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas"
 # operation on its own (no fused multiply-add), as the plain torch version's
 # ops do.
 EXTRA_FLAGS = {"move_eval": ["-fmad=false"], "commit": ["-fmad=false"], "pack": [],
-               "flash_attention": [], "flash_decode": []}
+               "flash_attention": [], "flash_decode": [], "ssd_chunk": []}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +50,9 @@ SIGNATURES = {
     },
     "flash_decode": {
         "flash_decode_launch": [_I] * 8 + [_F, _F] + [_P] * 9,
+    },
+    "ssd_chunk": {
+        "ssd_chunk_launch": [_I] * 6 + [_P] * 9,
     },
 }
 

@@ -16,7 +16,7 @@ from typing import Optional
 from repro_torch.kernels import ref as _ref
 
 launch_counts = {"move_eval": 0, "move_eval_best": 0, "commit_topk": 0, "pack_ffd_tiers": 0,
-                 "flash_attention": 0, "flash_decode": 0}
+                 "flash_attention": 0, "flash_decode": 0, "ssd_chunk": 0}
 
 
 def reset_launch_counts() -> None:
@@ -93,3 +93,15 @@ def flash_decode(q, k, v, kv_len, *, scale: Optional[float] = None,
         launch_counts["flash_decode"] += 1
         return out
     return _ref.flash_decode_ref(q, k, v, kv_len, scale=scale, softcap=softcap)
+
+
+def ssd_chunk(x, dt, A, Bm, Cm):
+    """Mamba2 SSD per-chunk compute, x [B, C, Q, H, P], dt [B, C, Q, H],
+    A [H], Bm/Cm [B, C, Q, N] -> (y_intra, state_c, cum), f32; see
+    kernels.ref.ssd_chunk_ref."""
+    if x.is_cuda:
+        from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
+        out = ssd_chunk_cuda(x, dt, A, Bm, Cm)
+        launch_counts["ssd_chunk"] += 1
+        return out
+    return _ref.ssd_chunk_ref(x, dt, A, Bm, Cm)

@@ -164,6 +164,31 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len, 
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
+def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                  Cm: torch.Tensor):
+    """Plain version of the Mamba2 SSD per-chunk kernel: x [B, C, Q, H, P],
+    dt [B, C, Q, H] (softplus'd), A [H] (negative), Bm/Cm [B, C, Q, N], all
+    f32 -> (y_intra [B, C, Q, H, P], state_c [B, C, H, P, N], cum
+    [B, C, Q, H]).  Per (b, c, h): cum = cumsum(dt a) over the chunk,
+    y_i = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j and
+    state = sum_j exp(cum_Q - cum_j) dt_j x_j B_j^T (reference
+    ``kernels/mamba_scan.py:24``).  The upper triangle of cum_i - cum_j is
+    positive, so it is masked before the exp, which would overflow."""
+    Q = x.shape[2]
+    cum = torch.cumsum(dt * A, dim=2)                                 # [B, C, Q, H]
+    total = cum[:, :, -1:, :]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]              # [B, C, Qi, Qj, H]
+    lower = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp(torch.where(lower[None, None, :, :, None], diff,
+                                  torch.full((), NEG_INF, device=x.device)))
+    scores = torch.einsum("bcin,bcjn->bcij", Cm, Bm)
+    weighted = scores[..., None] * decay * dt[:, :, None, :, :]      # [B, C, Qi, Qj, H]
+    y = torch.einsum("bcijh,bcjhp->bcihp", weighted, x)
+    xw = x * (torch.exp(total - cum) * dt)[..., None]                 # [B, C, Q, H, P]
+    state = torch.einsum("bcqhp,bcqn->bchpn", xw, Bm)
+    return y, state, cum
+
+
 def random_problem_arrays(N: int, T: int, seed: int = 0, device="cpu"):
     """Flat random arrays in the move_eval kernel signature order: the
     port's copy of ``benchmarks/common.py::random_problem_arrays`` (the same

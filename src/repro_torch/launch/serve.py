@@ -9,10 +9,11 @@ port of ``repro/launch/serve.py``).
   * latency_report — TTFT and total latency percentiles per SLO class.
 
 On a card every prefill runs the ``flash_attention`` kernel once per layer
-and every decode step the ``flash_decode`` kernel once per layer
-(``kernels.ops.launch_counts``).
+and every decode step the ``flash_decode`` kernel once per layer; for the
+hybrid Zamba2, once per shared-block application, and every prefill runs the
+``ssd_chunk`` kernel once per Mamba2 layer (``kernels.ops.launch_counts``).
 
-Run (reduced config, on the card):
+Run (reduced config, on the card; ``--arch zamba2-2.7b`` for the hybrid):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
       --requests 24 --max-new 16
 """

@@ -1,4 +1,4 @@
-"""Models of the port (dense transformer family so far)."""
+"""Models of the port (the dense transformer and the Zamba2 hybrid families so far)."""
 from repro_torch.models.config import ModelConfig, reduce_for_smoke
 from repro_torch.models.model import build_model
 

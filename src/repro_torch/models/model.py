@@ -1,21 +1,22 @@
 """Model builder of the port: ``build_model(cfg)`` -> a module with random
 weights on the card (the reference's ``build_model`` plus its ``init``).
 
-Only the dense family is ported so far; the others raise, naming their
-ROADMAP items.
+The dense family (``TransformerLM``) and the hybrid family (``Zamba2``,
+Mamba2 layers plus a shared attention block) are ported so far; the others
+raise, naming their ROADMAP items.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.mamba2 import Zamba2
 from repro_torch.models.transformer import TransformerLM
 
 NOT_YET_PORTED = {
-    "hybrid": "Queue 2 item 1 (the Zamba2 serve path: models/mamba2.py and ssd_chunk)",
     "moe": "Queue 1 item 8b (MoE)",
     "vlm": "Queue 1 item 8d (VLM, audio and xLSTM families)",
     "audio": "Queue 1 item 8d (VLM, audio and xLSTM families)",
@@ -24,19 +25,16 @@ NOT_YET_PORTED = {
 
 
 def build_model(cfg: ModelConfig, device=DEFAULT_DEVICE,
-                generator: Optional[torch.Generator] = None) -> TransformerLM:
+                generator: Optional[torch.Generator] = None) -> Union[TransformerLM, Zamba2]:
     """The model of ``cfg`` on ``device`` (default the card; raises without
     one), its weights drawn from ``generator`` with the reference's
     distributions: normal * scale / sqrt(d_in) for dense weights (scale 0.5
     for the output projections), normal * 0.02 for the embedding, zero
-    biases, norms at one (zero with ``rms_offset``).  Without a generator,
-    one seeded with 0 on the device is used."""
+    biases, norms at one (zero with ``rms_offset``); for the Mamba2 layers
+    also A_log = log(linspace(1, 16, H)), D at one, dt_bias at zero and the
+    conv weights normal * 0.1.  Without a generator, one seeded with 0 on
+    the device is used."""
     dev = resolve_device(device)
-    if cfg.family in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP.md {NOT_YET_PORTED[cfg.family]}")
-    if cfg.family != "dense":
-        raise ValueError(f"unknown family {cfg.family!r}")
     model = empty_model(cfg, dev)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -44,7 +42,14 @@ def build_model(cfg: ModelConfig, device=DEFAULT_DEVICE,
     return model
 
 
-def empty_model(cfg: ModelConfig, device) -> TransformerLM:
-    """The dense model of ``cfg`` with uninitialised weights (filled by
+def empty_model(cfg: ModelConfig, device) -> Union[TransformerLM, Zamba2]:
+    """The model of ``cfg`` with uninitialised weights (filled by
     ``build_model`` or ``weights.lm_from_reference``)."""
+    if cfg.family in NOT_YET_PORTED:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet: ROADMAP.md {NOT_YET_PORTED[cfg.family]}")
+    if cfg.family == "hybrid":
+        return Zamba2(cfg, device=resolve_device(device)).eval()
+    if cfg.family != "dense":
+        raise ValueError(f"unknown family {cfg.family!r}")
     return TransformerLM(cfg, device=resolve_device(device)).eval()

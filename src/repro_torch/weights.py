@@ -7,12 +7,16 @@ reference ``Problem``'s fields, taken out as numpy arrays, into the port's
 one entry per ``Problem`` field; ``weights`` is a dict of the five goal
 weights, and the optional utility curves may be absent or None.
 
-``lm_from_reference`` builds the port's ``TransformerLM`` from the
-reference's params pytree as numpy arrays (``TransformerLM.init``'s layout:
-``embed``, ``final_norm``, optional ``lm_head``, and ``layers`` a list of
-one group whose leaves are stacked [num_layers, ...]); ``lm_to_numpy`` goes
-the other way.  Both packages store linear weights [d_in, d_out], so
-nothing is transposed: the stacked leaves are only cut per layer.
+``lm_from_reference`` builds the port's model from the reference's params
+pytree as numpy arrays, by ``cfg.family``: for the dense ``TransformerLM``
+its ``init``'s layout (``embed``, ``final_norm``, optional ``lm_head``, and
+``layers`` a list of one group whose leaves are stacked [num_layers, ...]);
+for the hybrid ``Zamba2`` its ``init``'s (``embed``, ``final_norm``,
+``layers`` a dict of Mamba2 leaves stacked [num_layers, ...], and
+``shared`` = {in_proj, ln1, attn, ln2, mlp, out_proj [apps, d, d]}).
+``lm_to_numpy`` goes the other way.  Both packages store linear weights
+[d_in, d_out], so nothing is transposed: the stacked leaves are only cut
+per layer.
 """
 from __future__ import annotations
 
@@ -64,6 +68,8 @@ def to_numpy(problem: Problem) -> dict:
 
 _ATTN = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 _MLP = ("w_gate", "w_up", "w_down")
+_MAMBA = ("norm", "in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias", "gate_norm",
+          "out_proj")
 
 
 def _norm_params(norm) -> dict:
@@ -97,10 +103,43 @@ def _get(tree, path):
     return node if path[1] == "" else node[path[1]]
 
 
+def _put(t, value) -> None:
+    value = np.asarray(value)
+    if tuple(value.shape) != tuple(t.shape):
+        raise ValueError(f"shape {value.shape} does not fit {tuple(t.shape)}")
+    t.data.copy_(torch.as_tensor(value.astype(np.float32)).to(t.dtype))
+
+
+def _arr(t) -> np.ndarray:
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def _shared_tensors(shared) -> dict:
+    """(reference path under ``shared``) -> port tensor of Zamba2's block."""
+    out = {(name, ""): getattr(shared, name) for name in ("in_proj", "ln1", "ln2", "out_proj")}
+    for name in _ATTN:
+        t = getattr(shared.attn, name)
+        if t is not None:
+            out[("attn", name)] = t
+    for name in _MLP:
+        out[("mlp", name)] = getattr(shared.mlp, name)
+    return out
+
+
 def lm_from_reference(cfg, params_np: dict, device=DEFAULT_DEVICE):
-    """The port's ``TransformerLM`` of ``cfg`` with the reference's weights
-    (its params pytree, leaves as numpy arrays) on ``device``."""
+    """The port's model of ``cfg`` with the reference's weights (its params
+    pytree, leaves as numpy arrays) on ``device``."""
     model = empty_model(cfg, device)
+    if cfg.family == "hybrid":
+        _put(model.embed, params_np["embed"])
+        _put(model.final_norm, params_np["final_norm"])
+        for i, layer in enumerate(model.layers):
+            for name in _MAMBA:
+                _put(getattr(layer, name), params_np["layers"][name][i])
+        for path, t in _shared_tensors(model.shared).items():
+            _put(t, _get(params_np["shared"], path))
+        return model
     if "prefix" in params_np:
         raise NotImplementedError("unrolled prefix layers belong to MoE configs, "
                                   "which are not ported yet")
@@ -109,30 +148,32 @@ def lm_from_reference(cfg, params_np: dict, device=DEFAULT_DEVICE):
         raise NotImplementedError("layer groups of more than one layer belong to "
                                   "local_global_pattern configs, which are not ported yet")
     stacked = groups[0]
-
-    def put(t, value):
-        value = np.asarray(value)
-        if tuple(value.shape) != tuple(t.shape):
-            raise ValueError(f"shape {value.shape} does not fit {tuple(t.shape)}")
-        t.data.copy_(torch.as_tensor(value.astype(np.float32)).to(t.dtype))
-
-    put(model.embed, params_np["embed"])
+    _put(model.embed, params_np["embed"])
     for key, t in _norm_params(model.final_norm).items():
-        put(t, params_np["final_norm"] if key == "" else params_np["final_norm"][key])
+        _put(t, params_np["final_norm"] if key == "" else params_np["final_norm"][key])
     if model.lm_head is not None:
-        put(model.lm_head, params_np["lm_head"])
+        _put(model.lm_head, params_np["lm_head"])
     for i, block in enumerate(model.blocks):
         for path, t in _layer_tensors(block).items():
-            put(t, _get(stacked, path)[i])
+            _put(t, _get(stacked, path)[i])
     return model
 
 
 def lm_to_numpy(model) -> dict:
     """The inverse of ``lm_from_reference``: the reference's params pytree
     with numpy leaves (stacked [num_layers, ...]; f32 for bf16 weights)."""
-    def arr(t):
-        t = t.detach()
-        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+    if model.cfg.family == "hybrid":
+        shared = {}
+        for (sub, name), t in _shared_tensors(model.shared).items():
+            if name == "":
+                shared[sub] = _arr(t)
+            else:
+                shared.setdefault(sub, {})[name] = _arr(t)
+        return {"embed": _arr(model.embed),
+                "layers": {name: np.stack([_arr(getattr(layer, name)) for layer in model.layers])
+                           for name in _MAMBA},
+                "shared": shared,
+                "final_norm": _arr(model.final_norm)}
 
     def norm_tree(norm, values):
         if norm.kind == "rmsnorm":
@@ -141,11 +182,11 @@ def lm_to_numpy(model) -> dict:
             return {"scale": values["scale"], "bias": values["bias"]}
         return None
 
-    out = {"embed": arr(model.embed),
-           "final_norm": norm_tree(model.final_norm, {k: arr(t) for k, t in
+    out = {"embed": _arr(model.embed),
+           "final_norm": norm_tree(model.final_norm, {k: _arr(t) for k, t in
                                                       _norm_params(model.final_norm).items()})}
     if model.lm_head is not None:
-        out["lm_head"] = arr(model.lm_head)
+        out["lm_head"] = _arr(model.lm_head)
     per_layer = [_layer_tensors(b) for b in model.blocks]
     first = model.blocks[0]
     group = {}
@@ -153,10 +194,10 @@ def lm_to_numpy(model) -> dict:
         if hasattr(first, name):
             norm = getattr(first, name)
             group[name] = norm_tree(norm, {
-                key: np.stack([arr(layer[(name, key)]) for layer in per_layer])
+                key: np.stack([_arr(layer[(name, key)]) for layer in per_layer])
                 for key in _norm_params(norm)})
     for sub, names in (("attn", _ATTN), ("mlp", _MLP)):
-        group[sub] = {name: np.stack([arr(layer[(sub, name)]) for layer in per_layer])
+        group[sub] = {name: np.stack([_arr(layer[(sub, name)]) for layer in per_layer])
                       for name in names if (sub, name) in per_layer[0]}
     out["layers"] = [group]
     return out

@@ -14,8 +14,9 @@ scan and packing bit-identical.  The flash kernels within 3e-5 in f32 (the
 reference's flash tolerance) and, in bf16, within atol 2e-3 and rtol 2^-7:
 kernel and plain version both compute in f32 and round the output once, so
 they part by at most one bf16 ulp; rounding the probabilities to bf16 would
-part them by more.  A reduced-config serve on the card gives the CPU plain
-path's tokens.
+part them by more.  The SSD chunk kernel within the reference's 5e-5 (f32,
+no TF32).  A reduced-config serve on the card gives the CPU plain path's
+tokens, and a reduced Zamba2 on the card gives the CPU's logits and caches.
 """
 import numpy as np
 import pytest
@@ -26,7 +27,7 @@ from repro_torch.core.delta import move_best_per_app, move_delta_cost
 from repro_torch.kernels import ops
 from repro_torch.kernels.pack import pack_ffd, pack_ffd_tiers
 from repro_torch.kernels.ref import (commit_topk_ref, flash_attention_ref, flash_decode_ref,
-                                    pack_ffd_tiers_ref, random_problem_arrays)
+                                    pack_ffd_tiers_ref, random_problem_arrays, ssd_chunk_ref)
 
 from _torch_port import assert_rel, cuda_device, host  # noqa: F401
 
@@ -227,3 +228,86 @@ def test_reduced_serve_on_the_card_gives_the_cpu_tokens(cuda_device):
             assert ops.launch_counts["flash_attention"] == cfg.num_layers * waves
             assert ops.launch_counts["flash_decode"] == cfg.num_layers * steps
     assert done["card"] == done["cpu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,Q,H,P,N", [
+    (2, 3, 128, 8, 16, 16),        # the reduced zamba2's widths
+    (2, 2, 128, 80, 64, 64),       # zamba2-2.7b's widths (H = 80 SSM heads)
+    (1, 1, 96, 4, 32, 32),         # a chunk shorter than 128, mixed widths
+    (1, 2, 128, 2, 64, 16),
+])
+def test_ssd_chunk_kernel_matches_plain_version(cuda_device, B, C, Q, H, P, N):
+    rng = np.random.default_rng(B * C * Q + H + P + N)
+
+    def f32(*shape, lo=None, hi=None):
+        a = rng.normal(0, 1, shape) if lo is None else rng.uniform(lo, hi, shape)
+        return torch.as_tensor(a.astype(np.float32), device=cuda_device)
+
+    x, dt, A = f32(B, C, Q, H, P), f32(B, C, Q, H, lo=1e-3, hi=0.1), -f32(H, lo=0.5, hi=2.0)
+    Bm, Cm = f32(B, C, Q, N), f32(B, C, Q, N)
+    ops.reset_launch_counts()
+    got = ops.ssd_chunk(x, dt, A, Bm, Cm)
+    want = ssd_chunk_ref(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["ssd_chunk"] == 1
+    for name, g, w in zip(("y_intra", "state_c", "cum"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        np.testing.assert_allclose(host(g), host(w), atol=5e-5, rtol=5e-5, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_kernel_refuses_p80_on_the_card(cuda_device):
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
+
+    z = dict(device=cuda_device)
+    with pytest.raises(ValueError, match="P=80"):
+        ssd_chunk_cuda(torch.zeros(1, 1, 128, 2, 80, **z), torch.zeros(1, 1, 128, 2, **z),
+                       torch.zeros(2, **z), torch.zeros(1, 1, 128, 64, **z),
+                       torch.zeros(1, 1, 128, 64, **z))
+
+
+@pytest.mark.cuda
+def test_reduced_zamba2_on_the_card_gives_the_cpu_logits(cuda_device):
+    """Prefill over two chunks, then three decode steps: logits and every
+    cache tensor on the card within 1e-4 of their scale of the CPU's plain
+    path (f32; the card sums in other orders), and the kernels launched once
+    per Mamba2 layer (ssd_chunk) and once per shared-block application
+    (flash_attention, flash_decode)."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, reduce_for_smoke
+
+    cfg = reduce_for_smoke(get_config("zamba2-2.7b"))
+    cpu_model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(6))
+    card_model = copy.deepcopy(cpu_model).to(cuda_device)
+    apps = cfg.num_layers // cfg.attn_every
+    B, S, steps, Smax = 2, 130, 3, 136
+    toks = torch.as_tensor(np.random.default_rng(6).integers(0, cfg.vocab_size, (B, S + steps)))
+    out = {}
+    for name, model in (("cpu", cpu_model), ("card", card_model)):
+        dev = model.device
+        ops.reset_launch_counts()
+        cache = model.init_cache(B, Smax)
+        logits, cache = model.prefill({"tokens": toks[:, :S].to(dev)}, cache)
+        got = [logits]
+        for s in range(S, S + steps):
+            logits, cache = model.decode_step(toks[:, s:s + 1].to(dev), cache)
+            got.append(logits)
+        out[name] = (got, cache, dict(ops.launch_counts))
+    (cpu_logits, cpu_cache, _), (card_logits, card_cache, counts) = out["cpu"], out["card"]
+    assert counts["ssd_chunk"] == cfg.num_layers
+    assert counts["flash_attention"] == apps and counts["flash_decode"] == apps * steps
+
+    def close(a, b, what):
+        a, b = host(a).astype(np.float64), host(b).astype(np.float64)
+        assert np.max(np.abs(a - b)) <= 1e-4 * (np.max(np.abs(b)) + 1e-30), what
+
+    for i, (a, b) in enumerate(zip(card_logits, cpu_logits)):
+        close(a, b, f"logits {i}")
+    for name in ("ssm", "conv"):
+        close(card_cache["mamba"][name], cpu_cache["mamba"][name], name)
+    for name in ("attn_k", "attn_v"):
+        close(card_cache[name], cpu_cache[name], name)
+    assert int(card_cache["pos"]) == S + steps

@@ -193,7 +193,7 @@ def test_bf16_model_on_the_cpu_follows_the_f32_one():
     (dict(local_global_pattern=True, window=8), "local_global_pattern"),
     (dict(mla=True, kv_lora_rank=32), "MLA"),
     (dict(ring_cache=True), "ring_cache"),
-    (dict(family="hybrid"), "hybrid"),
+    (dict(family="ssm"), "ssm"),
 ])
 def test_unported_variants_raise(change, match):
     cfg = dataclasses.replace(reduce_for_smoke(get_config("smollm-360m")), **change)

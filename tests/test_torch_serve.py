@@ -1,11 +1,12 @@
 """The port's serving engine against the reference's, on the CPU.
 
 The same requests (the reference CLI's draws) go through the reference's
-``ServeEngine`` and the port's at the reduced ``smollm-360m`` sizes of
-``tests/test_extensions.py`` (4 slots, prompts of 4-8 tokens, 6 new tokens
-each), with the reference's weights carried across: the greedy tokens are
-identical.  Also: the request queue's priority, the port's CLI driver, and
-the device policy (the card by default, an error without one).
+``ServeEngine`` and the port's at the reduced ``smollm-360m`` and
+``zamba2-2.7b`` sizes (4 slots, prompts of 4-8 tokens, 6 new tokens each, as
+``tests/test_extensions.py`` serves), with the reference's weights carried
+across: the greedy tokens are identical.  Also: the request queue's
+priority, the port's command line (``main``), and the device policy (the
+card by default, an error without one).
 """
 import jax
 import numpy as np
@@ -60,11 +61,15 @@ def test_request_queue_slo_priority():
     assert q.pop() is None
 
 
-def test_serve_engine_gives_the_references_tokens():
-    arch, slots, prompt_len, max_new, n = "smollm-360m", 4, 8, 6, 10
+def _serve_both(arch: str, seed: int):
+    """The reference CLI's requests (10, 4 slots, prompts of 4-8 tokens, 6
+    new tokens each) through the reference's engine and the port's, with
+    the reference's weights carried across -> (port's, reference's
+    finished requests)."""
+    slots, prompt_len, max_new, n = 4, 8, 6, 10
     rcfg = ref_reduce(ref_get_config(arch))
     ref_model = ref_build_model(rcfg)
-    params = ref_model.init(jax.random.PRNGKey(3))
+    params = ref_model.init(jax.random.PRNGKey(seed))
     port_model = lm_from_reference(reduce_for_smoke(get_config(arch)),
                                    jax.tree.map(np.asarray, params), device="cpu")
     max_seq = prompt_len + max_new + 8
@@ -91,12 +96,29 @@ def test_serve_engine_gives_the_references_tokens():
     assert sum(s["n"] for s in report.values()) == n
 
 
+def test_serve_engine_gives_the_references_tokens():
+    _serve_both("smollm-360m", seed=3)
+
+
+def test_zamba2_serve_engine_gives_the_references_tokens():
+    """The hybrid family: Mamba2 prefill (the chunked scan, prompts padded to
+    the chunk) and decode (the one-step recurrence), the shared block's two
+    KV caches."""
+    _serve_both("zamba2-2.7b", seed=4)
+
+
 def test_port_cli_serves_every_request():
     report = serve.main(["--arch", "smollm-360m", "--requests", "10", "--slots", "4",
                          "--prompt-len", "8", "--max-new", "6"], device="cpu")
     assert sum(s["n"] for s in report.values()) == 10
     for stats in report.values():
         assert stats["total_p99_ms"] > 0
+
+
+def test_port_cli_serves_zamba2():
+    report = serve.main(["--arch", "zamba2-2.7b", "--requests", "6", "--slots", "4",
+                         "--prompt-len", "8", "--max-new", "4"], device="cpu")
+    assert sum(s["n"] for s in report.values()) == 6
 
 
 def test_engine_refuses_a_full_cache():
