@@ -36,16 +36,19 @@ Phases (each raises on failure, so the script exits non-zero):
      1000, Smax and with a softcap), each timed beside its plain version and
      ``F.scaled_dot_product_attention`` (timed only, used nowhere; in bf16
      prefill also a control that the tolerance must reject; decode timed
-     over cache copies past the L2); then
+     over cache copies past the L2), with each kernel's TFLOP/s or GB/s and
+     its time as a multiple of SDPA's; then
      full-width ``qwen2.5-3b`` in bf16 with seeded random weights serves 16
      requests (prompts of 128-1024 tokens, 32 new tokens each) in 2 waves
      of 8 slots through ``ServeEngine``, with the launch counters zeroed
      just before and read just after (``flash_attention`` must have
-     launched 36 x waves times, ``flash_decode`` 36 x decode steps); TTFT
-     and decode ms per step per wave, peak device memory, the idle share of
-     one profiled decode step; a repeat run must give the same tokens, and
+     launched 36 x waves times, all on its tensor-core body, and
+     ``flash_decode`` 36 x decode steps); TTFT and decode ms per step per
+     wave, peak device memory; a repeat run must give the same tokens, and
      one wave's first decode logits must match a teacher-forced
-     ``forward_train`` over its padded prompt plus that token.
+     ``forward_train`` over its padded prompt plus that token; one profiled
+     prefill (device time by kernel name) and one profiled decode step
+     (idle share; one ``flash_decode`` kernel a call).
   5. The hybrid serving slice: ``ssd_chunk`` against its plain version on
      the card at the main path's shapes (x [8, 8, 128, 80, 64], N=64, timed
      beside its plain version and its bound; wave 2's 7 chunks; a reduced
@@ -54,7 +57,9 @@ Phases (each raises on failure, so the script exits non-zero):
      full-width ``zamba2-2.7b`` in bf16 serves the same 16 requests in 2
      waves through ``ServeEngine`` with the same checks as phase 4 and the
      counts of ``ssd_chunk`` (54 a prefill), ``flash_attention`` (9 a
-     prefill) and ``flash_decode`` (9 a step), zeroed just before.
+     prefill) and ``flash_decode`` (9 a step), zeroed just before; then the
+     teacher-forced check of wave 1 once more with the whole model in f32,
+     which must agree within 1e-3 of the largest logit.
   6. A ``{"kernels": [...]}`` line (the flash kernels' launches summed over
      both serving runs), then the card line again, then the final
      ``{"ok": true, "device": {...}}`` line.
@@ -93,6 +98,8 @@ COMMIT_K = 16
 # profiled solve.
 UNFUSED_SWEEPS = 32
 PROFILE_SWEEPS = 16
+# Kernel names a profiled prefill lists.
+PROFILE_TOP = 10
 MOVE_EVAL_SRC = "src/repro_torch/kernels/csrc/move_eval.cu"
 COMMIT_SRC = "src/repro_torch/kernels/csrc/commit.cu"
 PACK_SRC = "src/repro_torch/kernels/csrc/pack.cu"
@@ -128,6 +135,11 @@ L2_FLUSH_BYTES = 100e6
 # bf16 roundings part from the first layer on and add up over 36 layers;
 # a wrong position or mask moves logits by O(max |logit|).
 TEACHER_TOL = 2.0 ** -4
+# The same check with everything in f32 (Zamba2): the reduced f32 configs
+# agree to ~4e-7 of scale on the CPU, so a gap of 1e-3 of the largest logit
+# or more is a fault between the chunked scan and the one-step path, not
+# rounding.
+TEACHER_F32_TOL = 1e-3
 # The SSD chunk kernel against its plain version (abs and rel, on y, state
 # and cum): the reference's kernel tolerance, on its test's input draws
 # (dt uniform in [1e-3, 0.1], A in [-2, -0.5]).
@@ -464,7 +476,8 @@ def device_profile(fn) -> dict:
     """Run ``fn`` under ``torch.profiler``: wall seconds, the union of the
     card's kernel / copy / memset intervals in the trace (``busy_s``, None
     when the trace holds no device activity), the trace's span from its
-    first to its last event, and kernel microseconds by name."""
+    first to its last event, kernel microseconds by name, and launches by
+    name."""
     import tempfile
 
     import torch
@@ -480,7 +493,7 @@ def device_profile(fn) -> dict:
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f).get("traceEvents", [])
-    spans, by_name, lo, hi = [], {}, float("inf"), float("-inf")
+    spans, by_name, counts, lo, hi = [], {}, {}, float("inf"), float("-inf")
     for e in events:
         if e.get("ph") != "X" or "ts" not in e:
             continue
@@ -490,6 +503,7 @@ def device_profile(fn) -> dict:
             spans.append((ts, ts + dur))
             if e["cat"] == "kernel":
                 by_name[e["name"]] = by_name.get(e["name"], 0.0) + dur
+                counts[e["name"]] = counts.get(e["name"], 0) + 1
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         if b > end:
@@ -497,7 +511,16 @@ def device_profile(fn) -> dict:
             end = b
     return {"wall_s": wall, "busy_s": busy / 1e6 if spans else None,
             "span_s": (hi - lo) / 1e6 if spans else None, "launches": len(spans),
-            "kernels": sorted(by_name.items(), key=lambda kv: -kv[1])}
+            "kernels": sorted(by_name.items(), key=lambda kv: -kv[1]), "counts": counts}
+
+
+def kernel_label(name: str, width: int = 160) -> str:
+    """A profiled kernel's name without PyTorch's namespaces and argument
+    list, cut to ``width`` characters (the template arguments say which
+    elementwise op it is)."""
+    for noise in ("void ", "at::native::", "(anonymous namespace)::", "at::", "c10::"):
+        name = name.replace(noise, "")
+    return name[:width]
 
 
 def _ops_call(name):
@@ -521,7 +544,7 @@ DECODE_PHASES = {
     "linear layers (mm + bias + cast)": _layers_call("linear"),
     "norms": _layers_call("rmsnorm", "layernorm"),
     "rope (tables + rotation)": _layers_call("rope_tables", "rotate"),
-    "flash_decode (checks + 2 launches)": _ops_call("flash_decode"),
+    "flash_decode (checks + launch)": _ops_call("flash_decode"),
     "cache writes": lambda f, n: "index_copy_" in n,
     "unembedding": lambda f, n: n == "_unembed",
     "wait for the card (token copy)": lambda f, n: "'cpu' of 'torch._C" in n,
@@ -672,8 +695,13 @@ def check_flash_attention(label, shape, dtype, dev, gen, record, *, window=None,
                                      "the kernel")
             out["library_ms"] = time_ms(lambda: sdpa_prefill(q, k, v))
             line += f", SDPA err vs plain {lib_err:.3e} (control, outside the bound)"
+        nbytes, nops = attention_work(B, S, S, H, KV, D, itemsize, window=window)
         line += (f" | kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, SDPA "
-                 f"{out['library_ms']} ms, bound {b:.4f} ms ({by})")
+                 f"{out['library_ms']} ms, bound {b:.4f} ms ({by}); kernel "
+                 f"{nops / out['ms'] / 1e9:.1f} TFLOP/s of the function's {nops / 1e9:.3f} "
+                 f"GFLOP, {nbytes / out['ms'] / 1e6:.1f} GB/s of its {nbytes / 1e6:.1f} MB"
+                 + (f", {out['ms'] / out['library_ms']:.3f}x SDPA's time"
+                    if out["library_ms"] else ""))
     print(line, flush=True)
     return out
 
@@ -732,9 +760,13 @@ def check_flash_decode(label, shape, dtype, dev, gen, record, kv_lens, *, softca
             out["library_ms"] = time_ms(rotated(lambda kc, vc: sdpa_decode(q, kc, vc,
                                                                            timed_len)))
             line += f", SDPA err vs plain {lib_err:.3e}"
+        nbytes, _ = decode_work(B, timed_len, H, KV, D, itemsize)
         line += (f" | at kv_len {timed_len}, over {copies} cache copies (L2 cold): kernel "
                  f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, SDPA "
-                 f"{out['library_ms']} ms, bound {b:.6f} ms ({by})")
+                 f"{out['library_ms']} ms, bound {b:.6f} ms ({by}); kernel "
+                 f"{nbytes / out['ms'] / 1e6:.1f} GB/s of the {nbytes / 1e6:.3f} MB it must read"
+                 + (f", {out['ms'] / out['library_ms']:.3f}x SDPA's time"
+                    if out["library_ms"] else ""))
     print(line, flush=True)
     return out
 
@@ -827,6 +859,26 @@ def teacher_forced_check(model, reqs, dev) -> dict:
     return out
 
 
+def teacher_forced_f32(cfg, dev, reqs) -> tuple[dict, float]:
+    """Wave 1's teacher-forced check again with the parameters, caches and
+    activations in f32 (TF32 off, as phase 4 set it), so that the bf16
+    roundings drop out and what is left is the port's own arithmetic;
+    returns the errors and the seconds it took."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import build_model
+
+    t = time.perf_counter()
+    model = build_model(dataclasses.replace(cfg, param_dtype="float32"), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SERVE_SEED))
+    tf = teacher_forced_check(model, reqs, dev)
+    torch.cuda.synchronize()
+    del model
+    torch.cuda.empty_cache()
+    return tf, time.perf_counter() - t
+
+
 def wave_lengths(cfg) -> list[int]:
     """Each wave's longest prompt on the main path (waves follow SLO
     priority)."""
@@ -847,10 +899,14 @@ def serve_slice(cfg, dev, expected_launches, phases) -> dict:
     zeroed just before and read just after (``expected_launches(waves,
     steps)`` names the counts each kernel must show); then the checks (a
     repeat gives the same tokens, wave 1's first decode logits match a
-    teacher-forced ``forward_train``, all logits finite) and one profiled
-    decode step (device idle share; host phases under cProfile)."""
+    teacher-forced ``forward_train``, all logits finite), one profiled
+    prefill (device time by kernel name) and one profiled decode step
+    (device idle share, one ``flash_decode`` launch a call; host phases
+    under cProfile).  Every ``flash_attention`` launch of the serve must
+    have taken the tensor-core body."""
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import body_launches
     from repro_torch.launch.serve import latency_report
     from repro_torch.models import build_model
 
@@ -866,6 +922,7 @@ def serve_slice(cfg, dev, expected_launches, phases) -> dict:
     t0 = time.perf_counter()
     finished, wall, _ = serve_once(model, cfg, dev)
     launches = dict(ops.launch_counts)
+    bodies = dict(body_launches)
     peak = torch.cuda.max_memory_allocated()
     waves = wave_stats(finished, t0)
     steps = sum(w["steps"] for w in waves)
@@ -873,6 +930,9 @@ def serve_slice(cfg, dev, expected_launches, phases) -> dict:
         if launches[name] != n:
             raise AssertionError(f"{arch} serve launched {name} {launches[name]} times, "
                                  f"expected {n}")
+    if bodies != {"simt": 0, "wgmma": launches["flash_attention"]}:
+        raise AssertionError(f"{arch} prefill took the flash_attention bodies {bodies}, not the "
+                             f"tensor-core body {launches['flash_attention']} times")
     for r in finished:
         if len(r.tokens) != SERVE_NEW or not all(0 <= x < cfg.vocab_size for x in r.tokens):
             raise AssertionError(f"{arch} request {r.rid}: tokens {r.tokens}")
@@ -887,7 +947,8 @@ def serve_slice(cfg, dev, expected_launches, phases) -> dict:
     report = latency_report(finished)
     print(f"serve {arch} full width ({n_params / 1e9:.4f} B params, bf16, init "
           f"{init_s:.3f} s): {len(finished)} requests in {len(waves)} waves, wall {wall:.4f} s, "
-          f"{SERVE_REQUESTS * SERVE_NEW / wall:.2f} generated tokens/s, launches {launches}, "
+          f"{SERVE_REQUESTS * SERVE_NEW / wall:.2f} generated tokens/s, launches {launches} "
+          f"(flash_attention bodies {bodies}), "
           f"peak memory {peak / 2**30:.3f} GiB; latency by SLO "
           + json.dumps({f"SLO{k + 1}": v for k, v in report.items()}), flush=True)
 
@@ -914,8 +975,22 @@ def serve_slice(cfg, dev, expected_launches, phases) -> dict:
         raise AssertionError(f"a repeat {arch} prefill picked another first token than the "
                              "served run")
 
-    # one profiled decode step (a fresh wave, then one step under torch.profiler)
-    engine.admit_wave(serve_requests(cfg)[:SERVE_SLOTS])
+    # one profiled prefill (a fresh wave), then one profiled decode step
+    prompts = serve_requests(cfg)[:SERVE_SLOTS]
+    plen = max(len(r.prompt) for r in prompts)
+    pre = device_profile(lambda: engine.admit_wave(prompts))
+    if pre["busy_s"] is None:
+        print(f"profile {arch}: one prefill of {SERVE_SLOTS} prompts (longest {plen}), wall "
+              f"{pre['wall_s'] * 1e3:.3f} ms; the profiler saw no device activity", flush=True)
+    else:
+        ktot = sum(us for _, us in pre["kernels"])
+        top = "; ".join(f"{kernel_label(name)} {us / 1e3:.3f} ms x{pre['counts'][name]} "
+                        f"({us / ktot:.3f})" for name, us in pre["kernels"][:PROFILE_TOP])
+        print(f"profile {arch}: one prefill of {SERVE_SLOTS} prompts (longest {plen}), wall "
+              f"{pre['wall_s'] * 1e3:.3f} ms, device busy {pre['busy_s'] * 1e3:.3f} ms (idle "
+              f"share {1.0 - pre['busy_s'] / pre['span_s']:.4f}), kernel time "
+              f"{ktot / 1e3:.3f} ms in {pre['launches']} device launches; by name (share of "
+              f"kernel time): {top}", flush=True)
     prof = device_profile(engine.step)
     if prof["busy_s"] is None:
         idle = None
@@ -924,17 +999,24 @@ def serve_slice(cfg, dev, expected_launches, phases) -> dict:
     else:
         idle = 1.0 - prof["busy_s"] / prof["span_s"]
         top = ", ".join(f"{name[:48]} {us / 1e3:.4f} ms" for name, us in prof["kernels"][:6])
+        decode_calls = expected_launches(1, 1)["flash_decode"]
+        decode_kernels = sum(n for name, n in prof["counts"].items() if "flash_decode" in name)
         print(f"profile {arch}: one decode step, wall {prof['wall_s'] * 1e3:.3f} ms, device "
               f"busy {prof['busy_s'] * 1e3:.3f} ms (idle share {idle:.4f} of the traced span "
-              f"{prof['span_s'] * 1e3:.3f} ms), {prof['launches']} device launches; kernel "
-              f"time by name: {top}", flush=True)
+              f"{prof['span_s'] * 1e3:.3f} ms), {prof['launches']} device launches, "
+              f"flash_decode kernels {decode_kernels} for {decode_calls} calls; kernel time by "
+              f"name: {top}", flush=True)
+        if decode_kernels != decode_calls:
+            raise AssertionError(f"{arch}: {decode_kernels} flash_decode kernels for "
+                                 f"{decode_calls} calls in one decode step, not one a call")
     wall_h, host_phases = host_profile(engine.step, phases)
     print(f"host profile {arch}: one decode step under cProfile, wall {wall_h * 1e3:.3f} ms; "
           "cumulative: " + ", ".join(f"{label} {sec * 1e3:.3f} ms ({sec / wall_h:.3f})"
                                      for label, sec in host_phases.items()), flush=True)
     del model, engine
     torch.cuda.empty_cache()
-    return {"launches": launches, "waves": waves, "idle": idle, "peak_gib": peak / 2**30}
+    return {"launches": launches, "waves": waves, "idle": idle, "peak_gib": peak / 2**30,
+            "wave1": finished[:SERVE_SLOTS], "teacher": tf}
 
 
 def serving_phase(dev, record) -> dict:
@@ -1091,7 +1173,21 @@ def hybrid_phase(dev, record) -> dict:
     out = serve_slice(cfg, dev, lambda waves, steps: {
         "ssd_chunk": cfg.num_layers * waves, "flash_attention": apps * waves,
         "flash_decode": apps * steps}, HYBRID_DECODE_PHASES)
-    return {**out, "times": times}
+
+    # -- 5d. the same teacher-forced check in f32 at full width ----------------
+    tf32, secs = teacher_forced_f32(cfg, dev, out["wave1"])
+    tf16 = out["teacher"]
+    print(f"teacher-forced check {cfg.arch_id} in f32 (wave 1, {tf32['rows']} rows, {secs:.1f} s "
+          f"with the build): decode vs forward_train max abs err {tf32['max_abs_err']:.6g} of "
+          f"max |logit| {tf32['scale']:.6g} ({tf32['max_abs_err'] / tf32['scale']:.3e} of "
+          f"scale, limit {TEACHER_F32_TOL:g}), argmax agree {tf32['argmax_agree']}/"
+          f"{tf32['rows']}, all finite {tf32['finite']}; in bf16 {tf16['max_abs_err']:.6g} of "
+          f"{tf16['scale']:.6g} ({tf16['max_abs_err'] / tf16['scale']:.3e}), argmax agree "
+          f"{tf16['argmax_agree']}/{tf16['rows']}", flush=True)
+    if not (tf32["finite"] and tf32["max_abs_err"] <= TEACHER_F32_TOL * tf32["scale"]):
+        raise AssertionError(f"{cfg.arch_id} in f32: decode parts from the teacher-forced "
+                             "forward beyond what f32 roundings explain")
+    return {**out, "times": times, "teacher_f32": tf32}
 
 
 def main() -> int:

@@ -6,6 +6,13 @@ sliding window and logit softcap, top-left positions (query i is position
 i).  Unlike the TPU wrapper it pads nothing: D is not rounded up to 128
 lanes, and ragged sequence ends are masked inside the kernel.
 
+The source has two bodies, and ``choose_body`` picks one from the dtype and
+D alone: bf16 with D a multiple of 16 runs on the tensor cores (``wgmma``),
+everything else (f32, whose 3e-5 contract rules out bf16 and TF32 products,
+and bf16 with another D) on the f32 SIMT units.  A failure to build or
+launch raises; it never switches bodies.  ``body_launches`` counts the
+launches of each body.
+
 This wrapper takes CUDA tensors only; ``kernels.ops`` routes CPU tensors to
 the plain version ``kernels.ref.flash_attention_ref``.
 """
@@ -19,6 +26,23 @@ from repro_torch.kernels.build import check_launch, load_library
 
 MAX_HEAD_DIM = 256
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+BODY_CODES = {"simt": 0, "wgmma": 1}
+body_launches = dict.fromkeys(BODY_CODES, 0)
+
+
+def choose_body(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel body for inputs of ``dtype`` and head dim ``head_dim``:
+    "wgmma" (tensor cores) for bf16 with head_dim % 16 == 0, else "simt"."""
+    if dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim <= MAX_HEAD_DIM:
+        return "wgmma"
+    return "simt"
+
+
+def aligned16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous with its data 16-byte aligned (the tensor-core
+    body's 16-byte copies); a misaligned view is copied."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -55,12 +79,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     scale = scale if scale is not None else D ** -0.5
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    body = choose_body(q.dtype, D)
+    q, k, v = aligned16(q), aligned16(k), aligned16(v)
     out = torch.empty_like(q)
     lib = load_library("flash_attention")
     code = lib.flash_attention_launch(
-        B, Sq, Skv, H, KV, D, DTYPE_CODES[q.dtype], float(scale), int(causal),
-        int(window or 0), float(softcap or 0.0), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
+        B, Sq, Skv, H, KV, D, DTYPE_CODES[q.dtype], BODY_CODES[body], float(scale),
+        int(causal), int(window or 0), float(softcap or 0.0), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(lib, code, "flash_attention")
+    body_launches[body] += 1
     return out

@@ -7,10 +7,19 @@ int32 on the card that the kernel reads there (the Pallas kernel's SMEM
 scalar), so a decode step never waits on the host for it.  Nothing is
 padded (no D to 128 lanes, no G to 8 sublanes).
 
-The kernel splits the cache over CTAs (split-KV) and merges the partial
-softmaxes in a second launch; the wrapper sizes the split from Smax and the
-card's SM count (both looked up once per shape and card), and allocates
-the f32 scratch.
+The kernel splits the cache over CTAs (split-KV); the CTA that finishes
+last for a (sequence, kv head, head set) merges the partial softmaxes, so a
+call is one launch.  ``choose_body`` picks one of its two bodies from the
+dtype, the group size and D: bf16 query groups of up to 16 heads at D = 64,
+80 or 128 (every served shape) run on the tensor cores, the group's heads
+as the rows of ``mma.sync``; the rest (f32, other D) on the SIMT units, a
+group cut into sets of at most HEADS_PER_CTA heads, one CTA a set.  The
+wrapper sizes the split from Smax and the card's SM count (both looked up
+once per shape and card).  The f32 scratch for the partials
+and the int32 ticket counters (zeroed; the kernel leaves them at 0) are
+allocated once per (device, shape) and reused by every later call: calls
+on one stream run in order, so this assumes that every call for a shape
+runs on one stream.
 
 This wrapper takes CUDA tensors only; ``kernels.ops`` routes CPU tensors to
 the plain version ``kernels.ref.flash_decode_ref``.
@@ -23,11 +32,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.build import check_launch, load_library
-from repro_torch.kernels.flash_attention import DTYPE_CODES, check_qkv
+from repro_torch.kernels.flash_attention import DTYPE_CODES, aligned16, check_qkv
 
-TILE = 64                 # cache rows per tile (DBK in the source)
-MAX_GROUP_WIDTH = 2048    # G * D the kernel's per-thread accumulators hold
-CTAS_PER_SM = 2           # split target: about this many CTAs per SM
+TILE = 64                 # cache rows per tile: each split range holds whole tiles
+CTAS_PER_SM = 1           # split target: about this many CTAs per SM
+HEADS_PER_CTA = 4         # a query group's heads are cut into sets of at most this
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,6 +53,55 @@ def split_plan(B: int, KV: int, Smax: int, num_sms: int) -> tuple[int, int]:
 @functools.lru_cache(maxsize=None)
 def sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+BODY_CODES = {"simt": 0, "mma": 1}
+
+
+def choose_body(dtype: torch.dtype, G: int, head_dim: int) -> str:
+    """The kernel body for a query group of G heads: "mma" (the group's heads
+    as the rows of bf16 tensor-core products) for bf16 with G <= 16 and
+    head_dim 64, 80 or 128, else "simt"."""
+    if dtype == torch.bfloat16 and G <= 16 and head_dim in (64, 80, 128):
+        return "mma"
+    return "simt"
+
+
+def head_split(G: int) -> int:
+    """Sets the G query heads of a kv head are cut into, one CTA a set (SIMT
+    body; the tensor-core body takes the whole group in one CTA)."""
+    return -(-G // HEADS_PER_CTA)
+
+
+def scratch_key(device: torch.device, B: int, KV: int, G: int, D: int,
+                nsplit: int) -> tuple:
+    """The scratch cache's key: one entry per device and per shape whose
+    partials or tickets differ in size or layout."""
+    return (device.type, device.index, B, KV, G, D, nsplit)
+
+
+def scratch_sizes(B: int, KV: int, G: int, D: int, nsplit: int) -> tuple[int, int]:
+    """(f32 values, int32 tickets): m and l per (b, kv head, range, query
+    head of the group), acc of D values each; one ticket per (b, kv head,
+    head set)."""
+    parts = B * KV * nsplit * G
+    return parts * (2 + D), B * KV * head_split(G)
+
+
+_SCRATCH: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def scratch(device: torch.device, B: int, KV: int, G: int, D: int, nsplit: int):
+    """The (partials, tickets) of this shape, allocated at its first call
+    (tickets zeroed) and reused after."""
+    key = scratch_key(device, B, KV, G, D, nsplit)
+    entry = _SCRATCH.get(key)
+    if entry is None:
+        n_part, n_tickets = scratch_sizes(B, KV, G, D, nsplit)
+        entry = (torch.empty((n_part,), dtype=torch.float32, device=device),
+                 torch.zeros((n_tickets,), dtype=torch.int32, device=device))
+        _SCRATCH[key] = entry
+    return entry
 
 
 def kv_len_tensor(kv_len, device) -> torch.Tensor:
@@ -68,22 +126,20 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len,
     B, _, H, D = q.shape
     Smax, KV = k.shape[1], k.shape[2]
     G = H // KV
-    if G * D > MAX_GROUP_WIDTH:
-        raise ValueError(f"G * D = {G * D} > {MAX_GROUP_WIDTH}")
     scale = scale if scale is not None else D ** -0.5
     dev = q.device
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = aligned16(q), aligned16(k), aligned16(v)
     n_len = kv_len_tensor(kv_len, dev)
     nsplit, split_len = split_plan(B, KV, Smax, sm_count(dev.index))
-    part_m = torch.empty((B * KV * nsplit * G,), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B * KV * nsplit * G * D,), dtype=torch.float32, device=dev)
+    part, tickets = scratch(dev, B, KV, G, D, nsplit)
     out = torch.empty_like(q)
     lib = load_library("flash_decode")
+    body = choose_body(q.dtype, G, D)
     code = lib.flash_decode_launch(
-        B, Smax, H, KV, D, DTYPE_CODES[q.dtype], nsplit, split_len, float(scale),
+        B, Smax, H, KV, D, DTYPE_CODES[q.dtype], BODY_CODES[body],
+        head_split(G) if body == "simt" else 1, nsplit, split_len, float(scale),
         float(softcap or 0.0), q.data_ptr(), k.data_ptr(), v.data_ptr(), n_len.data_ptr(),
-        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
+        part.data_ptr(), tickets.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(lib, code, "flash_decode")
     return out

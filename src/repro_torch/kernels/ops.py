@@ -20,8 +20,12 @@ launch_counts = {"move_eval": 0, "move_eval_best": 0, "commit_topk": 0, "pack_ff
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    """Zero every kernel's count, and the flash attention body counts."""
+    from repro_torch.kernels.flash_attention import body_launches
+
+    for counts in (launch_counts, body_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def move_eval(*args):

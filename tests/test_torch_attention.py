@@ -16,8 +16,11 @@ import torch
 
 from repro.kernels import ops as rops
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.flash_decode import TILE, flash_decode_cuda, split_plan
+from repro_torch.kernels.flash_attention import choose_body, flash_attention_cuda
+from repro_torch.kernels.flash_decode import (TILE, flash_decode_cuda, head_split, scratch_key,
+                                              scratch_sizes, split_plan)
+from repro_torch.kernels.flash_decode import choose_body as decode_body
+from repro_torch.kernels.flash_decode import scratch as decode_scratch
 
 torch.set_num_threads(1)
 
@@ -169,3 +172,49 @@ def test_decode_split_plan_covers_the_cache(B, KV, Smax):
     assert nsplit * split_len >= Smax                       # every position has a range
     assert (nsplit - 1) * split_len < Smax                  # no range starts past the cache
     assert B * KV * nsplit >= min(132, B * KV * -(-Smax // TILE))    # fills the SMs
+
+
+@pytest.mark.parametrize("dtype,D,body", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 16, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 72, "simt"), (torch.bfloat16, 8, "simt"),
+    (torch.float32, 128, "simt"), (torch.float32, 16, "simt"),
+])
+def test_flash_attention_body_follows_dtype_and_head_dim(dtype, D, body):
+    """The tensor-core body takes bf16 with D % 16 == 0; f32 (its 3e-5
+    contract) and other head dims take the SIMT body."""
+    assert choose_body(dtype, D) == body
+
+
+def test_decode_scratch_is_cached_per_device_and_shape():
+    """One scratch per (device, B, KV, G, D, nsplit), sized for the kernel's
+    partials (m, l and D values of acc per (b, kv head, range, query head))
+    and its zeroed tickets (one per (b, kv head, set of at most 4 query
+    heads)); a repeat call reuses it."""
+    cpu = torch.device("cpu")
+    keys = {scratch_key(cpu, *shape) for shape in
+            [(8, 2, 8, 128, 17), (8, 2, 8, 80, 17), (8, 2, 4, 128, 17), (8, 2, 8, 128, 2),
+             (4, 2, 8, 128, 17), (8, 4, 8, 128, 17)]}
+    assert len(keys) == 6
+    assert scratch_key(cpu, 8, 2, 8, 128, 17) != scratch_key(torch.device("cuda", 0),
+                                                             8, 2, 8, 128, 17)
+    assert scratch_sizes(8, 2, 8, 128, 17) == (8 * 2 * 17 * 8 * (2 + 128), 8 * 2 * 2)
+    assert [head_split(G) for G in (1, 2, 3, 4, 5, 8, 16)] == [1, 1, 1, 1, 2, 2, 4]
+    part, tickets = decode_scratch(cpu, 3, 2, 4, 16, 5)
+    assert part.numel() == 3 * 2 * 5 * 4 * 18 and part.dtype == torch.float32
+    assert tickets.numel() == 6 and tickets.dtype == torch.int32 and not tickets.any()
+    again = decode_scratch(cpu, 3, 2, 4, 16, 5)
+    assert again[0] is part and again[1] is tickets
+    assert decode_scratch(cpu, 3, 2, 4, 16, 6)[0] is not part
+
+
+@pytest.mark.parametrize("dtype,G,D,body", [
+    (torch.bfloat16, 8, 128, "mma"), (torch.bfloat16, 3, 64, "mma"),
+    (torch.bfloat16, 16, 64, "mma"), (torch.bfloat16, 1, 80, "mma"),
+    (torch.bfloat16, 2, 16, "simt"), (torch.bfloat16, 2, 256, "simt"),
+    (torch.bfloat16, 17, 128, "simt"), (torch.float32, 8, 128, "simt"),
+])
+def test_flash_decode_body_follows_dtype_group_and_head_dim(dtype, G, D, body):
+    """bf16 query groups of up to 16 heads at D = 64, 80 or 128 take the
+    tensor-core decode body; f32, larger groups and other head dims the
+    SIMT body."""
+    assert decode_body(dtype, G, D) == body

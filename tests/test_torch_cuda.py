@@ -201,6 +201,127 @@ def test_flash_decode_kernel_matches_plain_version(cuda_device, dtype, B, Smax, 
     assert ops.launch_counts["flash_decode"] == 4
 
 
+def _flash_case(q, k, v, kw):
+    got = ops.flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(host(got.float()), host(want.float()), err_msg=str(kw),
+                               **_flash_tol(q.dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 64, 80, 256])
+@pytest.mark.parametrize("S", [63, 64, 65, 127, 129])
+def test_flash_attention_tensor_core_body_at_tile_edges(cuda_device, D, S):
+    """bf16 with D % 16 == 0 takes the tensor-core body: ragged lengths at
+    the 64-row query and 32/64-key block edges, causal or not, a window
+    that starts inside a key block, a window with a softcap."""
+    from repro_torch.kernels.flash_attention import body_launches
+
+    bf16 = torch.bfloat16
+    q = _normal((2, S, 4, D), bf16, cuda_device, 7)
+    k = _normal((2, S, 2, D), bf16, cuda_device, 8)
+    v = _normal((2, S, 2, D), bf16, cuda_device, 9)
+    ops.reset_launch_counts()
+    for kw in (dict(), dict(causal=False), dict(window=37), dict(window=40, softcap=30.0)):
+        _flash_case(q, k, v, kw)
+    assert body_launches == {"simt": 0, "wgmma": 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 64, 80, 256])
+@pytest.mark.parametrize("Sq,Skv", [(65, 129), (129, 63), (1, 100), (200, 70)])
+def test_flash_attention_tensor_core_body_when_lengths_differ(cuda_device, D, Sq, Skv):
+    """Sq != Skv, top-left positions, causal and not, on the tensor cores."""
+    from repro_torch.kernels.flash_attention import body_launches
+
+    bf16 = torch.bfloat16
+    q = _normal((2, Sq, 8, D), bf16, cuda_device, 10)
+    k = _normal((2, Skv, 2, D), bf16, cuda_device, 11)
+    v = _normal((2, Skv, 2, D), bf16, cuda_device, 12)
+    ops.reset_launch_counts()
+    for kw in (dict(), dict(causal=False)):
+        _flash_case(q, k, v, kw)
+    assert body_launches == {"simt": 0, "wgmma": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64), (torch.float32, 80),
+                                     (torch.float32, 256), (torch.bfloat16, 72),
+                                     (torch.bfloat16, 40)])
+def test_flash_attention_simt_body_for_f32_and_odd_head_dims(cuda_device, dtype, D):
+    """f32 (whose 3e-5 contract rules out bf16 and TF32 products) and bf16
+    with D % 16 != 0 take the SIMT body."""
+    from repro_torch.kernels.flash_attention import body_launches
+
+    q = _normal((2, 129, 4, D), dtype, cuda_device, 13)
+    k = _normal((2, 129, 2, D), dtype, cuda_device, 14)
+    v = _normal((2, 129, 2, D), dtype, cuda_device, 15)
+    ops.reset_launch_counts()
+    for kw in (dict(), dict(window=37, softcap=30.0)):
+        _flash_case(q, k, v, kw)
+    assert body_launches == {"simt": 2, "wgmma": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Smax,H,KV,D", [
+    (3, 200, 16, 2, 128),         # G = 8, tensor-core body
+    (2, 200, 8, 8, 80),
+    (2, 130, 4, 2, 16),           # SIMT body (D = 16)
+    (1, 257, 16, 8, 256),         # SIMT body (D = 256)
+    (2, 150, 15, 5, 64),          # G = 3, tensor-core body (rows past 3 are zeros)
+])
+def test_flash_decode_kernel_at_tile_edges(cuda_device, dtype, B, Smax, H, KV, D):
+    """kv_len at 1, at the 64-row tile edges +- 1 and at Smax - 1 and Smax;
+    one launch a call."""
+    q = _normal((B, 1, H, D), dtype, cuda_device, 16)
+    k = _normal((B, Smax, KV, D), dtype, cuda_device, 17)
+    v = _normal((B, Smax, KV, D), dtype, cuda_device, 18)
+    lens = (1, 63, 64, 65, 127, 128, 129, Smax - 1, Smax)
+    ops.reset_launch_counts()
+    for kv_len in lens:
+        n = torch.tensor(kv_len, dtype=torch.int32, device=cuda_device)
+        got = ops.flash_decode(q, k, v, n)
+        want = flash_decode_ref(q, k, v, n)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(host(got.float()), host(want.float()),
+                                   err_msg=f"kv_len={kv_len}", **_flash_tol(dtype))
+    assert ops.launch_counts["flash_decode"] == len(lens)
+
+
+@pytest.mark.cuda
+def test_flash_decode_back_to_back_calls_switch_shape_and_length(cuda_device):
+    """Calls queued back to back on one stream, switching shape, dtype and
+    kv_len, each give their plain version's output: the ticket counters
+    return to 0 and each shape finds its own cached scratch."""
+    from repro_torch.kernels import flash_decode as FD
+
+    shapes = [(8, 1064, 16, 2, 128, torch.bfloat16), (2, 300, 4, 2, 16, torch.float32),
+              (8, 1064, 32, 32, 80, torch.bfloat16), (8, 1064, 16, 2, 128, torch.float32)]
+    inputs = []
+    for i, (B, Smax, H, KV, D, dtype) in enumerate(shapes):
+        inputs.append(tuple(_normal(s, dtype, cuda_device, 20 + 3 * i + j) for j, s in
+                            enumerate(((B, 1, H, D), (B, Smax, KV, D), (B, Smax, KV, D)))))
+    calls = [(i, n) for n in (1, 65, 1000, 17, 1064) for i in range(len(shapes))]
+    got = []
+    for i, n in calls:                      # no synchronisation between calls
+        q, k, v = inputs[i]
+        n = min(n, k.shape[1])
+        got.append(ops.flash_decode(q, k, v, torch.tensor(n, dtype=torch.int32,
+                                                            device=cuda_device)))
+    torch.cuda.synchronize()
+    for (i, n), g in zip(calls, got):
+        q, k, v = inputs[i]
+        want = flash_decode_ref(q, k, v, min(n, k.shape[1]))
+        np.testing.assert_allclose(host(g.float()), host(want.float()),
+                                   err_msg=f"shape {shapes[i]} kv_len {n}",
+                                   **_flash_tol(q.dtype))
+    assert len({key for key in FD._SCRATCH if key[1] == cuda_device.index}) >= 3
+    for _, tickets in FD._SCRATCH.values():
+        assert int(tickets.abs().sum()) == 0
+
+
 @pytest.mark.cuda
 def test_reduced_serve_on_the_card_gives_the_cpu_tokens(cuda_device):
     import copy
