@@ -14,7 +14,8 @@ Phases (each raises on failure, so the script exits non-zero):
      ``move_eval`` and ``move_eval_best`` at (N, T) in {(300, 5), (500, 17),
      (100_000, 5), (100_000, 128)} x moves_left {0, 5} and at the main
      path's own input (the N=100_000 cluster, bucket-padded);
-     ``commit_topk`` on the top-16 candidates of the same sweeps; and
+     ``commit_topk`` on the top-16 candidates of the same sweeps (status,
+     assignment and tier loads bit for bit); and
      ``pack_ffd_tiers`` on random demand (M in {128, 4096}) and on the
      [T, M_b, R] tensor the host scheduler built for the balance's last
      proposal; median CUDA-event time per launch of each kernel and of its
@@ -51,8 +52,10 @@ Phases (each raises on failure, so the script exits non-zero):
      (idle share; one ``flash_decode`` kernel a call).
   5. The hybrid serving slice: ``ssd_chunk`` against its plain version on
      the card at the main path's shapes (x [8, 8, 128, 80, 64], N=64, timed
-     beside its plain version and its bound; wave 2's 7 chunks; a reduced
-     P=N=16 and a ragged 96-row case) within 5e-5, and ``flash_attention``
+     beside its plain version and its bytes and operations bounds; wave 2's
+     7 chunks; a reduced P=N=16 case, a 96-row and a 17-row case, 81 heads
+     in ragged groups of 6, and x drawn 30 times larger) within 5e-5, with
+     the heads a CTA of each, and ``flash_attention``
      and ``flash_decode`` at the shared block's H=KV=32, D=80; then
      full-width ``zamba2-2.7b`` in bf16 serves the same 16 requests in 2
      waves through ``ServeEngine`` with the same checks as phase 4 and the
@@ -80,10 +83,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth, the
-# f32 rate outside the tensor cores and the dense bf16 tensor-core rate.
+# f32 rate outside the tensor cores and the dense bf16 and TF32 tensor-core
+# rates.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
 # f32 operations per (app, tier) pair as the kernels compute them (counted
 # from csrc/move_eval.cu::pair_delta: 26 per resource, 24 for the task
 # terms, 14 for movement + weighting; the best kernel adds the fit test's
@@ -374,8 +379,8 @@ def commit_work(args, inputs, x_before, x_after, neg_tol: float) -> tuple[float,
 
 def check_commit(label, args, feas, moves_left, record, dev) -> dict:
     """Hold the commit kernel against its plain version on the card: the
-    same accepted moves and status, tier loads within 1e-6 scaled (the
-    kernel adds in the same order, so 0 is expected); then time both."""
+    same status, accepted moves and tier loads, bit for bit (the kernel adds
+    in the same order); then time both."""
     import torch
     from repro_torch.kernels.commit import commit_topk_cuda
     from repro_torch.kernels.ref import commit_topk_ref
@@ -395,9 +400,8 @@ def check_commit(label, args, feas, moves_left, record, dev) -> dict:
     if not torch.equal(got_state[0], want_state[0]):
         raise AssertionError(f"commit_topk {label}: the accepted moves differ")
     err = max(float((got_state[i] - want_state[i]).abs().max()) for i in (1, 2))
-    scale = max(float(want_state[i].abs().max()) for i in (1, 2)) + 1e-9
-    if not err / scale <= 1e-6:
-        raise AssertionError(f"commit_topk {label}: tier loads differ, scaled {err / scale:.3e}")
+    if not all(torch.equal(got_state[i], want_state[i]) for i in (1, 2)):
+        raise AssertionError(f"commit_topk {label}: tier loads differ, max abs {err:.3e}")
     record["commit_topk"]["max_abs_err"] = max(record["commit_topk"]["max_abs_err"], err)
 
     nbytes, nops = commit_work(args, inputs, x0, got_state[0], commit_config()[0])
@@ -1070,62 +1074,98 @@ def serving_phase(dev, record) -> dict:
     return {**out, "times": times}
 
 
-def ssd_work(B, C, Q, H, P, N) -> tuple[float, float, float]:
-    """(bytes, operations needed, operations as the kernel does them) of the
-    SSD per-chunk function.  Bytes: x, dt, A, B and C read once, y, state
-    and cum written once, f32.  Needed: C.B over the lower triangle once per
-    (b, c) (it does not depend on the head); per (b, c, h) the cumsum (2 Q),
-    the weights of the pairs j <= i (subtract, exp, two multiplies), W x over
-    those pairs, dw (3 Q), x dw (Q P) and the state product (2 Q P N).  As
-    done: C.B per head over the full square and W x over it too."""
+def ssd_work(B, C, Q, H, P, N, G) -> tuple[float, float, float, float]:
+    """(bytes, products needed, other operations needed, products as the
+    kernel does them) of the SSD per-chunk function.  Bytes: x, dt, A, B and
+    C read once, y, state and cum written once, f32.  Products needed: C.B
+    over the lower triangle once per (b, c) (it does not depend on the
+    head), per (b, c, h) W x over the pairs j <= i and the state product
+    (2 Q P N).  Other: per (b, c, h) the cumsum (2 Q), the weights of the
+    pairs j <= i (subtract, exp, two multiplies), dw (3 Q) and x dw (Q P).
+    As done: C.B once per group of G heads and W x, both over the 16 x 16
+    blocks on and below the diagonal, and the state product, with Q rounded
+    up to 16 (each is three TF32 products on the tensor cores)."""
     tri = Q * (Q + 1) // 2
     nbytes = 4 * (2 * B * C * Q * H * P + B * C * H * P * N + 2 * B * C * Q * H
                   + 2 * B * C * Q * N + H)
-    per_head = 2 * Q + 4 * tri + 3 * Q + Q * P + 2 * Q * P * N
-    needed = B * C * (2 * tri * N + H * (per_head + 2 * tri * P))
-    done = B * C * H * (per_head + 2 * Q * Q * N + 2 * Q * Q * P)
-    return float(nbytes), float(needed), float(done)
+    products = B * C * (2 * tri * N + H * (2 * tri * P + 2 * Q * P * N))
+    other = B * C * H * (2 * Q + 4 * tri + 3 * Q + Q * P)
+    nb = -(-Q // 16)
+    lower = nb * (nb + 1) // 2 * 256
+    done = B * C * (-(-H // G) * 2 * lower * N + H * (2 * lower * P + 2 * 16 * nb * P * N))
+    return float(nbytes), float(products), float(other), float(done)
 
 
-def check_ssd_chunk(label, shape, dev, gen, record, *, timed=False) -> dict:
+def ssd_bound_ms(nbytes: float, products: float, other: float) -> tuple[float, str, float]:
+    """(bound, what bounds it, operations time) of the SSD per-chunk
+    function: the larger of its bytes over the memory rate and its
+    operations, the products at the rate the card has for f32-exact
+    products (3xTF32, a third of the TF32 peak) and the rest at the f32
+    rate, the two units working side by side."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(products / (TF32_OPS_PER_S / 3), other / F32_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes", t_ops) if t_bytes >= t_ops else (t_ops, "operations", t_ops)
+
+
+def check_ssd_chunk(label, shape, dev, gen, record, *, timed=False, x_scale=1.0,
+                    group=None) -> dict:
     """Hold the ssd_chunk kernel against its plain version on the card
-    (SSD_TOL on y, state and cum); with ``timed``, time both."""
+    (SSD_TOL on y, state and cum), x drawn at ``x_scale`` times the
+    reference test's scale, with ``group`` heads a CTA or the wrapper's
+    choice; with ``timed``, time both, and the kernel at every group size
+    the wrapper may choose."""
     import torch
+    from repro_torch.kernels.build import sm_count
     from repro_torch.kernels.ref import ssd_chunk_ref
-    from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
+    from repro_torch.kernels.ssd_chunk import MAX_GROUP, _launch, head_group
 
     B, C, Q, H, P, N = shape
+    G = group or head_group(B * C, H, sm_count(dev.index))
     f32 = torch.float32
-    x = seeded_normal((B, C, Q, H, P), f32, dev, gen)
+    x = seeded_normal((B, C, Q, H, P), f32, dev, gen) * x_scale
     dt = torch.rand((B, C, Q, H), generator=gen, device=dev) * (0.1 - 1e-3) + 1e-3
     A = -(torch.rand((H,), generator=gen, device=dev) * 1.5 + 0.5)
     Bm = seeded_normal((B, C, Q, N), f32, dev, gen)
     Cm = seeded_normal((B, C, Q, N), f32, dev, gen)
-    got = ssd_chunk_cuda(x, dt, A, Bm, Cm)
+    got = _launch(x, dt, A, Bm, Cm, G)
     want = ssd_chunk_ref(x, dt, A, Bm, Cm)
     torch.cuda.synchronize()
-    errs = []
+    errs, worst = [], 0.0
     for name, g, w in zip(("y", "state", "cum"), got, want):
         diff = (g - w).abs()
         errs.append(float(diff.max()))
+        worst = max(worst, float((diff / (SSD_TOL + SSD_TOL * w.abs())).max()))
         if not bool((diff <= SSD_TOL + SSD_TOL * w.abs()).all()):
             raise AssertionError(f"ssd_chunk {label}: {name} max abs err {errs[-1]:.3e} beyond "
                                  f"atol = rtol = {SSD_TOL:g}")
     del got, want
     record["ssd_chunk"]["max_abs_err"] = max(record["ssd_chunk"]["max_abs_err"], *errs)
-    line = (f"ssd_chunk {label:>40}: max abs err y {errs[0]:.3e}, state {errs[1]:.3e}, cum "
-            f"{errs[2]:.3e} (atol = rtol = {SSD_TOL:g})")
+    line = (f"ssd_chunk {label:>44}: G={G} heads a CTA ({-(-H // G) * B * C} CTAs), body "
+            f"3xTF32 tensor cores (its only body); max abs err y {errs[0]:.3e}, state "
+            f"{errs[1]:.3e}, cum {errs[2]:.3e}, largest err / tol {worst:.3f} (atol = rtol = "
+            f"{SSD_TOL:g})")
     out = {}
     if timed:
-        nbytes, needed, done = ssd_work(B, C, Q, H, P, N)
-        b, by = bound_ms(nbytes, needed)
-        out = {"ms": time_ms(lambda: ssd_chunk_cuda(x, dt, A, Bm, Cm)),
+        nbytes, products, other, done = ssd_work(B, C, Q, H, P, N, G)
+        b, by, t_ops = ssd_bound_ms(nbytes, products, other)
+        out = {"ms": time_ms(lambda: _launch(x, dt, A, Bm, Cm, G)),
                "plain_ms": time_ms(lambda: ssd_chunk_ref(x, dt, A, Bm, Cm), reps=5),
                "bound_ms": b, "bound_by": by, "library_ms": None}
+        sweep = {g: time_ms(lambda: _launch(x, dt, A, Bm, Cm, g))
+                 for g in range(1, min(H, MAX_GROUP) + 1)}
+        needed = products + other
         line += (f" | kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, bound "
-                 f"{b:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {needed / 1e9:.3f} GFLOP needed; "
-                 f"{done / 1e9:.3f} GFLOP as the kernel does them, "
-                 f"{done / F32_OPS_PER_S * 1e3:.4f} ms), library none")
+                 f"{b:.4f} ms ({by}); bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+                 f"({nbytes / 1e6:.1f} MB), operations bound {t_ops:.4f} ms "
+                 f"({products / 1e9:.3f} GFLOP of products needed at "
+                 f"{TF32_OPS_PER_S / 3e12:.0f} TFLOP/s, the 3xTF32 rate; "
+                 f"{other / 1e9:.3f} GFLOP of other f32 work at {F32_OPS_PER_S / 1e12:.0f}); "
+                 f"the kernel does {done / 1e9:.3f} GFLOP of products, "
+                 f"{3 * done / 1e9:.3f} GFLOP of TF32 tensor-core work in 3xTF32 "
+                 f"({3 * done / TF32_OPS_PER_S * 1e3:.4f} ms at the TF32 peak); "
+                 f"{needed / out['ms'] / 1e9:.1f} TFLOP/s of the needed work, "
+                 f"{nbytes / out['ms'] / 1e6:.1f} GB/s; library none | ms by heads a CTA: "
+                 + ", ".join(f"G={g} {t:.4f}" for g, t in sweep.items()))
     print(line, flush=True)
     return out
 
@@ -1155,6 +1195,11 @@ def hybrid_phase(dev, record) -> dict:
                     (SERVE_SLOTS, chunks[1], CHUNK, Hs, P, N), dev, gen, record)
     check_ssd_chunk("reduced x [2, 3, 128, 8, 16] N=16", (2, 3, 128, 8, 16, 16), dev, gen, record)
     check_ssd_chunk("ragged x [3, 1, 96, 4, 32] N=64", (3, 1, 96, 4, 32, 64), dev, gen, record)
+    check_ssd_chunk("short x [2, 2, 17, 3, 16] N=64", (2, 2, 17, 3, 16, 64), dev, gen, record)
+    check_ssd_chunk(f"ragged group x [2, 2, {CHUNK}, 81, {P}] N={N}", (2, 2, CHUNK, 81, P, N),
+                    dev, gen, record, group=6)
+    check_ssd_chunk(f"x * 30 x [2, 2, {CHUNK}, {Hs}, {P}] N={N}", (2, 2, CHUNK, Hs, P, N), dev,
+                    gen, record, x_scale=30.0)
     H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     times["prefill_d80"] = check_flash_attention(
         f"shared block B=8 S={wave_lens[0]} H={H} KV={KV} D={D} bf16",
@@ -1173,6 +1218,9 @@ def hybrid_phase(dev, record) -> dict:
     out = serve_slice(cfg, dev, lambda waves, steps: {
         "ssd_chunk": cfg.num_layers * waves, "flash_attention": apps * waves,
         "flash_decode": apps * steps}, HYBRID_DECODE_PHASES)
+
+    print(f"ssd_chunk in the {cfg.arch_id} serve: {out['launches']['ssd_chunk']} launches "
+          f"({cfg.num_layers} a prefill), all on its one body (3xTF32 tensor cores)", flush=True)
 
     # -- 5d. the same teacher-forced check in f32 at full width ----------------
     tf32, secs = teacher_forced_f32(cfg, dev, out["wave1"])

@@ -12,6 +12,7 @@ is rebuilt.  ``build_all`` starts one ``nvcc`` per source, all at once.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -19,6 +20,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -52,7 +55,7 @@ SIGNATURES = {
         "flash_decode_launch": [_I] * 10 + [_F, _F] + [_P] * 8,
     },
     "ssd_chunk": {
-        "ssd_chunk_launch": [_I] * 6 + [_P] * 9,
+        "ssd_chunk_launch": [_I] * 7 + [_P] * 9,
     },
 }
 
@@ -143,3 +146,16 @@ def check_launch(lib: ctypes.CDLL, code: int, kernel: str) -> None:
     if code != 0:
         msg = lib.cuda_error_string(code).decode()
         raise RuntimeError(f"CUDA launch of {kernel} failed: {msg} ({code})")
+
+
+def aligned16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous with its data 16-byte aligned (the kernels' 16-byte
+    copies); a misaligned view is copied."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The number of SMs of card ``device_index`` (looked up once)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count

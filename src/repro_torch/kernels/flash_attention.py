@@ -22,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import check_launch, load_library
+from repro_torch.kernels.build import aligned16, check_launch, load_library
 
 MAX_HEAD_DIM = 256
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -36,13 +36,6 @@ def choose_body(dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim <= MAX_HEAD_DIM:
         return "wgmma"
     return "simt"
-
-
-def aligned16(x: torch.Tensor) -> torch.Tensor:
-    """``x`` contiguous with its data 16-byte aligned (the tensor-core
-    body's 16-byte copies); a misaligned view is copied."""
-    x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

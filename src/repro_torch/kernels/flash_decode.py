@@ -31,8 +31,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import check_launch, load_library
-from repro_torch.kernels.flash_attention import DTYPE_CODES, aligned16, check_qkv
+from repro_torch.kernels.build import aligned16, check_launch, load_library, sm_count
+from repro_torch.kernels.flash_attention import DTYPE_CODES, check_qkv
 
 TILE = 64                 # cache rows per tile: each split range holds whole tiles
 CTAS_PER_SM = 1           # split target: about this many CTAs per SM
@@ -48,11 +48,6 @@ def split_plan(B: int, KV: int, Smax: int, num_sms: int) -> tuple[int, int]:
     nsplit = min(tiles, want)
     split_len = -(-tiles // nsplit) * TILE
     return -(-max(Smax, 1) // split_len), split_len
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 BODY_CODES = {"simt": 0, "mma": 1}

@@ -14,8 +14,8 @@ scan and packing bit-identical.  The flash kernels within 3e-5 in f32 (the
 reference's flash tolerance) and, in bf16, within atol 2e-3 and rtol 2^-7:
 kernel and plain version both compute in f32 and round the output once, so
 they part by at most one bf16 ulp; rounding the probabilities to bf16 would
-part them by more.  The SSD chunk kernel within the reference's 5e-5 (f32,
-no TF32).  A reduced-config serve on the card gives the CPU plain path's
+part them by more.  The SSD chunk kernel within the reference's 5e-5 (f32
+operands, 3xTF32 tensor-core products), also with x drawn 30 times larger.  A reduced-config serve on the card gives the CPU plain path's
 tokens, and a reduced Zamba2 on the card gives the CPU's logits and caches.
 """
 import numpy as np
@@ -386,6 +386,129 @@ def test_ssd_chunk_kernel_refuses_p80_on_the_card(cuda_device):
         ssd_chunk_cuda(torch.zeros(1, 1, 128, 2, 80, **z), torch.zeros(1, 1, 128, 2, **z),
                        torch.zeros(2, **z), torch.zeros(1, 1, 128, 64, **z),
                        torch.zeros(1, 1, 128, 64, **z))
+
+
+def _ssd_case(device, B, C, Q, H, P, N, seed, x_scale=1.0):
+    """The reference test's draws (x, B, C normal; dt in [1e-3, 0.1]; A in
+    [-2, -0.5]), x times ``x_scale``."""
+    rng = np.random.default_rng(seed)
+
+    def f32(shape, lo=None, hi=None, scale=1.0):
+        a = rng.normal(0, 1, shape) if lo is None else rng.uniform(lo, hi, shape)
+        return torch.as_tensor((a * scale).astype(np.float32), device=device)
+
+    return (f32((B, C, Q, H, P), scale=x_scale), f32((B, C, Q, H), 1e-3, 0.1),
+            -f32((H,), 0.5, 2.0), f32((B, C, Q, N)), f32((B, C, Q, N)))
+
+
+def _assert_ssd_close(got, want):
+    for name, g, w in zip(("y_intra", "state_c", "cum"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        np.testing.assert_allclose(host(g), host(w), atol=5e-5, rtol=5e-5, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [1, 17, 96, 128])
+@pytest.mark.parametrize("H,group", [(1, 1), (3, 2), (81, 5), (81, 6)])
+def test_ssd_chunk_kernel_at_ragged_head_groups(cuda_device, Q, H, group):
+    """Groups of heads a CTA that do not divide H (the last one short), and
+    chunks shorter than 128 rows, down to one (the launch below the wrapper,
+    which picks the group from the grid)."""
+    from repro_torch.kernels.ssd_chunk import _launch
+
+    args = _ssd_case(cuda_device, 1, 2, Q, H, 64, 64, seed=Q * 100 + H + group)
+    got = _launch(*args, group)
+    _assert_ssd_close(got, ssd_chunk_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [16, 32, 64])
+@pytest.mark.parametrize("N", [16, 32, 64])
+def test_ssd_chunk_kernel_at_mixed_widths(cuda_device, P, N):
+    args = _ssd_case(cuda_device, 2, 1, 113, 3, P, N, seed=P * 7 + N)
+    ops.reset_launch_counts()
+    got = ops.ssd_chunk(*args)
+    assert ops.launch_counts["ssd_chunk"] == 1
+    _assert_ssd_close(got, ssd_chunk_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,Q,H,P,N", [
+    (1, 2, 128, 80, 64, 64),       # zamba2-2.7b's widths
+    (2, 1, 96, 4, 32, 32),
+    (1, 3, 17, 3, 16, 64),
+])
+def test_ssd_chunk_kernel_with_x_thirty_times_larger(cuda_device, B, C, Q, H, P, N):
+    """Outputs 30 times larger against the same absolute tolerance: the
+    split products' low terms have to carry f32's precision."""
+    args = _ssd_case(cuda_device, B, C, Q, H, P, N, seed=Q + H, x_scale=30.0)
+    _assert_ssd_close(ops.ssd_chunk(*args), ssd_chunk_ref(*args))
+
+
+def _commit_case(device, N, T, ml, k, seed, at_home=False):
+    args = list(random_problem_arrays(N, T, seed=seed, device=device))
+    if at_home:                                   # no app moved yet: the window applies to all
+        args[3] = args[4].clone()
+    args[5], args[6] = args[5] * max(1.0, N / (50.0 * T)), args[6] * max(1.0, N / (50.0 * T))
+    feas = torch.as_tensor(np.random.default_rng(seed).random((N, T)) > 0.2, device=device)
+    moves_left = torch.tensor(ml, dtype=torch.int32, device=device)
+    best_s, best_t = move_best_per_app(*args, feas, moves_left)
+    cand_n = torch.sort(best_s, stable=True).indices[:k]
+    totals = torch.stack([args[1].sum().clamp(min=1.0), args[2].sum().clamp(min=1.0)])
+    return args, cand_n, best_s, best_t, totals, moves_left
+
+
+def _commit_both(case, batch_quality, cand_n=None):
+    """Run the kernel and the plain version on copies of one state; assert
+    they agree bit for bit and return the status."""
+    args, cand, best_s, best_t, totals, moves_left = case
+    cand = cand if cand_n is None else cand_n
+    demand, tasks, crit, x, a0, cap, klim, ideal, ideal_t, util, tt, w = args
+    states = [(x.clone(), util.clone(), tt.clone()) for _ in range(2)]
+    status = []
+    ops.reset_launch_counts()
+    for fn, (xs, us, ts) in zip((ops.commit_topk, commit_topk_ref), states):
+        status.append(fn(cand, best_s, best_t, xs, us, ts, demand, tasks, crit, a0, cap, klim,
+                         ideal, ideal_t, w, totals, moves_left,
+                         neg_tol=float(np.float32(-1e-7)), batch_quality=batch_quality))
+    torch.cuda.synchronize()
+    assert ops.launch_counts["commit_topk"] == 1
+    assert torch.equal(status[0], status[1])
+    for a, b in zip(*states):
+        assert torch.equal(a, b)
+    return status[0].tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 33])
+@pytest.mark.parametrize("T", [5, 128])
+@pytest.mark.parametrize("ml", [0, 1])
+def test_commit_kernel_staged_scan_matches_plain_version(cuda_device, k, T, ml):
+    """One candidate and more candidates than a warp has lanes, few and
+    many tiers, no budget left and one move left."""
+    N = 300 if T == 5 else 4096
+    improving, _ = _commit_both(_commit_case(cuda_device, N, T, ml, k, seed=N + T + k), 0.9)
+    assert improving == 1
+
+
+@pytest.mark.cuda
+def test_commit_kernel_when_the_window_rejects_later_candidates(cuda_device):
+    """batch_quality 1 admits after the first only moves as good as the
+    sweep's best (or re-targets): fewer commits than with no window, each
+    bit for bit the plain version's."""
+    case = _commit_case(cuda_device, 4096, 128, 64, 16, seed=5, at_home=True)
+    accepted = {bq: _commit_both(case, bq)[1] for bq in (0.0, 0.9, 1.0)}
+    assert accepted[1.0] < accepted[0.0], accepted
+
+
+@pytest.mark.cuda
+def test_commit_kernel_with_an_app_listed_twice(cuda_device):
+    """A candidate list that names one app twice: the second sees the
+    first's commit, in the kernel as in the plain version."""
+    case = _commit_case(cuda_device, 300, 5, 5, 16, seed=9)
+    cand = case[1]
+    twice = torch.cat([cand[:8], cand[:1], cand[8:15]])
+    _commit_both(case, 0.9, cand_n=twice)
 
 
 @pytest.mark.cuda

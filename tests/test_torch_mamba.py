@@ -134,6 +134,32 @@ def test_ssd_chunk_kernel_refuses_shapes_it_was_not_built_for(shape, match):
                        torch.zeros(B, C, Q, N), torch.zeros(B, C, Q, N))
 
 
+@pytest.mark.parametrize("chunks,H,sms", [
+    (64, 80, 132),      # the serve path's wave 1: 8 prompts x 8 chunks, 80 SSM heads, an H100
+    (56, 80, 132),      # wave 2: 7 chunks
+    (6, 8, 132),        # the reduced config: every head its own CTA fits one wave
+    (2, 81, 114),
+    (1, 1, 132),
+])
+def test_ssd_chunk_head_group_fills_the_card_in_whole_waves(chunks, H, sms):
+    """The kernel's heads a CTA (a host-side choice): within [1, min(H, 6)],
+    no other group size needs fewer waves times a CTA's work, and the serve
+    path's shape gets 5 heads a CTA in at least two waves."""
+    from repro_torch.kernels.ssd_chunk import CTAS_PER_SM, MAX_GROUP, head_group
+
+    G = head_group(chunks, H, sms)
+    assert 1 <= G <= min(H, MAX_GROUP)
+
+    def cost(g):
+        return -(-chunks * -(-H // g) // (CTAS_PER_SM * sms)) * (g + 0.5)
+
+    assert all(cost(G) <= cost(g) for g in range(1, min(H, MAX_GROUP) + 1))
+    if chunks * H <= CTAS_PER_SM * sms:
+        assert G == 1
+    if (chunks, H, sms) == (64, 80, 132):
+        assert G == 5 and chunks * -(-H // G) >= 2 * CTAS_PER_SM * sms
+
+
 # ---------------------------------------------------------------------------
 # the reduced Zamba2 model
 # ---------------------------------------------------------------------------

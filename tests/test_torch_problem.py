@@ -192,3 +192,19 @@ def test_port_imports_neither_jax_nor_the_reference():
             for name in names:
                 root = name.split(".")[0]
                 assert root not in ("jax", "jaxlib", "repro", "flax", "optax"), (path, name)
+
+
+
+def test_kernel_inputs_are_made_contiguous_and_16_byte_aligned():
+    """The wrappers hand the kernels ``aligned16`` tensors: contiguous, data
+    on a 16-byte boundary (the kernels' 16-byte copies), the same values; a
+    tensor that already is one is passed on, not copied."""
+    from repro_torch.kernels.build import aligned16
+
+    base = torch.arange(40, dtype=torch.float32)
+    assert base.data_ptr() % 16 == 0
+    assert aligned16(base[:32]).data_ptr() == base.data_ptr()
+    for view in (base[1:33], base[:24].reshape(4, 6).t()):
+        out = aligned16(view)
+        assert out.is_contiguous() and out.data_ptr() % 16 == 0
+        assert torch.equal(out, view)
