@@ -13,13 +13,20 @@ Phases (each raises on failure, so the script exits non-zero):
   2. Kernels against their plain PyTorch versions on the card:
      ``move_eval`` and ``move_eval_best`` at (N, T) in {(300, 5), (500, 17),
      (100_000, 5), (100_000, 128)} x moves_left {0, 5} and at the main
-     path's own input (the N=100_000 cluster, bucket-padded);
+     path's own input (the N=100_000 cluster, bucket-padded), the best
+     kernel also with the caller's totals against the wrapper's own;
      ``commit_topk`` on the top-16 candidates of the same sweeps (status,
      assignment and tier loads bit for bit); and
-     ``pack_ffd_tiers`` on random demand (M in {128, 4096}) and on the
-     [T, M_b, R] tensor the host scheduler built for the balance's last
-     proposal; median CUDA-event time per launch of each kernel and of its
-     plain version.
+     ``pack_ffd_tiers`` on random demand (M in {128, 4096}), at the kernel's
+     edges (``kernels.pack.pack_edge_cases``: pads 16-1024, R = 1/3/4, tiers
+     with no host, everything rejected, only the last live host fitting,
+     zeros among the items, a negative capacity, M not a multiple of 4) and
+     on the [T, M_b, R] tensor the host scheduler built for the balance's
+     last proposal, each with its tiers' non-zero item counts; median
+     CUDA-event time per launch of each kernel and of its plain version
+     (``move_eval_best`` as the whole call from the solver's arguments, and
+     as the kernel alone), the pack kernel also beside its chain floor; and
+     the kernels one whole ``move_eval_best`` call launches (profiler).
   3. The slice: ``generate_cluster(num_apps=100_000, seed=1)`` and one
      manual_cnst ``Sptlb(cluster).balance("local", timeout_s=30,
      config=CoopConfig())`` with the launch counters zeroed just before and
@@ -66,6 +73,11 @@ Phases (each raises on failure, so the script exits non-zero):
   6. A ``{"kernels": [...]}`` line (the flash kernels' launches summed over
      both serving runs), then the card line again, then the final
      ``{"ok": true, "device": {...}}`` line.
+
+``python3 chip_smoke.py --probe SRC`` runs only the balancing slice of the
+``repro_torch`` package under SRC and prints one JSON line (see ``probe``):
+run it on this tree's ``src`` and on a ``git archive`` of another commit's,
+in turns, to compare the two on one card.
 
 It imports nothing of JAX or of the JAX reference package.
 """
@@ -222,13 +234,13 @@ def random_sweep(N: int, T: int, device, scale_capacity: bool):
 
 
 def check_sweep(label, args, feas, moves_left_values, record, dev):
-    """Hold both move_eval kernels against core.delta on the card."""
+    """Hold both move_eval kernels against core.delta on the card; the best
+    kernel also with the caller's totals against the wrapper's own."""
     import torch
     from repro_torch.core.delta import move_best_per_app, move_delta_cost
     from repro_torch.kernels import move_eval as K
 
-    N, R = args[0].shape
-    T = args[5].shape[0]
+    N = args[0].shape[0]
     prepared = K.prepare_launch(*args)
     d_kernel = K.launch_move_eval(prepared)
     d_plain = move_delta_cost(*args)
@@ -239,11 +251,16 @@ def check_sweep(label, args, feas, moves_left_values, record, dev):
         raise AssertionError(f"move_eval {label}: scaled error {err / scale:.3e} > 1e-5")
     record["move_eval"]["max_abs_err"] = max(record["move_eval"]["max_abs_err"], err)
     line = f"move_eval      {label:>16}: scaled err {err / scale:.2e}"
+    totals = K.sweep_totals(args[1], args[2])
     for ml in moves_left_values:
         moves_left = torch.tensor(ml, dtype=torch.int32, device=dev)
-        s_k, t_k = K.launch_move_eval_best(prepared, feas, moves_left)
+        s_k, t_k = K.launch_move_eval_best(K.best_inputs(*args, feas, moves_left))
+        s_g, t_g = K.move_eval_best_cuda(*args, feas, moves_left, totals=totals)
         s_p, t_p = move_best_per_app(*args, feas, moves_left)
         torch.cuda.synchronize()
+        if not (torch.equal(s_k, s_g) and torch.equal(t_k, t_g)):
+            raise AssertionError(f"move_eval_best {label} ml={ml}: the caller's totals give "
+                                 "another result than the wrapper's")
         finite = torch.isfinite(s_p)
         if not torch.equal(torch.isfinite(s_k), finite):
             raise AssertionError(f"move_eval_best {label} ml={ml}: +inf sets differ")
@@ -266,12 +283,17 @@ def check_sweep(label, args, feas, moves_left_values, record, dev):
             record["move_eval_best"]["max_abs_err"], err_b)
         record["move_eval_best"]["ties"] += ties
         line += (f" | best ml={ml}: finite {int(finite.sum())}/{N}, "
-                 f"scaled err {err_b / scale_b:.2e}, tie-flipped tiers {ties}")
+                 f"max abs err {err_b:.3e}, tie-flipped tiers {ties}, totals given = absent")
     print(line, flush=True)
     return prepared
 
 
 def time_sweep(args, feas, prepared, dev) -> dict:
+    """Median ms of each sweep: ``move_eval`` as the kernel alone and with
+    ``prepare``; ``move_eval_best`` as the whole call from the solver's
+    arguments (with the totals the solver passes), without the totals, and
+    the kernel alone on precomputed inputs; each beside its plain version
+    and its bound."""
     import torch
     from repro_torch.core.delta import move_best_per_app, move_delta_cost
     from repro_torch.kernels import move_eval as K
@@ -279,18 +301,33 @@ def time_sweep(args, feas, prepared, dev) -> dict:
     N, R = args[0].shape
     T = args[5].shape[0]
     ml = torch.tensor(5, dtype=torch.int32, device=dev)
+    totals = K.sweep_totals(args[1], args[2])
+    best_in = K.best_inputs(*args, feas, ml, totals=totals)
     out = {}
-    for name, kernel, wrapper, plain, best in (
-        ("move_eval", lambda: K.launch_move_eval(prepared),
-         lambda: K.move_eval_cuda(*args), lambda: move_delta_cost(*args), False),
-        ("move_eval_best", lambda: K.launch_move_eval_best(prepared, feas, ml),
-         lambda: K.move_eval_best_cuda(*args, feas, ml),
-         lambda: move_best_per_app(*args, feas, ml), True),
-    ):
-        b, by = bound_ms(sweep_bytes(N, T, R, best), sweep_ops(N, T, R, best))
-        out[name] = {"ms": time_ms(kernel), "wrapper_ms": time_ms(wrapper),
-                     "plain_ms": time_ms(plain), "bound_ms": b, "bound_by": by}
+    b, by = bound_ms(sweep_bytes(N, T, R, False), sweep_ops(N, T, R, False))
+    out["move_eval"] = {"ms": time_ms(lambda: K.launch_move_eval(prepared)),
+                        "wrapper_ms": time_ms(lambda: K.move_eval_cuda(*args)),
+                        "plain_ms": time_ms(lambda: move_delta_cost(*args)),
+                        "bound_ms": b, "bound_by": by}
+    b, by = bound_ms(sweep_bytes(N, T, R, True), sweep_ops(N, T, R, True))
+    out["move_eval_best"] = {
+        "ms": time_ms(lambda: K.move_eval_best_cuda(*args, feas, ml, totals=totals)),
+        "absent_ms": time_ms(lambda: K.move_eval_best_cuda(*args, feas, ml)),
+        "kernel_ms": time_ms(lambda: K.launch_move_eval_best(best_in)),
+        "plain_ms": time_ms(lambda: move_best_per_app(*args, feas, ml)),
+        "bound_ms": b, "bound_by": by}
     return out
+
+
+def print_sweep_times(where: str, times: dict) -> None:
+    t = times["move_eval"]
+    print(f"  time      move_eval {where}: kernel {t['ms']:.4f} ms, with prepare "
+          f"{t['wrapper_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+          f"{t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
+    t = times["move_eval_best"]
+    print(f"  time move_eval_best {where}: whole call {t['ms']:.4f} ms (totals given; "
+          f"{t['absent_ms']:.4f} ms without), kernel alone {t['kernel_ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
 
 
 def commit_inputs(args, feas, moves_left, dev):
@@ -300,12 +337,10 @@ def commit_inputs(args, feas, moves_left, dev):
     import torch
     from repro_torch.kernels import move_eval as K
 
-    demand, tasks, crit = args[0], args[1], args[2]
     ml = torch.tensor(moves_left, dtype=torch.int32, device=dev)
-    best_s, best_t = K.launch_move_eval_best(K.prepare_launch(*args), feas, ml)
+    totals = K.sweep_totals(args[1], args[2])
+    best_s, best_t = K.launch_move_eval_best(K.best_inputs(*args, feas, ml, totals=totals))
     cand_n = torch.sort(best_s, stable=True).indices[:COMMIT_K]
-    totals = torch.stack([torch.clamp(torch.sum(tasks), min=1.0),
-                          torch.clamp(torch.sum(crit), min=1.0)])
     return cand_n, best_s, best_t, totals, ml
 
 
@@ -448,7 +483,21 @@ def pack_work(dem, capacity, hosts, pad: int) -> tuple[float, float]:
     return float(nbytes), float(nops)
 
 
-def check_pack(label, dem, capacity, hosts, pad, record, dev, plain_reps=3):
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def check_pack(label, dem, capacity, hosts, pad, record, dev, *, clock_mhz, timed=True,
+               plain_reps=3):
+    """Hold the pack kernel against its plain version on the card (0 reject-
+    mask mismatches); when ``timed``, time both and give the bytes bound and
+    the chain floor: FFD is a chain over each tier's items, so no kernel can
+    beat the longest tier's non-zero items times one dependent f32 subtract
+    and compare (8 cycles) at the card's highest SM clock."""
     import numpy as np
     import torch
     from repro_torch.kernels.pack import pack_ffd_tiers_cuda
@@ -465,15 +514,25 @@ def check_pack(label, dem, capacity, hosts, pad, record, dev, plain_reps=3):
         raise AssertionError(f"pack_ffd_tiers {label}: {mismatches} reject-mask mismatches")
     err = float((got.to(torch.int32) - want.to(torch.int32)).abs().max()) if got.numel() else 0.0
     record["pack_ffd_tiers"]["max_abs_err"] = max(record["pack_ffd_tiers"]["max_abs_err"], err)
+    nonzero = (dem != 0).any(axis=2).sum(axis=1)
+    head = (f"pack_ffd_tiers {label:>22}: T={dem.shape[0]} M_b={dem.shape[1]} R={dem.shape[2]} "
+            f"pad={pad} hosts {hosts.tolist()}, non-zero items a tier {nonzero.tolist()}, rejected "
+            f"{int(got.sum())}, mismatches 0")
+    if not timed:
+        print(head, flush=True)
+        return None
     ms = time_ms(lambda: pack_ffd_tiers_cuda(d, c, h, num_hosts_pad=pad))
     plain_ms = time_ms(lambda: pack_ffd_tiers_ref(d, c, h, num_hosts_pad=pad),
                        reps=plain_reps, warmup=1)
     nbytes, nops = pack_work(dem, capacity, hosts, pad)
     b, by = bound_ms(nbytes, nops)
-    print(f"pack_ffd_tiers {label:>22}: T={dem.shape[0]} M_b={dem.shape[1]} rejected "
-          f"{int(got.sum())}, mismatches 0, kernel {ms:.4f} ms, plain {plain_ms:.2f} ms "
-          f"(median of {plain_reps}), bound {b:.6f} ms ({by})", flush=True)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by}
+    floor = int(nonzero.max()) * 8 / (clock_mhz * 1e6) * 1e3
+    print(f"{head}, kernel {ms:.4f} ms, plain {plain_ms:.2f} ms (median of {plain_reps}), "
+          f"bound {b:.6f} ms ({by}), chain floor {floor:.4f} ms ({int(nonzero.max())} items x 8 "
+          f"cycles at {clock_mhz:.0f} MHz), kernel / max(bound, floor) "
+          f"{ms / max(b, floor):.3f}", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "chain_floor_ms": floor}
 
 
 def device_profile(fn) -> dict:
@@ -1238,6 +1297,81 @@ def hybrid_phase(dev, record) -> dict:
     return {**out, "times": times, "teacher_f32": tf32}
 
 
+def assignment_digest(x) -> str:
+    """A short hash of an assignment's i32 values, to compare mappings
+    across runs and trees."""
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(x.cpu().numpy().astype(np.int32).tobytes()).hexdigest()[:16]
+
+
+def probe(src: str) -> int:
+    """``--probe SRC``: the balancing slice of the ``repro_torch`` package
+    under SRC (this tree's ``src``, or a ``git archive`` of another commit's),
+    so that two trees are compared on one card in one call.  Prints one JSON
+    line: the fused sweep's whole call at the main path's input (from the
+    solver's arguments to (score, tier), with the totals where the wrapper
+    takes them), two N=100,000 passes (wall-clock, solve_s, pack_s, rounds,
+    sweeps, objective and mapping digest) and the pack kernel on the last
+    proposal."""
+    sys.path.insert(0, os.path.abspath(src))
+    import inspect
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --probe: needs a card", file=sys.stderr)
+        return 2
+    from repro_torch.core import CoopConfig, Sptlb, generate_cluster, pad_problem
+    from repro_torch.core.hierarchy import HostScheduler
+    from repro_torch.core.problem import tier_loads
+    from repro_torch.kernels import move_eval as K
+    from repro_torch.kernels.pack import pack_ffd_tiers_cuda
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cluster = generate_cluster(num_apps=100_000, seed=1, device=dev)
+    pp = pad_problem(cluster.problem)
+    util, tasks = tier_loads(pp, pp.assignment0)
+    args = (pp.demand, pp.tasks, pp.criticality, pp.assignment0, pp.assignment0, pp.capacity,
+            pp.task_limit, pp.ideal_frac, pp.ideal_task_frac, util, tasks, pp.weights.vector(),
+            pp.feasible_mask().contiguous(),
+            torch.tensor(int(pp.move_budget), dtype=torch.int32, device=dev))
+    kw = {}
+    if "totals" in inspect.signature(K.move_eval_best_cuda).parameters:
+        kw["totals"] = torch.stack([torch.clamp(torch.sum(pp.tasks), min=1.0),
+                                    torch.clamp(torch.sum(pp.criticality), min=1.0)])
+    sweep_ms = time_ms(lambda: K.move_eval_best_cuda(*args, **kw))
+    kernel_ms = None                       # the kernel alone, where the tree splits it out
+    if hasattr(K, "best_inputs"):
+        best_in = K.best_inputs(*args, **kw)
+        kernel_ms = time_ms(lambda: K.launch_move_eval_best(best_in))
+    passes = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        d = Sptlb(cluster, device=dev).balance("local", timeout_s=30, config=CoopConfig())
+        torch.cuda.synchronize()
+        tm = d.cooperation.timings
+        passes.append({"wall_s": time.perf_counter() - t, "solve_s": tm["solve_s"],
+                       "pack_s": tm["pack_s"], "rounds": tm["rounds"],
+                       "sweeps": d.solve.extra["sweeps"], "objective": d.solve.objective,
+                       "ok": bool(d.violations.ok), "digest": assignment_digest(d.assignment)})
+    host = HostScheduler(cluster, device=dev)
+    x_np = d.assignment.cpu().numpy().astype(np.int64)
+    x0_np = cluster.problem.assignment0.cpu().numpy().astype(np.int64)
+    dem, _ = host.pack_inputs(x_np, x0_np, np.where(x_np != x0_np)[0], np.empty(0, np.int64))
+    dd, cc = torch.as_tensor(dem, device=dev), torch.as_tensor(cluster.host_capacity, device=dev)
+    hh = torch.as_tensor(cluster.hosts_per_tier.astype(np.int32), device=dev)
+    pack_ms = time_ms(lambda: pack_ffd_tiers_cuda(dd, cc, hh, num_hosts_pad=host._hosts_pad))
+    print(json.dumps({"probe": src, "card": card_line(), "sweep_whole_call_ms": sweep_ms,
+                      "sweep_totals_given": bool(kw), "sweep_kernel_ms": kernel_ms,
+                      "pack_ms": pack_ms, "passes": passes}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1252,6 +1386,7 @@ def main() -> int:
     from repro_torch.core.problem import tier_loads
     from repro_torch.core.hierarchy import HostScheduler
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels.pack import pack_edge_cases
 
     dev = torch.device("cuda", torch.cuda.current_device())
     kind = torch.cuda.get_device_name(0)
@@ -1276,18 +1411,13 @@ def main() -> int:
               "ssd_chunk": {"max_abs_err": 0.0}}
 
     # -- 2a. sweep kernels at the stated shapes --------------------------------
-    sweep_times = {}
     for N, T in ((300, 5), (500, 17), (100_000, 5), (100_000, 128)):
         args, feas = random_sweep(N, T, dev, scale_capacity=N >= 10_000)
         prepared = check_sweep(f"N={N},T={T}", args, feas, (0, 5), record, dev)
         for ml in (0, 5):
             check_commit(f"N={N},T={T},ml={ml}", args, feas, ml, record, dev)
         if N >= 10_000:
-            sweep_times[(N, T)] = time_sweep(args, feas, prepared, dev)
-            for name, t in sweep_times[(N, T)].items():
-                print(f"  time {name:>14} N={N} T={T}: kernel {t['ms']:.4f} ms, with "
-                      f"precompute {t['wrapper_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-                      f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
+            print_sweep_times(f"N={N} T={T}", time_sweep(args, feas, prepared, dev))
 
     # -- 2b. the main path's own sweep input ------------------------------------
     t = time.perf_counter()
@@ -1307,12 +1437,22 @@ def main() -> int:
     main_sweep = time_sweep(main_args, main_feas, prepared, dev)
     main_commit = check_commit(f"cluster N={Nm},T={Tm}", main_args, main_feas,
                                int(pp.move_budget), record, dev)
-    for name, tt in main_sweep.items():
-        print(f"  time {name:>14} main path N={Nm} T={Tm}: kernel {tt['ms']:.4f} ms, with "
-              f"precompute {tt['wrapper_ms']:.4f} ms, plain {tt['plain_ms']:.4f} ms, "
-              f"bound {tt['bound_ms']:.4f} ms ({tt['bound_by']})", flush=True)
+    print_sweep_times(f"main path N={Nm} T={Tm}", main_sweep)
+    # The whole fused call, as the solver makes it, under the profiler: what
+    # it launches on the card (no cat or stack of an [N, .] row).
+    from repro_torch.kernels import move_eval as K
+    ml_main = torch.tensor(int(pp.move_budget), dtype=torch.int32, device=dev)
+    totals_main = K.sweep_totals(pp.tasks, pp.criticality)
+    call = device_profile(lambda: K.move_eval_best_cuda(*main_args, main_feas, ml_main,
+                                                        totals=totals_main))
+    names = {kernel_label(n, 60): c for n, c in call["counts"].items()}
+    print(f"  move_eval_best whole call: {sum(call['counts'].values())} kernel launches on the "
+          f"card: {names}", flush=True)
+    if any("cat" in n.lower() or "stack" in n.lower() for n in call["counts"]):
+        raise AssertionError(f"the fused sweep launched a cat or stack: {names}")
 
-    # -- 2c. pack on random demand ------------------------------------------
+    # -- 2c. pack on random demand and at the kernel's edges --------------------
+    clock = sm_clock_mhz()
     rng = np.random.default_rng(7)
     for M in (128, 4096):
         T = 5
@@ -1321,7 +1461,9 @@ def main() -> int:
         dem = np.take_along_axis(dem, order[:, :, None], axis=1)
         hosts = rng.integers(40, 120, size=T).astype(np.int32)
         capacity = (dem.sum(axis=(0, 1)) / (0.9 * hosts.sum())).astype(np.float32)
-        check_pack(f"random M={M}", dem, capacity, hosts, 128, record, dev)
+        check_pack(f"random M={M}", dem, capacity, hosts, 128, record, dev, clock_mhz=clock)
+    for name, (dem, capacity, hosts, pad) in sorted(pack_edge_cases().items()):
+        check_pack(name, dem, capacity, hosts, pad, record, dev, clock_mhz=clock, timed=False)
 
     # -- 3. the slice -----------------------------------------------------------
     obj0 = float(objective(p, p.assignment0))
@@ -1359,6 +1501,7 @@ def main() -> int:
           f"{tm['host_rejections']}, solve_s {tm['solve_s']:.4f}, pack_s {tm['pack_s']:.4f}, "
           f"feedback_s {tm['feedback_s']:.4f}, host_side_frac {tm['host_side_frac']:.4f}, "
           f"balance wall {wall:.4f} s, d2b {decision.difference_to_balance:.6f}, "
+          f"mapping digest {assignment_digest(xa)}, "
           f"launches {launches}, peak memory {peak / 2**20:.1f} MiB", flush=True)
 
     # The same pass again: the port's result must not change from run to run.
@@ -1382,7 +1525,7 @@ def main() -> int:
     movers = np.where(x_np != x0_np)[0]
     dem, _ = host.pack_inputs(x_np, x0_np, movers, np.empty(0, np.int64))
     pack_main = check_pack(f"last proposal N={p.num_apps}", dem, cluster.host_capacity,
-                           cluster.hosts_per_tier, host._hosts_pad, record, dev)
+                           cluster.hosts_per_tier, host._hosts_pad, record, dev, clock_mhz=clock)
 
     # -- 3b. the unfused LocalSearch sweep: the move_eval kernel's path --------
     # solve_local(move_eval_fn=ops.move_eval) scores the full delta[N, T] and
@@ -1486,7 +1629,7 @@ def main() -> int:
          "max_abs_err": record["pack_ffd_tiers"]["max_abs_err"],
          "ms": pack_main["ms"], "plain_ms": pack_main["plain_ms"],
          "bound_ms": pack_main["bound_ms"], "bound_by": pack_main["bound_by"],
-         "library_ms": None},
+         "chain_floor_ms": pack_main["chain_floor_ms"], "library_ms": None},
         {"name": "flash_attention", "route": "cuda", "source": FLASH_ATTENTION_SRC,
          "replaces": "src/repro/kernels/flash_attention.py:144",
          "launches": flash_launches["flash_attention"],
@@ -1514,4 +1657,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--probe":
+        sys.exit(probe(sys.argv[2]))
     sys.exit(main())

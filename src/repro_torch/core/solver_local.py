@@ -24,6 +24,7 @@ yet (ROADMAP Queue 1, "LocalSearch temperature > 0").
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, Optional
 
@@ -70,10 +71,11 @@ def solve_local(problem: Problem, config: LocalSearchConfig = LocalSearchConfig(
                 init_assignment=None, device=DEFAULT_DEVICE) -> SolveResult:
     """Run LocalSearch on ``device``; returns assignment + host-side stats.
 
-    ``move_best_fn`` (default ``kernels.ops.move_eval_best``) receives the
-    move_eval argument tuple plus (feasible_mask, moves_left) and returns
-    (best_score[N], best_tier[N]).  Passing only ``move_eval_fn`` selects the
-    unfused path: full delta sweep + ``constraints.move_mask`` + argmin.
+    ``move_best_fn`` (default ``kernels.ops.move_eval_best``, given the
+    solve's totals) receives the move_eval argument tuple plus
+    (feasible_mask, moves_left) and returns (best_score[N], best_tier[N]).
+    Passing only ``move_eval_fn`` selects the unfused path: full delta sweep
+    + ``constraints.move_mask`` + argmin.
     ``init_assignment`` warm-starts the search (the movement budget is still
     counted against ``problem.assignment0``).
 
@@ -88,8 +90,6 @@ def solve_local(problem: Problem, config: LocalSearchConfig = LocalSearchConfig(
     t0 = time.perf_counter()
     dev = resolve_device(device)
     p = problem.to(dev)
-    if move_best_fn is None and move_eval_fn is None:
-        move_best_fn = ops.move_eval_best
     x = (p.assignment0 if init_assignment is None
          else torch.as_tensor(init_assignment, device=dev)).to(torch.int32).clone()
     wvec = _weights_vector(p)
@@ -102,6 +102,9 @@ def solve_local(problem: Problem, config: LocalSearchConfig = LocalSearchConfig(
 
     totals = torch.stack([torch.clamp(torch.sum(p.tasks), min=1.0),
                           torch.clamp(torch.sum(p.criticality), min=1.0)])
+    if move_best_fn is None and move_eval_fn is None:
+        # The default sweep takes the totals computed here once a solve.
+        move_best_fn = functools.partial(ops.move_eval_best, totals=totals)
 
     it, done, committed = 0, False, 0
     while not done and it < config.max_iters:

@@ -39,7 +39,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
     "move_eval": {
-        "move_eval_best_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        "move_eval_best_launch": [_I, _I, _I] + [_P] * 22,
         "move_eval_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     },
     "commit": {

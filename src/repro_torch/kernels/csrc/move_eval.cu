@@ -13,26 +13,31 @@
 // budget, no self-move, and reduces each app to (best score, best tier), ties
 // to the lowest tier and +inf / tier 0 where nothing is feasible.
 //
-// Design.  The O(N) source-side quantities are gathered in torch before the
-// launch (kernels/move_eval.py::prepare, as the Pallas _prepare does); the
-// kernel does the O(N*T) part.  A group of G lanes (G = the power of two
-// >= T, capped at 32) serves one app: lane j evaluates tiers j, j+G, ...,
-// keeps a running minimum with a strict '<' (lowest tier among its equals),
-// and the group reduces with xor shuffles, again preferring the lower tier
-// on equal scores.  Small T packs several apps per warp.  Per-tier statistics
-// sit in shared memory; feasible is read as bytes, not padded floats.  No
-// tier padding: the TPU's 128-lane padding is not carried over.
+// Design.  Both kernels stage the T-sized tier table (fractions, capacities,
+// their inverses, ideals, the means and the weights) in shared memory.  The
+// best kernel reads the function's own per-app inputs (demand, tasks,
+// criticality, the two assignments, feasible) and gathers each app's
+// source-side quantities from the staged table by its source tier
+// (gather_app); the two N-sized totals come from the caller.  At T <= 8 one
+// thread serves one app and walks the tiers in order with a strict '<'
+// (lowest tier among equals), so a warp's loads are 32 consecutive apps and
+// no lane idles.  At larger T a group of G lanes (G = the power of two >= T,
+// capped at 32) serves one app: lane j evaluates tiers j, j+G, ..., and the
+// group reduces with xor shuffles, again preferring the lower tier on equal
+// scores.  move_eval_kernel still reads the [N, 5R+7] row that
+// kernels/move_eval.py::prepare builds (load_app).  feasible is read as
+// bytes, not padded floats, and tiers are not padded to the TPU's 128 lanes.
 //
-// Bound on this card: per app the function reads 8 four-byte values and T
-// feasibility bytes and writes 8 bytes; about 94 f32 operations per
-// (app, tier) at R = 2.  At T = 5 the bytes bound it, at T = 128 the f32
-// operations (see PERF.md).
+// Bound on this card: per app the best function reads R+2 four-byte values,
+// two tier ids and T feasibility bytes and writes 8 bytes; about 94 f32
+// operations per (app, tier) at R = 2.  At T = 5 the bytes bound it, at
+// T = 128 the f32 operations (see PERF.md).
 //
 // Numerics.  At fleet scale an app's delta is tiny beside the tier fractions,
 // so f'^2 - f^2 cancels: one ulp of difference in f' shows as ~1e-4 of the
-// delta.  The kernel therefore repeats the plain torch version's operations
+// delta.  The kernels therefore repeat the plain torch version's operations
 // one for one — d / C by division, not d * (1/C) as the Pallas kernel does —
-// and is compiled with -fmad=false, so each operation rounds on its own as
+// and are compiled with -fmad=false, so each operation rounds on its own as
 // the separate elementwise ops do.  Only the fit test keeps the kernel's own
 // load-fraction form (f_dst + dC <= 1 + FEAS_TOL * inv_cap).
 #include <cuda_runtime.h>
@@ -41,8 +46,9 @@
 
 #define FEAS_TOL 1e-6f
 #define MAX_R 4
-// app row layout [N, 5R + 7]: f_src[R], f_src_new[R], dC_src[R], ideal_src[R],
-// demand[R], g_src, g_src_new, dK_src, gideal_src, k, mc, cc
+// app row layout [N, 5R + 7] (move_eval_kernel): f_src[R], f_src_new[R],
+// dC_src[R], ideal_src[R], demand[R], g_src, g_src_new, dK_src, gideal_src,
+// k, mc, cc
 // tier layout [4R + 4, T]: f[R], cap[R], inv_cap[R], ideal[R], g, klim,
 // inv_klim, gideal
 // consts [R + 1 + 5]: mean_f[R], mean_g, w[5]
@@ -132,18 +138,85 @@ __device__ __forceinline__ void stage_tiers(float* sm, const float* tier, int co
   __syncthreads();
 }
 
-__global__ void move_eval_best_kernel(int N, int T, int R, int G,
-                                      const float* __restrict__ app,
-                                      const int* __restrict__ a_src,
-                                      const int* __restrict__ a0,
-                                      const float* __restrict__ tier,
-                                      const float* __restrict__ consts,
-                                      const uint8_t* __restrict__ feasible,
-                                      const int* __restrict__ moves_left,
-                                      float* __restrict__ best_score,
-                                      int* __restrict__ best_tier) {
+// The best kernel's inputs: the function's own per-app arrays and scalars,
+// and the per-tier arrays (the caller's inputs and the wrapper's tier
+// statistics f, g, their means and the two inverses).
+struct BestApps {
+  const float *demand, *tasks, *crit;
+  const int *a_src, *a0;
+  const uint8_t* feasible;
+  const int* moves_left;
+  const float* totals;                     // clamp(sum(tasks), 1), clamp(sum(crit), 1)
+};
+
+struct BestTiers {
+  const float *capacity, *task_limit, *ideal_frac, *ideal_task_frac, *weights;
+  const float *f, *g, *mean_f, *mean_g, *inv_cap, *inv_klim;
+};
+
+// Stage the tier layout and the consts from the separate per-tier arrays.
+__device__ __forceinline__ void stage_best_tables(float* sm, const BestTiers& in, int T, int R) {
+  float* c = sm + (4 * R + 4) * T;
+  for (int i = threadIdx.x; i < R * T; i += blockDim.x) {
+    int t = i / R, r = i % R;
+    sm[r * T + t] = in.f[i];
+    sm[(R + r) * T + t] = in.capacity[i];
+    sm[(2 * R + r) * T + t] = in.inv_cap[i];
+    sm[(3 * R + r) * T + t] = in.ideal_frac[i];
+  }
+  for (int t = threadIdx.x; t < T; t += blockDim.x) {
+    sm[(4 * R) * T + t] = in.g[t];
+    sm[(4 * R + 1) * T + t] = in.task_limit[t];
+    sm[(4 * R + 2) * T + t] = in.inv_klim[t];
+    sm[(4 * R + 3) * T + t] = in.ideal_task_frac[t];
+  }
+  for (int i = threadIdx.x; i < R + 6; i += blockDim.x) {
+    c[i] = (i < R) ? in.mean_f[i] : (i == R) ? in.mean_g[0] : in.weights[i - R - 1];
+  }
+  __syncthreads();
+}
+
+// App n's row, computed from its inputs and the staged table at its source
+// tier: the operations of kernels/move_eval.py::prepare, one for one.
+__device__ __forceinline__ void gather_app(AppRow& a, int n, int T, int R, const BestApps& in,
+                                           const float* tier, float total_tasks,
+                                           float total_crit) {
+  const int src = a.a_src;
+#pragma unroll
+  for (int r = 0; r < MAX_R; ++r) {
+    if (r < R) {
+      float d = in.demand[(size_t)n * R + r];
+      float f = tier[r * T + src];
+      float dC = d / tier[(R + r) * T + src];
+      a.demand[r] = d;
+      a.f_src[r] = f;
+      a.dC_src[r] = dC;
+      a.f_src_new[r] = f - dC;
+      a.ideal_src[r] = tier[(3 * R + r) * T + src];
+    }
+  }
+  float k = in.tasks[n];
+  float g = tier[(4 * R) * T + src];
+  float dK = k / tier[(4 * R + 1) * T + src];
+  a.k = k;
+  a.g_src = g;
+  a.dK_src = dK;
+  a.g_src_new = g - dK;
+  a.gideal_src = tier[(4 * R + 3) * T + src];
+  a.mc = k / total_tasks;
+  a.cc = in.crit[n] / total_crit;
+}
+
+static const int kThreads = 256;           // threads a block, both kernels
+
+// At most 64 registers a thread, so that 4 blocks of kThreads share an SM:
+// the main path's 131,072 apps (512 blocks at T <= 8) then run in one wave.
+__global__ void __launch_bounds__(kThreads, 4)
+move_eval_best_kernel(int N, int T, int R, int G, BestApps apps, BestTiers tiers,
+                      float* __restrict__ best_score, int* __restrict__ best_tier) {
   extern __shared__ float sm_tier[];
-  stage_tiers(sm_tier, tier, (4 * R + 4) * T);
+  stage_best_tables(sm_tier, tiers, T, R);
+  const float* consts = sm_tier + (4 * R + 4) * T;
   int gid = blockIdx.x * blockDim.x + threadIdx.x;
   int n = gid / G;
   int j = gid % G;
@@ -152,19 +225,19 @@ __global__ void move_eval_best_kernel(int N, int T, int R, int G,
   unsigned gmask = (G == 32) ? 0xffffffffu : (((1u << G) - 1u) << (lane - lane % G));
 
   AppRow a;
-  load_app(a, app + (size_t)n * (5 * R + 7), R);
-  a.a_src = a_src[n];
-  a.a0 = a0[n];
-  bool budget_ok = (a.a_src != a.a0) || (*moves_left > 0);
-  const uint8_t* feas_row = feasible + (size_t)n * T;
+  a.a_src = apps.a_src[n];
+  a.a0 = apps.a0[n];
+  gather_app(a, n, T, R, apps, sm_tier, apps.totals[0], apps.totals[1]);
+  bool budget_ok = (a.a_src != a.a0) || (*apps.moves_left > 0);
+  const uint8_t* feas_row = apps.feasible + (size_t)n * T;
 
   float s = INFINITY;
   int bt = T;                              // sentinel: no feasible tier yet
   for (int t = j; t < T; t += G) {
+    if (!(budget_ok && feas_row[t] && t != a.a_src)) continue;   // masked: no delta needed
     bool fits;
     float d = pair_delta(a, t, T, R, sm_tier, consts, &fits);
-    bool ok = fits && feas_row[t] && budget_ok && (t != a.a_src);
-    if (ok && d < s) { s = d; bt = t; }
+    if (fits && d < s) { s = d; bt = t; }
   }
   for (int off = G >> 1; off > 0; off >>= 1) {
     float os = __shfl_xor_sync(gmask, s, off);
@@ -208,21 +281,34 @@ static int group_width(int T) {
   return g;
 }
 
-static const int kThreads = 256;
+// Up to this many tiers one thread serves one app (no idle lanes, no
+// shuffles); above it a group of lanes does.
+static const int kThreadPerAppMaxT = 8;
 
-extern "C" int move_eval_best_launch(int N, int T, int R, const void* app, const void* a_src,
-                                     const void* a0, const void* tier, const void* consts,
+extern "C" int move_eval_best_launch(int N, int T, int R, const void* demand, const void* tasks,
+                                     const void* crit, const void* a_src, const void* a0,
                                      const void* feasible, const void* moves_left,
-                                     void* best_score, void* best_tier, void* stream) {
+                                     const void* totals, const void* capacity,
+                                     const void* task_limit, const void* ideal_frac,
+                                     const void* ideal_task_frac, const void* weights,
+                                     const void* f, const void* g, const void* mean_f,
+                                     const void* mean_g, const void* inv_cap,
+                                     const void* inv_klim, void* best_score, void* best_tier,
+                                     void* stream) {
   if (N == 0) return 0;
-  int G = group_width(T);
+  BestApps apps{(const float*)demand, (const float*)tasks, (const float*)crit,
+                (const int*)a_src, (const int*)a0, (const uint8_t*)feasible,
+                (const int*)moves_left, (const float*)totals};
+  BestTiers tiers{(const float*)capacity, (const float*)task_limit, (const float*)ideal_frac,
+                  (const float*)ideal_task_frac, (const float*)weights, (const float*)f,
+                  (const float*)g, (const float*)mean_f, (const float*)mean_g,
+                  (const float*)inv_cap, (const float*)inv_klim};
+  int G = (T <= kThreadPerAppMaxT) ? 1 : group_width(T);
   long long threads = (long long)N * G;
   int blocks = (int)((threads + kThreads - 1) / kThreads);
-  size_t smem = sizeof(float) * (size_t)(4 * R + 4) * T;
+  size_t smem = sizeof(float) * ((size_t)(4 * R + 4) * T + R + 6);
   move_eval_best_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      N, T, R, G, (const float*)app, (const int*)a_src, (const int*)a0, (const float*)tier,
-      (const float*)consts, (const uint8_t*)feasible, (const int*)moves_left,
-      (float*)best_score, (int*)best_tier);
+      N, T, R, G, apps, tiers, (float*)best_score, (int*)best_tier);
   return (int)cudaGetLastError();
 }
 

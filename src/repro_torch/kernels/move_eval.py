@@ -1,10 +1,20 @@
 """CUDA wrappers for the SPTLB candidate-move sweep (``csrc/move_eval.cu``).
 
 Replaces the Pallas TPU kernels ``move_eval_pallas`` and
-``move_eval_best_pallas`` of ``repro/kernels/move_eval.py``.  ``prepare``
-keeps the reference's split: the O(N) source-side gathers are torch ops
-here, and the kernel does the O(N*T) part.  Unlike the TPU layout, tiers
-are not padded to 128 lanes and ``feasible`` stays a bool[N, T] byte mask.
+``move_eval_best_pallas`` of ``repro/kernels/move_eval.py``.
+
+  * ``move_eval_best_cuda`` (the LocalSearch sweep) hands the kernel the
+    function's own inputs and a T-sized tier table (``tier_stats``: six
+    small torch ops); the kernel gathers each app's source-side quantities
+    itself.  The two N-sized totals come from the caller (``totals=``, as
+    ``solve_local`` computes them once a solve) or, when absent, from the
+    same two torch reductions as before.
+  * ``move_eval_cuda`` (the full delta[N, T]) keeps the reference's split:
+    ``prepare`` computes the O(N) source-side gathers in torch and the
+    kernel does the O(N*T) part.
+
+Unlike the TPU layout, tiers are not padded to 128 lanes and ``feasible``
+stays a bool[N, T] byte mask.
 
 These wrappers take CUDA tensors only; ``kernels.ops`` routes CPU tensors to
 the plain versions in ``core.delta``.
@@ -28,16 +38,28 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape=None) -> None:
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(x.shape)}")
 
 
+def tier_stats(capacity, task_limit, util, tier_tasks):
+    """The T-sized tier statistics both sweep kernels read: (f, g, mean_f,
+    mean_g, 1 / capacity, 1 / task_limit)."""
+    f = util / capacity                          # [T, R]
+    g = tier_tasks / task_limit                  # [T]
+    return f, g, torch.mean(f, dim=0), torch.mean(g), 1.0 / capacity, 1.0 / task_limit
+
+
+def sweep_totals(tasks, criticality) -> torch.Tensor:
+    """f32[2]: clamp(sum(tasks), 1) and clamp(sum(criticality), 1), as
+    ``solve_local`` computes them once a solve."""
+    return torch.stack([torch.clamp(torch.sum(tasks), min=1.0),
+                        torch.clamp(torch.sum(criticality), min=1.0)])
+
+
 def prepare(demand, tasks, criticality, assignment, assignment0,
             capacity, task_limit, ideal_frac, ideal_task_frac,
             util, tier_tasks, weights):
-    """Source-side precompute shared by both kernels (the Pallas ``_prepare``
+    """The full sweep's source-side precompute (the Pallas ``_prepare``
     without its padding).  Returns (app f32[N, 5R+7], tier f32[4R+4, T],
     consts f32[R+6]); every tensor contiguous on the inputs' device."""
-    f = util / capacity                          # [T, R]
-    g = tier_tasks / task_limit                  # [T]
-    mean_f = torch.mean(f, dim=0)
-    mean_g = torch.mean(g)
+    f, g, mean_f, mean_g, inv_cap, inv_klim = tier_stats(capacity, task_limit, util, tier_tasks)
 
     src = assignment.long()
     dC_src = demand / capacity[src]              # [N, R]
@@ -48,24 +70,24 @@ def prepare(demand, tasks, criticality, assignment, assignment0,
     g_src = g[src]
     g_src_new = g_src - dK_src
     gideal_src = ideal_task_frac[src]
-    total_tasks = torch.clamp(torch.sum(tasks), min=1.0)
-    total_crit = torch.clamp(torch.sum(criticality), min=1.0)
-    mc = tasks / total_tasks
-    cc = criticality / total_crit
+    totals = sweep_totals(tasks, criticality)
+    mc = tasks / totals[0]
+    cc = criticality / totals[1]
 
     app = torch.cat([f_src, f_src_new, dC_src, ideal_src, demand,
                      torch.stack([g_src, g_src_new, dK_src, gideal_src,
                                   tasks, mc, cc], dim=1)], dim=1).contiguous()
-    tier = torch.cat([f.T, capacity.T, (1.0 / capacity).T, ideal_frac.T,
-                      torch.stack([g, task_limit, 1.0 / task_limit, ideal_task_frac])],
+    tier = torch.cat([f.T, capacity.T, inv_cap.T, ideal_frac.T,
+                      torch.stack([g, task_limit, inv_klim, ideal_task_frac])],
                      dim=0).contiguous()
     consts = torch.cat([mean_f, mean_g[None], weights.to(torch.float32)]).contiguous()
     return app, tier, consts
 
 
 def prepare_launch(*args):
-    """Check the sweep arguments and run ``prepare``: the inputs of a launch
-    (N, T, R, app, tier, consts, assignment, assignment0)."""
+    """Check the full sweep's arguments and run ``prepare``: the inputs of a
+    ``move_eval`` launch (N, T, R, app, tier, consts, assignment,
+    assignment0)."""
     demand, assignment, assignment0, capacity = args[0], args[3], args[4], args[5]
     N, R = demand.shape
     T = capacity.shape[0]
@@ -97,32 +119,62 @@ def launch_move_eval(prepared) -> torch.Tensor:
     return delta
 
 
-def launch_move_eval_best(prepared, feasible: torch.Tensor,
-                          moves_left: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The ``move_eval_best`` kernel alone on ``prepare_launch``'s output."""
-    N, T, R, app, tier, consts, a_src, a0 = prepared
-    _check("feasible", feasible, torch.bool, (N, T))
-    _check("moves_left", moves_left, torch.int32, ())
-    feasible = feasible.contiguous()
-    best_s = torch.empty((N,), dtype=torch.float32, device=app.device)
-    best_t = torch.empty((N,), dtype=torch.int32, device=app.device)
-    lib = load_library("move_eval")
-    code = lib.move_eval_best_launch(
-        N, T, R, app.data_ptr(), a_src.data_ptr(), a0.data_ptr(), tier.data_ptr(),
-        consts.data_ptr(), feasible.data_ptr(), moves_left.data_ptr(),
-        best_s.data_ptr(), best_t.data_ptr(),
-        torch.cuda.current_stream(app.device).cuda_stream)
-    check_launch(lib, code, "move_eval_best")
-    return best_s, best_t
-
-
 def move_eval_cuda(*args) -> torch.Tensor:
     """delta f32[N, T] on the card (``core.delta.move_delta_cost`` semantics)."""
     return launch_move_eval(prepare_launch(*args))
 
 
-def move_eval_best_cuda(*args) -> tuple[torch.Tensor, torch.Tensor]:
+def best_inputs(*args, totals=None) -> tuple:
+    """Check the fused sweep's arguments (``core.delta.move_best_per_app``'s
+    signature) and compute the tier table: the inputs of one
+    ``launch_move_eval_best``."""
+    (demand, tasks, crit, assignment, assignment0, capacity, task_limit, ideal_frac,
+     ideal_task_frac, util, tier_tasks, weights, feasible, moves_left) = args
+    N, R = demand.shape
+    T = capacity.shape[0]
+    if R > MAX_RESOURCES:
+        raise ValueError(f"at most {MAX_RESOURCES} resources, got {R}")
+    if 4 * ((4 * R + 4) * T + R + 6) > SMEM_LIMIT:
+        raise ValueError(f"{T} tiers exceed the kernel's shared-memory staging")
+    if totals is None:
+        totals = sweep_totals(tasks, crit)
+    for name, x, dtype, shape in (
+            ("demand", demand, torch.float32, (N, R)), ("tasks", tasks, torch.float32, (N,)),
+            ("criticality", crit, torch.float32, (N,)),
+            ("assignment", assignment, torch.int32, (N,)),
+            ("assignment0", assignment0, torch.int32, (N,)),
+            ("capacity", capacity, torch.float32, (T, R)),
+            ("task_limit", task_limit, torch.float32, (T,)),
+            ("ideal_frac", ideal_frac, torch.float32, (T, R)),
+            ("ideal_task_frac", ideal_task_frac, torch.float32, (T,)),
+            ("util", util, torch.float32, (T, R)), ("tier_tasks", tier_tasks, torch.float32, (T,)),
+            ("weights", weights, torch.float32, (5,)), ("feasible", feasible, torch.bool, (N, T)),
+            ("moves_left", moves_left, torch.int32, ()), ("totals", totals, torch.float32, (2,))):
+        _check(name, x, dtype, shape)
+    apps = tuple(x.contiguous() for x in (demand, tasks, crit, assignment, assignment0,
+                                          feasible, moves_left, totals))
+    tiers = tuple(x.contiguous() for x in (capacity, task_limit, ideal_frac, ideal_task_frac,
+                                           weights))
+    stats = tuple(x.contiguous() for x in tier_stats(capacity, task_limit, util, tier_tasks))
+    return N, T, R, apps + tiers + stats
+
+
+def launch_move_eval_best(inputs) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``move_eval_best`` kernel alone on ``best_inputs``' output."""
+    N, T, R, tensors = inputs
+    dev = tensors[0].device
+    best_s = torch.empty((N,), dtype=torch.float32, device=dev)
+    best_t = torch.empty((N,), dtype=torch.int32, device=dev)
+    lib = load_library("move_eval")
+    code = lib.move_eval_best_launch(N, T, R, *(x.data_ptr() for x in tensors),
+                                     best_s.data_ptr(), best_t.data_ptr(),
+                                     torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(lib, code, "move_eval_best")
+    return best_s, best_t
+
+
+def move_eval_best_cuda(*args, totals=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(best_score f32[N], best_tier i32[N]) on the card
-    (``core.delta.move_best_per_app`` semantics)."""
-    *sweep, feasible, moves_left = args
-    return launch_move_eval_best(prepare_launch(*sweep), feasible, moves_left)
+    (``core.delta.move_best_per_app`` semantics); ``totals`` f32[2] as
+    ``sweep_totals`` gives them, computed here when absent."""
+    return launch_move_eval_best(best_inputs(*args, totals=totals))

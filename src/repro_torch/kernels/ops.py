@@ -38,12 +38,14 @@ def move_eval(*args):
     return _ref.move_eval_ref(*args)
 
 
-def move_eval_best(*args):
+def move_eval_best(*args, totals=None):
     """Fused sweep + move-mask + per-app argmin -> (best_score[N],
-    best_tier[N]); see core.delta.move_best_per_app for the signature."""
+    best_tier[N]); see core.delta.move_best_per_app for the signature.
+    ``totals`` f32[2] = (clamp(sum(tasks), 1), clamp(sum(criticality), 1)),
+    when the caller has them; the plain version computes its own."""
     if args[0].is_cuda:
         from repro_torch.kernels.move_eval import move_eval_best_cuda
-        out = move_eval_best_cuda(*args)
+        out = move_eval_best_cuda(*args, totals=totals)
         launch_counts["move_eval_best"] += 1
         return out
     return _ref.move_eval_best_ref(*args)

@@ -9,8 +9,9 @@ package, so it also runs on a machine that has only PyTorch:
 Tolerances are those of the CPU parity tests: the sweep within scaled atol
 1e-5; the fused best with the same +inf set, scores within scaled 1e-5 and
 the same tiers except at ties (scaled gap < 1e-6; the kernel tests its fit
-in load-fraction space, the plain version in absolute units); the commit
-scan and packing bit-identical.  The flash kernels within 3e-5 in f32 (the
+in load-fraction space, the plain version in absolute units), and at its
+edge cases (``test_move_eval_best_kernel_gathers_its_own_inputs``)
+bit-identical to it; the commit scan and packing bit-identical.  The flash kernels within 3e-5 in f32 (the
 reference's flash tolerance) and, in bf16, within atol 2e-3 and rtol 2^-7:
 kernel and plain version both compute in f32 and round the output once, so
 they part by at most one bf16 ulp; rounding the probabilities to bf16 would
@@ -25,7 +26,7 @@ import torch
 import repro_torch.core as P
 from repro_torch.core.delta import move_best_per_app, move_delta_cost
 from repro_torch.kernels import ops
-from repro_torch.kernels.pack import pack_ffd, pack_ffd_tiers
+from repro_torch.kernels.pack import pack_edge_cases, pack_ffd, pack_ffd_tiers
 from repro_torch.kernels.ref import (commit_topk_ref, flash_attention_ref, flash_decode_ref,
                                     pack_ffd_tiers_ref, random_problem_arrays, ssd_chunk_ref)
 
@@ -84,6 +85,66 @@ def test_pack_kernel_matches_plain_version(cuda_device, T, M):
     assert torch.equal(got, want) and bool(got.any())
     assert torch.equal(pack_ffd(d[0], c, int(hosts[0]), num_hosts_pad=128), want[0])
     assert ops.launch_counts["pack_ffd_tiers"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(pack_edge_cases()))
+def test_pack_kernel_at_its_edges(cuda_device, case):
+    """Pads 16-1024 (1 to 32 bins a lane), R = 1/3/4, tiers with no host or
+    more than the pad, everything rejected, only the last live host
+    fitting, zeros among the items, a negative capacity, M not a multiple
+    of 4; and each tier alone through pack_ffd (T = 1)."""
+    demand, capacity, hosts, pad = pack_edge_cases()[case]
+    d = torch.as_tensor(demand, device=cuda_device)
+    c = torch.as_tensor(capacity, device=cuda_device)
+    h = torch.as_tensor(hosts, device=cuda_device)
+    ops.reset_launch_counts()
+    got = pack_ffd_tiers(d, c, h, num_hosts_pad=pad)
+    want = pack_ffd_tiers_ref(d, c, h, num_hosts_pad=pad)
+    assert torch.equal(got, want)
+    for t in range(demand.shape[0]):
+        assert torch.equal(pack_ffd(d[t], c, int(hosts[t]), num_hosts_pad=pad), want[t]), t
+    assert ops.launch_counts["pack_ffd_tiers"] == 1 + demand.shape[0]
+
+
+def _best_case(device, N, T, seed):
+    """Random sweep inputs (capacities scaled by N / (50 T), as in
+    ``chip_smoke.random_sweep``, so that moves fit) where tier 2 is a copy
+    of tier 1 (so their deltas tie exactly for apps that live in neither)
+    and every 11th app has no feasible tier."""
+    args = list(random_problem_arrays(N, T, seed=seed, device=device))
+    scale = max(1.0, N / (50.0 * T))
+    args[5], args[6] = args[5] * scale, args[6] * scale
+    if T >= 3:
+        for i in (5, 6, 7, 8, 9, 10):
+            args[i][2] = args[i][1]
+    feas = np.random.default_rng(seed).random((N, T)) > 0.2
+    feas[::11] = False
+    return tuple(args), torch.as_tensor(feas, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 5, 17, 128])
+@pytest.mark.parametrize("ml", [0, 5])
+def test_move_eval_best_kernel_gathers_its_own_inputs(cuda_device, T, ml):
+    """N = 1000 (not a multiple of the block), one thread an app at T <= 8
+    and a group of lanes above; the same scores and tiers as the plain
+    version, exact ties to the lower tier, +inf where no tier is feasible,
+    and the caller's totals give what the wrapper's own give."""
+    N = 1000
+    args, feas = _best_case(cuda_device, N, T, seed=T + ml)
+    moves_left = torch.tensor(ml, dtype=torch.int32, device=cuda_device)
+    totals = torch.stack([args[1].sum().clamp(min=1.0), args[2].sum().clamp(min=1.0)])
+    ops.reset_launch_counts()
+    s_k, t_k = ops.move_eval_best(*args, feas, moves_left, totals=totals)
+    s_a, t_a = ops.move_eval_best(*args, feas, moves_left)
+    s_p, t_p = move_best_per_app(*args, feas, moves_left)
+    assert ops.launch_counts["move_eval_best"] == 2
+    assert torch.equal(s_k, s_a) and torch.equal(t_k, t_a)
+    assert torch.equal(s_k, s_p) and torch.equal(t_k, t_p)
+    assert not bool(torch.isfinite(s_k[::11]).any()) and not bool(t_k[::11].any())
+    if T == 5 and ml > 0:
+        assert bool((torch.isfinite(s_k) & (t_k == 1)).any())   # the tied pair's lower tier
 
 
 @pytest.mark.cuda

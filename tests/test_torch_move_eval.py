@@ -90,6 +90,39 @@ def test_ops_on_cpu_take_the_plain_version_and_count_nothing():
     assert set(ops.launch_counts.values()) == {0}
 
 
+def test_ops_move_eval_best_on_cpu_takes_the_callers_totals():
+    args = random_problem_arrays(64, 5, seed=2)
+    feas = torch.as_tensor(_feasible(64, 5))
+    ml = torch.tensor(3, dtype=torch.int32)
+    totals = torch.stack([torch.clamp(torch.sum(args[1]), min=1.0),
+                          torch.clamp(torch.sum(args[2]), min=1.0)])
+    ops.reset_launch_counts()
+    given = ops.move_eval_best(*args, feas, ml, totals=totals)
+    absent = ops.move_eval_best(*args, feas, ml)
+    for a, b in zip(given, absent):
+        assert torch.equal(a, b)
+    assert set(ops.launch_counts.values()) == {0}
+
+
+def test_tier_stats_are_the_tier_table_of_prepare():
+    """The tier statistics the best kernel reads beside its inputs are the
+    values of the full sweep's tier table, and ``sweep_totals`` the
+    reference's clamped sums."""
+    from repro_torch.kernels.move_eval import prepare, sweep_totals, tier_stats
+
+    args = random_problem_arrays(200, 7, seed=4)
+    demand, tasks, crit, _, _, cap, klim, _, _, util, tt, _ = args
+    _, tier, consts = prepare(*args)
+    f, g, mean_f, mean_g, inv_cap, inv_klim = tier_stats(cap, klim, util, tt)
+    R = demand.shape[1]
+    assert torch.equal(tier[:R], f.T) and torch.equal(tier[2 * R:3 * R], inv_cap.T)
+    assert torch.equal(tier[4 * R], g) and torch.equal(tier[4 * R + 2], inv_klim)
+    assert torch.equal(consts[:R], mean_f) and torch.equal(consts[R], mean_g)
+    totals = sweep_totals(tasks, crit)
+    assert torch.equal(totals, torch.stack([torch.clamp(torch.sum(tasks), min=1.0),
+                                            torch.clamp(torch.sum(crit), min=1.0)]))
+
+
 def test_move_eval_delta_is_exact():
     """delta[n, t] equals objective(after move) - objective(before)."""
     cluster = P.generate_cluster(num_apps=40, seed=2, device="cpu")

@@ -3,12 +3,13 @@ masks on hypothesis-compat draws (the ``tests/test_pack.py`` contract), the
 host scheduler's batched vet and its packing input."""
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import repro.core as R
 import repro_torch.core as P
 from repro.kernels.pack import pack_ffd_tiers as ref_pack_ffd_tiers
-from repro_torch.kernels.pack import DispatchStats, pack_ffd, pack_ffd_tiers
+from repro_torch.kernels.pack import DispatchStats, pack_edge_cases, pack_ffd, pack_ffd_tiers
 
 from _hypothesis_compat import hypothesis, st
 from _torch_port import host
@@ -61,6 +62,25 @@ def test_dead_bins_never_accept_and_zero_rows_fit_host_zero():
     assert np.array_equal(got, want)
     assert got[0].all()                          # no live host rejects everything
     assert got[1, 0] and not got[1, 1:].any()    # too big, then fits / zero rows fit
+
+
+@pytest.mark.parametrize("case", sorted(pack_edge_cases()))
+def test_pack_edge_cases_match_the_reference(case):
+    """The kernel's edge cases (pads 16-1024, R = 1/3/4, tiers with no
+    host, everything rejected, only the last live host fitting, zeros among
+    the items, a negative capacity, M not a multiple of 4) through the plain
+    version, bit-identical to the reference scan; every tier again as a
+    single-tier pack_ffd."""
+    demand, capacity, hosts, pad = pack_edge_cases()[case]
+    want = np.asarray(ref_pack_ffd_tiers(jnp.asarray(demand), jnp.asarray(capacity),
+                                         jnp.asarray(hosts), num_hosts_pad=pad))
+    got = host(pack_ffd_tiers(torch.as_tensor(demand), torch.as_tensor(capacity),
+                              torch.as_tensor(hosts), num_hosts_pad=pad))
+    assert got.dtype == bool and np.array_equal(got, want)
+    for t in range(demand.shape[0]):
+        one = host(pack_ffd(torch.as_tensor(demand[t]), torch.as_tensor(capacity),
+                            int(hosts[t]), num_hosts_pad=pad))
+        assert np.array_equal(one, want[t]), t
 
 
 def _proposal(cluster, seed, movers=150, target=None):
