@@ -13,8 +13,9 @@ Phases (each raises on failure, so the script exits non-zero):
   2. Kernels against their plain PyTorch versions on the card:
      ``move_eval`` and ``move_eval_best`` at (N, T) in {(300, 5), (500, 17),
      (100_000, 5), (100_000, 128)} x moves_left {0, 5} and at the main
-     path's own input (the N=100_000 cluster, bucket-padded), the best
-     kernel also with the caller's totals against the wrapper's own;
+     path's own input (the N=100_000 cluster, bucket-padded), both kernels
+     also with the caller's totals against the wrapper's own, ``move_eval``
+     bit for bit (max abs err 0);
      ``commit_topk`` on the top-16 candidates of the same sweeps (status,
      assignment and tier loads bit for bit); and
      ``pack_ffd_tiers`` on random demand (M in {128, 4096}), at the kernel's
@@ -24,9 +25,9 @@ Phases (each raises on failure, so the script exits non-zero):
      on the [T, M_b, R] tensor the host scheduler built for the balance's
      last proposal, each with its tiers' non-zero item counts; median
      CUDA-event time per launch of each kernel and of its plain version
-     (``move_eval_best`` as the whole call from the solver's arguments, and
-     as the kernel alone), the pack kernel also beside its chain floor; and
-     the kernels one whole ``move_eval_best`` call launches (profiler).
+     (both sweeps as the whole call from the solver's arguments, and as the
+     kernel alone), the pack kernel also beside its chain floor; and the
+     kernels one whole call of each sweep launches (profiler).
   3. The slice: ``generate_cluster(num_apps=100_000, seed=1)`` and one
      manual_cnst ``Sptlb(cluster).balance("local", timeout_s=30,
      config=CoopConfig())`` with the launch counters zeroed just before and
@@ -34,7 +35,13 @@ Phases (each raises on failure, so the script exits non-zero):
      ``pack_ffd_tiers`` must each have launched); then the unfused LocalSearch path
      (``solve_local(move_eval_fn=ops.move_eval)``, the ``move_eval``
      kernel's path) with its own zeroed counts; one short solve under
-     ``torch.profiler`` (device busy share, kernel time by name); and the
+     ``torch.profiler`` (device busy share, kernel time by name); the
+     sampled LocalSearch (temperature 1.0, 64 sweeps at the padded N=100,000,
+     the card's generator) with its own zeroed counts (one ``move_eval``
+     launch a sweep), valid and no worse than the start, a repeat with the
+     same seed giving the same mapping, and with host-drawn noise injected
+     the same trajectory as through the plain ``move_delta_cost`` on the
+     card, ms a sweep and the idle share of a profiled sampled solve; and the
      N=300 pass on the card and on the CPU's plain path, which must agree
      (same rounds, objective within rel 1e-4, assignments >= 0.98 equal).
   4. The dense serving slice: ``flash_attention`` and ``flash_decode`` against
@@ -111,9 +118,12 @@ EVAL_OPS = {"per_resource": 23, "fixed": 36}
 HEAD_START_CYCLES = 100_000_000
 # Candidates a LocalSearch sweep commits from (LocalSearchConfig.batch_moves).
 COMMIT_K = 16
-# Sweeps of the unfused solve (the move_eval kernel's path) and of the
-# profiled solve.
+# Sweeps of the unfused solve, of the sampled solve (the move_eval kernel's
+# paths) and of the profiled solves; the sampled solve's temperature (a power
+# of two, so -score / temperature is exact).
 UNFUSED_SWEEPS = 32
+SAMPLED_SWEEPS = 64
+SAMPLED_TAU = 1.0
 PROFILE_SWEEPS = 16
 # Kernel names a profiled prefill lists.
 PROFILE_TOP = 10
@@ -241,17 +251,18 @@ def check_sweep(label, args, feas, moves_left_values, record, dev):
     from repro_torch.kernels import move_eval as K
 
     N = args[0].shape[0]
-    prepared = K.prepare_launch(*args)
-    d_kernel = K.launch_move_eval(prepared)
+    totals = K.sweep_totals(args[1], args[2])
+    inputs = K.eval_inputs(*args, totals=totals)
+    d_kernel = K.launch_move_eval(inputs)
+    d_absent = K.move_eval_cuda(*args)
     d_plain = move_delta_cost(*args)
     torch.cuda.synchronize()
-    scale = float(d_plain.abs().max()) + 1e-9
     err = float((d_kernel - d_plain).abs().max())
-    if not err / scale <= 1e-5:
-        raise AssertionError(f"move_eval {label}: scaled error {err / scale:.3e} > 1e-5")
+    if not (torch.equal(d_kernel, d_plain) and torch.equal(d_absent, d_kernel)):
+        raise AssertionError(f"move_eval {label}: max abs err {err:.3e} (must be 0), totals "
+                             f"given = absent {torch.equal(d_absent, d_kernel)}")
     record["move_eval"]["max_abs_err"] = max(record["move_eval"]["max_abs_err"], err)
-    line = f"move_eval      {label:>16}: scaled err {err / scale:.2e}"
-    totals = K.sweep_totals(args[1], args[2])
+    line = f"move_eval      {label:>16}: max abs err {err:.1e}, totals given = absent"
     for ml in moves_left_values:
         moves_left = torch.tensor(ml, dtype=torch.int32, device=dev)
         s_k, t_k = K.launch_move_eval_best(K.best_inputs(*args, feas, moves_left))
@@ -285,15 +296,38 @@ def check_sweep(label, args, feas, moves_left_values, record, dev):
         line += (f" | best ml={ml}: finite {int(finite.sum())}/{N}, "
                  f"max abs err {err_b:.3e}, tie-flipped tiers {ties}, totals given = absent")
     print(line, flush=True)
-    return prepared
+    return inputs
 
 
-def time_sweep(args, feas, prepared, dev) -> dict:
-    """Median ms of each sweep: ``move_eval`` as the kernel alone and with
-    ``prepare``; ``move_eval_best`` as the whole call from the solver's
+def scalar_division_check(args) -> tuple[int, int, int]:
+    """The one operation the sweep kernels do not repeat: on a card the plain
+    version's d_mean = (dC_dst - dC_src) / T divides by a host scalar, which
+    PyTorch runs as a multiply by its reciprocal, where the kernels divide.
+    Returns, at these inputs, the quotients (resources and tasks) that differ
+    between the two, all quotients, and the sums mean + d_mean that differ."""
+    import torch
+
+    demand, tasks, cap, klim, util, tier_tasks = (args[i] for i in (0, 1, 5, 6, 9, 10))
+    T = cap.shape[0]
+    src = args[3].long()
+    f, g = util / cap, tier_tasks / klim
+    pairs = ((demand[:, None, :] / cap[None] - (demand / cap[src])[:, None, :], f.mean(0)),
+             (tasks[:, None] / klim[None] - (tasks / klim[src])[:, None], g.mean()))
+    differ = total = sums = 0
+    for diff, mean in pairs:
+        by_host = diff / T
+        divided = diff / torch.tensor(float(T), device=diff.device)
+        differ += int((by_host != divided).sum())
+        total += diff.numel()
+        sums += int((mean + by_host != mean + divided).sum())
+    return differ, total, sums
+
+
+def time_sweep(args, feas, inputs, dev) -> dict:
+    """Median ms of each sweep: as the whole call from the solver's
     arguments (with the totals the solver passes), without the totals, and
-    the kernel alone on precomputed inputs; each beside its plain version
-    and its bound."""
+    the kernel alone on precomputed inputs (``inputs``: ``check_sweep``'s
+    for ``move_eval``); each beside its plain version and its bound."""
     import torch
     from repro_torch.core.delta import move_best_per_app, move_delta_cost
     from repro_torch.kernels import move_eval as K
@@ -305,8 +339,9 @@ def time_sweep(args, feas, prepared, dev) -> dict:
     best_in = K.best_inputs(*args, feas, ml, totals=totals)
     out = {}
     b, by = bound_ms(sweep_bytes(N, T, R, False), sweep_ops(N, T, R, False))
-    out["move_eval"] = {"ms": time_ms(lambda: K.launch_move_eval(prepared)),
-                        "wrapper_ms": time_ms(lambda: K.move_eval_cuda(*args)),
+    out["move_eval"] = {"ms": time_ms(lambda: K.launch_move_eval(inputs)),
+                        "whole_call_ms": time_ms(lambda: K.move_eval_cuda(*args, totals=totals)),
+                        "absent_ms": time_ms(lambda: K.move_eval_cuda(*args)),
                         "plain_ms": time_ms(lambda: move_delta_cost(*args)),
                         "bound_ms": b, "bound_by": by}
     b, by = bound_ms(sweep_bytes(N, T, R, True), sweep_ops(N, T, R, True))
@@ -321,9 +356,9 @@ def time_sweep(args, feas, prepared, dev) -> dict:
 
 def print_sweep_times(where: str, times: dict) -> None:
     t = times["move_eval"]
-    print(f"  time      move_eval {where}: kernel {t['ms']:.4f} ms, with prepare "
-          f"{t['wrapper_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
-          f"{t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
+    print(f"  time      move_eval {where}: whole call {t['whole_call_ms']:.4f} ms (totals "
+          f"given; {t['absent_ms']:.4f} ms without), kernel alone {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
     t = times["move_eval_best"]
     print(f"  time move_eval_best {where}: whole call {t['ms']:.4f} ms (totals given; "
           f"{t['absent_ms']:.4f} ms without), kernel alone {t['kernel_ms']:.4f} ms, plain "
@@ -575,6 +610,20 @@ def device_profile(fn) -> dict:
     return {"wall_s": wall, "busy_s": busy / 1e6 if spans else None,
             "span_s": (hi - lo) / 1e6 if spans else None, "launches": len(spans),
             "kernels": sorted(by_name.items(), key=lambda kv: -kv[1]), "counts": counts}
+
+
+def solve_profile_line(what: str, prof: dict) -> str:
+    """One line from ``device_profile`` of a solve: wall, the card's busy
+    time and idle share of the traced span, launches, the six longest
+    kernels by name."""
+    if prof["busy_s"] is None:
+        return (f"{what}, wall {prof['wall_s']:.4f} s; the profiler saw no device activity "
+                "(device busy share not measured)")
+    top = ", ".join(f"{name[:48]} {us / 1e3:.3f} ms" for name, us in prof["kernels"][:6])
+    return (f"{what}, wall {prof['wall_s']:.4f} s, device busy {prof['busy_s']:.4f} s (idle "
+            f"share {1.0 - prof['busy_s'] / prof['span_s']:.4f} of the traced span "
+            f"{prof['span_s']:.4f} s), {prof['launches']} device launches; kernel time by name: "
+            f"{top}")
 
 
 def kernel_label(name: str, width: int = 160) -> str:
@@ -1297,6 +1346,16 @@ def hybrid_phase(dev, record) -> dict:
     return {**out, "times": times, "teacher_f32": tf32}
 
 
+def host_gumbel(sweep: int, size: int, device):
+    """Gumbel noise drawn on the host with numpy (one seed a sweep), for the
+    sampled solve's ``gumbel_fn``."""
+    import numpy as np
+    import torch
+
+    noise = np.random.default_rng(sweep).gumbel(size=size).astype(np.float32)
+    return torch.as_tensor(noise, device=device)
+
+
 def assignment_digest(x) -> str:
     """A short hash of an assignment's i32 values, to compare mappings
     across runs and trees."""
@@ -1313,7 +1372,8 @@ def probe(src: str) -> int:
     so that two trees are compared on one card in one call.  Prints one JSON
     line: the fused sweep's whole call at the main path's input (from the
     solver's arguments to (score, tier), with the totals where the wrapper
-    takes them), two N=100,000 passes (wall-clock, solve_s, pack_s, rounds,
+    takes them) and its kernel alone, the same two for the full sweep
+    (``move_eval``), two N=100,000 passes (wall-clock, solve_s, pack_s, rounds,
     sweeps, objective and mapping digest) and the pack kernel on the last
     proposal."""
     sys.path.insert(0, os.path.abspath(src))
@@ -1348,6 +1408,16 @@ def probe(src: str) -> int:
     if hasattr(K, "best_inputs"):
         best_in = K.best_inputs(*args, **kw)
         kernel_ms = time_ms(lambda: K.launch_move_eval_best(best_in))
+    # The full sweep: its whole call (with the totals where the wrapper takes
+    # them) and its kernel alone, on either tree's split (eval_inputs, or
+    # the older prepare_launch).
+    kw_e = kw if "totals" in inspect.signature(K.move_eval_cuda).parameters else {}
+    eval_ms = time_ms(lambda: K.move_eval_cuda(*args[:12], **kw_e))
+    if hasattr(K, "eval_inputs"):
+        eval_in = K.eval_inputs(*args[:12], **kw_e)
+    else:
+        eval_in = K.prepare_launch(*args[:12])
+    eval_kernel_ms = time_ms(lambda: K.launch_move_eval(eval_in))
     passes = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -1368,6 +1438,8 @@ def probe(src: str) -> int:
     pack_ms = time_ms(lambda: pack_ffd_tiers_cuda(dd, cc, hh, num_hosts_pad=host._hosts_pad))
     print(json.dumps({"probe": src, "card": card_line(), "sweep_whole_call_ms": sweep_ms,
                       "sweep_totals_given": bool(kw), "sweep_kernel_ms": kernel_ms,
+                      "eval_whole_call_ms": eval_ms, "eval_totals_given": bool(kw_e),
+                      "eval_kernel_ms": eval_kernel_ms,
                       "pack_ms": pack_ms, "passes": passes}), flush=True)
     return 0
 
@@ -1383,6 +1455,7 @@ def main() -> int:
 
     from repro_torch.core import (CoopConfig, LocalSearchConfig, Sptlb, generate_cluster,
                                   objective, pad_problem, solve_local, validate)
+    from repro_torch.core.delta import move_delta_cost
     from repro_torch.core.problem import tier_loads
     from repro_torch.core.hierarchy import HostScheduler
     from repro_torch.kernels import build, ops
@@ -1413,11 +1486,11 @@ def main() -> int:
     # -- 2a. sweep kernels at the stated shapes --------------------------------
     for N, T in ((300, 5), (500, 17), (100_000, 5), (100_000, 128)):
         args, feas = random_sweep(N, T, dev, scale_capacity=N >= 10_000)
-        prepared = check_sweep(f"N={N},T={T}", args, feas, (0, 5), record, dev)
+        inputs = check_sweep(f"N={N},T={T}", args, feas, (0, 5), record, dev)
         for ml in (0, 5):
             check_commit(f"N={N},T={T},ml={ml}", args, feas, ml, record, dev)
         if N >= 10_000:
-            print_sweep_times(f"N={N} T={T}", time_sweep(args, feas, prepared, dev))
+            print_sweep_times(f"N={N} T={T}", time_sweep(args, feas, inputs, dev))
 
     # -- 2b. the main path's own sweep input ------------------------------------
     t = time.perf_counter()
@@ -1432,12 +1505,16 @@ def main() -> int:
                  pp.weights.vector())
     main_feas = pp.feasible_mask().contiguous()
     Nm, Tm = pp.num_apps, pp.num_tiers
-    prepared = check_sweep(f"cluster N={Nm},T={Tm}", main_args, main_feas,
-                           (int(pp.move_budget),), record, dev)
-    main_sweep = time_sweep(main_args, main_feas, prepared, dev)
+    inputs = check_sweep(f"cluster N={Nm},T={Tm}", main_args, main_feas,
+                         (int(pp.move_budget),), record, dev)
+    main_sweep = time_sweep(main_args, main_feas, inputs, dev)
     main_commit = check_commit(f"cluster N={Nm},T={Tm}", main_args, main_feas,
                                int(pp.move_budget), record, dev)
     print_sweep_times(f"main path N={Nm} T={Tm}", main_sweep)
+    differ, total, sums = scalar_division_check(main_args)
+    print(f"  the plain version's / T on the card (a reciprocal multiply) against the kernels' "
+          f"division: {differ} of {total} quotients differ, {sums} sums mean + d_mean differ",
+          flush=True)
     # The whole fused call, as the solver makes it, under the profiler: what
     # it launches on the card (no cat or stack of an [N, .] row).
     from repro_torch.kernels import move_eval as K
@@ -1450,6 +1527,13 @@ def main() -> int:
           f"card: {names}", flush=True)
     if any("cat" in n.lower() or "stack" in n.lower() for n in call["counts"]):
         raise AssertionError(f"the fused sweep launched a cat or stack: {names}")
+    # The same for the full sweep, as the sampled solve makes it.
+    call = device_profile(lambda: K.move_eval_cuda(*main_args, totals=totals_main))
+    names = {kernel_label(n, 60): c for n, c in call["counts"].items()}
+    print(f"  move_eval whole call: {sum(call['counts'].values())} kernel launches on the "
+          f"card: {names}", flush=True)
+    if any("cat" in n.lower() or "stack" in n.lower() for n in call["counts"]):
+        raise AssertionError(f"the full sweep launched a cat or stack: {names}")
 
     # -- 2c. pack on random demand and at the kernel's edges --------------------
     clock = sm_clock_mhz()
@@ -1552,17 +1636,8 @@ def main() -> int:
     # -- 3c. where the time goes: one short solve under torch.profiler ---------
     prof = device_profile(lambda: solve_local(pp, LocalSearchConfig(max_iters=PROFILE_SWEEPS),
                                               device=dev))
-    if prof["busy_s"] is None:
-        print(f"profile: {PROFILE_SWEEPS} sweeps at N={pp.num_apps}, wall {prof['wall_s']:.4f} s;"
-              " the profiler saw no device activity (device busy share not measured)",
-              flush=True)
-    else:
-        top = ", ".join(f"{name[:48]} {us / 1e3:.3f} ms" for name, us in prof["kernels"][:6])
-        print(f"profile: {PROFILE_SWEEPS} sweeps at N={pp.num_apps}, wall {prof['wall_s']:.4f} s, "
-              f"device busy {prof['busy_s']:.4f} s (idle share "
-              f"{1.0 - prof['busy_s'] / prof['span_s']:.4f} of the traced span "
-              f"{prof['span_s']:.4f} s), {prof['launches']} device launches; "
-              f"kernel time by name: {top}", flush=True)
+    print(solve_profile_line(f"profile: {PROFILE_SWEEPS} sweeps at N={pp.num_apps}", prof),
+          flush=True)
 
     wall_h, phases = host_profile(lambda: solve_local(
         pp, LocalSearchConfig(max_iters=PROFILE_SWEEPS), device=dev))
@@ -1571,7 +1646,62 @@ def main() -> int:
               f"{label.strip()} {sec:.4f} s ({sec / wall_h:.3f})" for label, sec in phases.items()),
           flush=True)
 
-    # -- 3d. agreement with the plain path on a small input ----------------------
+    # -- 3d. the sampled LocalSearch (temperature > 0): move_eval's solver path --
+    # One sweep a launch of the full delta[N, T]; the counts are zeroed just
+    # before and read just after.
+    cfg_s = LocalSearchConfig(temperature=SAMPLED_TAU, seed=0, max_iters=SAMPLED_SWEEPS)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    res_s = solve_local(pp, cfg_s, device=dev)
+    torch.cuda.synchronize()
+    sampled_s = time.perf_counter() - t
+    sampled_launches = dict(ops.launch_counts)
+    valid_s = validate(pp, res_s.assignment)
+    print(f"sampled solve N={pp.num_apps}: temperature {SAMPLED_TAU}, seed 0, "
+          f"{res_s.iterations} sweeps in {sampled_s:.4f} s "
+          f"({sampled_s / max(res_s.iterations, 1) * 1e3:.4f} ms a sweep), committed moves "
+          f"{res_s.extra['committed_moves']}, converged {res_s.converged}, objective "
+          f"{obj0:.6f} -> {res_s.objective:.6f}, violations ok {valid_s.ok}, digest "
+          f"{assignment_digest(res_s.assignment)}, launches {sampled_launches}", flush=True)
+    if not (res_s.iterations > 0 and sampled_launches["move_eval"] == res_s.iterations):
+        raise AssertionError(f"the sampled solve launched move_eval "
+                             f"{sampled_launches['move_eval']} times in {res_s.iterations} "
+                             "sweeps")
+    if not (valid_s.ok and res_s.objective <= obj0):
+        raise AssertionError(f"sampled solve: objective {res_s.objective} from {obj0}, "
+                             f"violations {valid_s}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    again_s = solve_local(pp, cfg_s, device=dev)
+    torch.cuda.synchronize()
+    again_s_s = time.perf_counter() - t
+    same_s = assignment_digest(again_s.assignment) == assignment_digest(res_s.assignment)
+    # Host-drawn noise, injected: the kernel's solve against the plain
+    # move_delta_cost's on the card.
+    res_k = solve_local(pp, cfg_s, gumbel_fn=host_gumbel, device=dev)
+    res_p = solve_local(pp, cfg_s, move_eval_fn=move_delta_cost, gumbel_fn=host_gumbel,
+                        device=dev)
+    same_p = (torch.equal(res_k.assignment, res_p.assignment)
+              and (res_k.iterations, res_k.extra["committed_moves"], res_k.objective)
+              == (res_p.iterations, res_p.extra["committed_moves"], res_p.objective))
+    print(f"  repeat with seed 0: {again_s.iterations} sweeps in {again_s_s:.4f} s "
+          f"({again_s_s / max(again_s.iterations, 1) * 1e3:.4f} ms a sweep), digest "
+          f"{assignment_digest(again_s.assignment)}, the same {same_s}; injected host noise: "
+          f"kernel {res_k.iterations} sweeps, objective {res_k.objective:.6f}, plain "
+          f"move_delta_cost on the card {res_p.iterations} sweeps, objective "
+          f"{res_p.objective:.6f}, the same trajectory {same_p}", flush=True)
+    if not same_s:
+        raise AssertionError("a repeat of the sampled solve with its seed gave another mapping")
+    if not same_p:
+        raise AssertionError("the sampled solve through the kernel left the plain path's "
+                             "trajectory")
+    prof_s = device_profile(lambda: solve_local(
+        pp, LocalSearchConfig(temperature=SAMPLED_TAU, seed=0, max_iters=PROFILE_SWEEPS),
+        device=dev))
+    print(solve_profile_line(f"  profile: {PROFILE_SWEEPS} sampled sweeps", prof_s), flush=True)
+
+    # -- 3e. agreement with the plain path on a small input ----------------------
     small = generate_cluster(num_apps=300, seed=3, device="cpu")
     cfg = CoopConfig(max_rounds=8, timeout_s=1e9)
     d_cpu = Sptlb(small, device="cpu").balance("local", timeout_s=4, config=cfg)
@@ -1610,9 +1740,12 @@ def main() -> int:
          "bound_by": main_sweep["move_eval_best"]["bound_by"], "library_ms": None},
         {"name": "move_eval", "route": "cuda", "source": MOVE_EVAL_SRC,
          "replaces": "src/repro/kernels/move_eval.py:241",
-         "launches": unfused_launches["move_eval"],
+         "launches": sampled_launches["move_eval"] + unfused_launches["move_eval"],
+         "launches_by_path": {"sampled": sampled_launches["move_eval"],
+                              "unfused": unfused_launches["move_eval"]},
          "max_abs_err": record["move_eval"]["max_abs_err"],
          "ms": main_sweep["move_eval"]["ms"],
+         "whole_call_ms": main_sweep["move_eval"]["whole_call_ms"],
          "plain_ms": main_sweep["move_eval"]["plain_ms"],
          "bound_ms": main_sweep["move_eval"]["bound_ms"],
          "bound_by": main_sweep["move_eval"]["bound_by"], "library_ms": None},

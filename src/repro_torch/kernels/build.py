@@ -40,7 +40,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "move_eval": {
         "move_eval_best_launch": [_I, _I, _I] + [_P] * 22,
-        "move_eval_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+        "move_eval_launch": [_I, _I, _I] + [_P] * 19,
     },
     "commit": {
         "commit_topk_launch": [_I, _I, _I] + [_P] * 17 + [_F, _F, _P, _P],

@@ -13,25 +13,30 @@
 // budget, no self-move, and reduces each app to (best score, best tier), ties
 // to the lowest tier and +inf / tier 0 where nothing is feasible.
 //
-// Design.  Both kernels stage the T-sized tier table (fractions, capacities,
-// their inverses, ideals, the means and the weights) in shared memory.  The
-// best kernel reads the function's own per-app inputs (demand, tasks,
-// criticality, the two assignments, feasible) and gathers each app's
-// source-side quantities from the staged table by its source tier
-// (gather_app); the two N-sized totals come from the caller.  At T <= 8 one
-// thread serves one app and walks the tiers in order with a strict '<'
-// (lowest tier among equals), so a warp's loads are 32 consecutive apps and
-// no lane idles.  At larger T a group of G lanes (G = the power of two >= T,
-// capped at 32) serves one app: lane j evaluates tiers j, j+G, ..., and the
-// group reduces with xor shuffles, again preferring the lower tier on equal
-// scores.  move_eval_kernel still reads the [N, 5R+7] row that
-// kernels/move_eval.py::prepare builds (load_app).  feasible is read as
-// bytes, not padded floats, and tiers are not padded to the TPU's 128 lanes.
+// Design.  Both kernels read the function's own per-app inputs (demand,
+// tasks, criticality, the two assignments; the best kernel also feasible)
+// and stage the T-sized tier table (fractions, capacities, their inverses,
+// ideals, the means and the weights) in shared memory; each app's
+// source-side quantities are gathered from the staged table by its source
+// tier (gather_app); the two N-sized totals come from the caller.  At T <= 8
+// one thread serves one app and walks the tiers in order, so a warp's loads
+// are 32 consecutive apps and no lane idles: the best kernel keeps a strict
+// '<' (lowest tier among equals); the full sweep pins the self-move to 0,
+// computes the other T - 1 deltas (every lane the same count) into a
+// shared [apps, T] tile, and the block stores the tile as one contiguous
+// span with 16-byte stores.  At larger T a group of G lanes (G = the power
+// of two >= T, capped at 32) serves one app: lane j evaluates tiers j, j+G,
+// ...; the best kernel reduces the group with xor shuffles, again
+// preferring the lower tier on equal scores, and the full sweep's lanes
+// store tier j of an app beside tier j+1, so its stores are already
+// contiguous.  feasible is read as bytes, not padded floats, and tiers are
+// not padded to the TPU's 128 lanes.
 //
 // Bound on this card: per app the best function reads R+2 four-byte values,
-// two tier ids and T feasibility bytes and writes 8 bytes; about 94 f32
-// operations per (app, tier) at R = 2.  At T = 5 the bytes bound it, at
-// T = 128 the f32 operations (see PERF.md).
+// two tier ids and T feasibility bytes and writes 8 bytes; the full sweep
+// reads the same values but feasible and writes T floats (44 bytes an app at
+// R = 2, T = 5); about 94 f32 operations per (app, tier) at R = 2.  At T = 5
+// the bytes bound both, at T = 128 the f32 operations (see PERF.md).
 //
 // Numerics.  At fleet scale an app's delta is tiny beside the tier fractions,
 // so f'^2 - f^2 cancels: one ulp of difference in f' shows as ~1e-4 of the
@@ -39,16 +44,16 @@
 // one for one — d / C by division, not d * (1/C) as the Pallas kernel does —
 // and are compiled with -fmad=false, so each operation rounds on its own as
 // the separate elementwise ops do.  Only the fit test keeps the kernel's own
-// load-fraction form (f_dst + dC <= 1 + FEAS_TOL * inv_cap).
+// load-fraction form (f_dst + dC <= 1 + FEAS_TOL * inv_cap).  One operation
+// differs: on a card the plain version's `/ T` (a host scalar) is a multiply
+// by the reciprocal, where the kernels divide; the two quotients part at the
+// last bit, but mean + d_mean absorbs that at every shape checked (PERF.md).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #define FEAS_TOL 1e-6f
 #define MAX_R 4
-// app row layout [N, 5R + 7] (move_eval_kernel): f_src[R], f_src_new[R],
-// dC_src[R], ideal_src[R], demand[R], g_src, g_src_new, dK_src, gideal_src,
-// k, mc, cc
 // tier layout [4R + 4, T]: f[R], cap[R], inv_cap[R], ideal[R], g, klim,
 // inv_klim, gideal
 // consts [R + 1 + 5]: mean_f[R], mean_g, w[5]
@@ -63,22 +68,6 @@ struct AppRow {
   float g_src, g_src_new, dK_src, gideal_src, k, mc, cc;
   int a_src, a0;
 };
-
-__device__ __forceinline__ void load_app(AppRow& a, const float* row, int R) {
-#pragma unroll
-  for (int r = 0; r < MAX_R; ++r) {
-    if (r < R) {
-      a.f_src[r] = row[r];
-      a.f_src_new[r] = row[R + r];
-      a.dC_src[r] = row[2 * R + r];
-      a.ideal_src[r] = row[3 * R + r];
-      a.demand[r] = row[4 * R + r];
-    }
-  }
-  const float* s = row + 5 * R;
-  a.g_src = s[0]; a.g_src_new = s[1]; a.dK_src = s[2]; a.gideal_src = s[3];
-  a.k = s[4]; a.mc = s[5]; a.cc = s[6];
-}
 
 // The delta of moving app `a` to tier t, and whether t has the headroom.
 // Operation order follows core/delta.py::move_delta_cost term by term.
@@ -133,14 +122,10 @@ __device__ __forceinline__ float pair_delta(const AppRow& a, int t, int T, int R
          + w[3] * (d_moved * a.mc) + w[4] * (d_moved * a.cc);
 }
 
-__device__ __forceinline__ void stage_tiers(float* sm, const float* tier, int count) {
-  for (int i = threadIdx.x; i < count; i += blockDim.x) sm[i] = tier[i];
-  __syncthreads();
-}
-
-// The best kernel's inputs: the function's own per-app arrays and scalars,
-// and the per-tier arrays (the caller's inputs and the wrapper's tier
-// statistics f, g, their means and the two inverses).
+// Both kernels' inputs: the function's own per-app arrays and scalars (the
+// full sweep leaves feasible and moves_left null), and the per-tier arrays
+// (the caller's inputs and the wrapper's tier statistics f, g, their means
+// and the two inverses).
 struct BestApps {
   const float *demand, *tasks, *crit;
   const int *a_src, *a0;
@@ -250,28 +235,62 @@ move_eval_best_kernel(int N, int T, int R, int G, BestApps apps, BestTiers tiers
   }
 }
 
-__global__ void move_eval_kernel(int N, int T, int R, int G,
-                                 const float* __restrict__ app,
-                                 const int* __restrict__ a_src,
-                                 const int* __restrict__ a0,
-                                 const float* __restrict__ tier,
-                                 const float* __restrict__ consts,
-                                 float* __restrict__ delta) {
+// Floats of the staged tier table, rounded up to a whole 16 bytes so that
+// the full sweep's tile after it can be read as float4.
+__host__ __device__ __forceinline__ int tier_table_floats(int T, int R) {
+  return ((4 * R + 4) * T + R + 6 + 3) & ~3;
+}
+
+// The full delta[N, T], self-moves 0; registers capped as the best kernel's.
+__global__ void __launch_bounds__(kThreads, 4)
+move_eval_kernel(int N, int T, int R, int G, BestApps apps, BestTiers tiers,
+                 float* __restrict__ delta) {
   extern __shared__ float sm_tier[];
-  stage_tiers(sm_tier, tier, (4 * R + 4) * T);
+  stage_best_tables(sm_tier, tiers, T, R);
+  const float* consts = sm_tier + (4 * R + 4) * T;
+  const float total_tasks = apps.totals[0], total_crit = apps.totals[1];
+  AppRow a;
+  bool fits;                               // the fit test: not part of delta
+  if (G == 1) {
+    // One thread an app; the block's [apps, T] tile is one contiguous span.
+    float* tile = sm_tier + tier_table_floats(T, R);
+    const int n0 = blockIdx.x * kThreads;
+    const int n = n0 + threadIdx.x;
+    if (n < N) {
+      a.a_src = apps.a_src[n];
+      a.a0 = apps.a0[n];
+      gather_app(a, n, T, R, apps, sm_tier, total_tasks, total_crit);
+      // Self-moves are pinned to 0; every lane walks the other T - 1 tiers
+      // in order, so no lane idles beside one that computes.
+      tile[threadIdx.x * T + a.a_src] = 0.0f;
+      for (int k = 0; k + 1 < T; ++k) {
+        int t = k + (k >= a.a_src ? 1 : 0);
+        tile[threadIdx.x * T + t] = pair_delta(a, t, T, R, sm_tier, consts, &fits);
+      }
+    }
+    __syncthreads();
+    // n0 * T floats is a multiple of 1024 bytes, so the span starts 16-byte
+    // aligned; a ragged last block stores its tail float by float.
+    const int count = min(kThreads, N - n0) * T;
+    float* out = delta + (size_t)n0 * T;
+    const int vec = count >> 2;
+    for (int i = threadIdx.x; i < vec; i += kThreads) {
+      reinterpret_cast<float4*>(out)[i] = reinterpret_cast<const float4*>(tile)[i];
+    }
+    for (int i = (vec << 2) + threadIdx.x; i < count; i += kThreads) out[i] = tile[i];
+    return;
+  }
   int gid = blockIdx.x * blockDim.x + threadIdx.x;
   int n = gid / G;
   int j = gid % G;
   if (n >= N) return;
-  AppRow a;
-  load_app(a, app + (size_t)n * (5 * R + 7), R);
-  a.a_src = a_src[n];
-  a.a0 = a0[n];
+  a.a_src = apps.a_src[n];
+  a.a0 = apps.a0[n];
+  gather_app(a, n, T, R, apps, sm_tier, total_tasks, total_crit);
   float* out = delta + (size_t)n * T;
   for (int t = j; t < T; t += G) {
-    bool fits;
     float d = pair_delta(a, t, T, R, sm_tier, consts, &fits);
-    out[t] = (t == a.a_src) ? 0.0f : d;    // self-moves pinned to 0
+    out[t] = (t == a.a_src) ? 0.0f : d;
   }
 }
 
@@ -312,17 +331,27 @@ extern "C" int move_eval_best_launch(int N, int T, int R, const void* demand, co
   return (int)cudaGetLastError();
 }
 
-extern "C" int move_eval_launch(int N, int T, int R, const void* app, const void* a_src,
-                                const void* a0, const void* tier, const void* consts,
-                                void* delta, void* stream) {
+extern "C" int move_eval_launch(int N, int T, int R, const void* demand, const void* tasks,
+                                const void* crit, const void* a_src, const void* a0,
+                                const void* totals, const void* capacity,
+                                const void* task_limit, const void* ideal_frac,
+                                const void* ideal_task_frac, const void* weights, const void* f,
+                                const void* g, const void* mean_f, const void* mean_g,
+                                const void* inv_cap, const void* inv_klim, void* delta,
+                                void* stream) {
   if (N == 0) return 0;
-  int G = group_width(T);
+  BestApps apps{(const float*)demand, (const float*)tasks, (const float*)crit,
+                (const int*)a_src, (const int*)a0, nullptr, nullptr, (const float*)totals};
+  BestTiers tiers{(const float*)capacity, (const float*)task_limit, (const float*)ideal_frac,
+                  (const float*)ideal_task_frac, (const float*)weights, (const float*)f,
+                  (const float*)g, (const float*)mean_f, (const float*)mean_g,
+                  (const float*)inv_cap, (const float*)inv_klim};
+  int G = (T <= kThreadPerAppMaxT) ? 1 : group_width(T);
   long long threads = (long long)N * G;
   int blocks = (int)((threads + kThreads - 1) / kThreads);
-  size_t smem = sizeof(float) * (size_t)(4 * R + 4) * T;
-  move_eval_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      N, T, R, G, (const float*)app, (const int*)a_src, (const int*)a0, (const float*)tier,
-      (const float*)consts, (float*)delta);
+  size_t smem = sizeof(float) * ((size_t)tier_table_floats(T, R) + (G == 1 ? kThreads * T : 0));
+  move_eval_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(N, T, R, G, apps, tiers,
+                                                                     (float*)delta);
   return (int)cudaGetLastError();
 }
 

@@ -3,15 +3,16 @@
 Replaces the Pallas TPU kernels ``move_eval_pallas`` and
 ``move_eval_best_pallas`` of ``repro/kernels/move_eval.py``.
 
-  * ``move_eval_best_cuda`` (the LocalSearch sweep) hands the kernel the
-    function's own inputs and a T-sized tier table (``tier_stats``: six
-    small torch ops); the kernel gathers each app's source-side quantities
-    itself.  The two N-sized totals come from the caller (``totals=``, as
-    ``solve_local`` computes them once a solve) or, when absent, from the
-    same two torch reductions as before.
-  * ``move_eval_cuda`` (the full delta[N, T]) keeps the reference's split:
-    ``prepare`` computes the O(N) source-side gathers in torch and the
-    kernel does the O(N*T) part.
+Both wrappers hand their kernel the function's own inputs and a T-sized
+tier table (``tier_stats``: six small torch ops); the kernel gathers each
+app's source-side quantities itself.  The two N-sized totals come from the
+caller (``totals=``, as ``solve_local`` computes them once a solve) or,
+when absent, from ``sweep_totals``.
+
+  * ``move_eval_best_cuda``: the LocalSearch top-k sweep, (score, tier) per
+    app.
+  * ``move_eval_cuda``: the full delta[N, T], which the sampled
+    (temperature > 0) LocalSearch sweep and the unfused path read.
 
 Unlike the TPU layout, tiers are not padded to 128 lanes and ``feasible``
 stays a bool[N, T] byte mask.
@@ -27,6 +28,9 @@ from repro_torch.kernels.build import check_launch, load_library
 
 MAX_RESOURCES = 4
 SMEM_LIMIT = 48 * 1024
+# csrc/move_eval.cu's kThreads and kThreadPerAppMaxT.
+THREADS = 256
+THREAD_PER_APP_MAX_T = 8
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape=None) -> None:
@@ -56,9 +60,11 @@ def sweep_totals(tasks, criticality) -> torch.Tensor:
 def prepare(demand, tasks, criticality, assignment, assignment0,
             capacity, task_limit, ideal_frac, ideal_task_frac,
             util, tier_tasks, weights):
-    """The full sweep's source-side precompute (the Pallas ``_prepare``
-    without its padding).  Returns (app f32[N, 5R+7], tier f32[4R+4, T],
-    consts f32[R+6]); every tensor contiguous on the inputs' device."""
+    """The full sweep's source-side precompute as the Pallas ``_prepare``
+    does it (without its padding): (app f32[N, 5R+7], tier f32[4R+4, T],
+    consts f32[R+6]).  No kernel reads it any more; it documents the tier
+    table that ``tier_stats`` feeds both kernels and the per-app quantities
+    that they gather themselves (``csrc/move_eval.cu::gather_app``)."""
     f, g, mean_f, mean_g, inv_cap, inv_klim = tier_stats(capacity, task_limit, util, tier_tasks)
 
     src = assignment.long()
@@ -84,57 +90,21 @@ def prepare(demand, tasks, criticality, assignment, assignment0,
     return app, tier, consts
 
 
-def prepare_launch(*args):
-    """Check the full sweep's arguments and run ``prepare``: the inputs of a
-    ``move_eval`` launch (N, T, R, app, tier, consts, assignment,
-    assignment0)."""
-    demand, assignment, assignment0, capacity = args[0], args[3], args[4], args[5]
-    N, R = demand.shape
-    T = capacity.shape[0]
-    if R > MAX_RESOURCES:
-        raise ValueError(f"at most {MAX_RESOURCES} resources, got {R}")
-    if 4 * (4 * R + 4) * T > SMEM_LIMIT:
-        raise ValueError(f"{T} tiers exceed the kernel's shared-memory staging")
-    for i, name in enumerate(("demand", "tasks", "criticality")):
-        _check(name, args[i], torch.float32)
-    _check("assignment", assignment, torch.int32, (N,))
-    _check("assignment0", assignment0, torch.int32, (N,))
-    for i, name in ((5, "capacity"), (6, "task_limit"), (7, "ideal_frac"),
-                    (8, "ideal_task_frac"), (9, "util"), (10, "tier_tasks"),
-                    (11, "weights")):
-        _check(name, args[i], torch.float32)
-    app, tier, consts = prepare(*args)
-    return N, T, R, app, tier, consts, assignment.contiguous(), assignment0.contiguous()
-
-
-def launch_move_eval(prepared) -> torch.Tensor:
-    """The ``move_eval`` kernel alone on ``prepare_launch``'s output."""
-    N, T, R, app, tier, consts, a_src, a0 = prepared
-    delta = torch.empty((N, T), dtype=torch.float32, device=app.device)
-    lib = load_library("move_eval")
-    code = lib.move_eval_launch(N, T, R, app.data_ptr(), a_src.data_ptr(), a0.data_ptr(),
-                                tier.data_ptr(), consts.data_ptr(), delta.data_ptr(),
-                                torch.cuda.current_stream(app.device).cuda_stream)
-    check_launch(lib, code, "move_eval")
-    return delta
-
-
-def move_eval_cuda(*args) -> torch.Tensor:
-    """delta f32[N, T] on the card (``core.delta.move_delta_cost`` semantics)."""
-    return launch_move_eval(prepare_launch(*args))
-
-
-def best_inputs(*args, totals=None) -> tuple:
-    """Check the fused sweep's arguments (``core.delta.move_best_per_app``'s
-    signature) and compute the tier table: the inputs of one
-    ``launch_move_eval_best``."""
+def _sweep_inputs(args, totals, full: bool) -> tuple:
+    """Check the 12 arguments both sweeps share (``core.delta.move_delta_cost``'s
+    signature) and the totals, and compute the tier table.  Returns (N, T, R,
+    per-app tensors, per-tier tensors, tier statistics).  ``full``: for the
+    full sweep, which also stages its output tile."""
     (demand, tasks, crit, assignment, assignment0, capacity, task_limit, ideal_frac,
-     ideal_task_frac, util, tier_tasks, weights, feasible, moves_left) = args
+     ideal_task_frac, util, tier_tasks, weights) = args
     N, R = demand.shape
     T = capacity.shape[0]
     if R > MAX_RESOURCES:
         raise ValueError(f"at most {MAX_RESOURCES} resources, got {R}")
-    if 4 * ((4 * R + 4) * T + R + 6) > SMEM_LIMIT:
+    # The full sweep aligns its [apps, T] tile to 16 bytes (up to 3 floats)
+    # and stages it when one thread serves an app; lane groups store directly.
+    tile = (3 + (THREADS * T if T <= THREAD_PER_APP_MAX_T else 0)) if full else 0
+    if 4 * ((4 * R + 4) * T + R + 6 + tile) > SMEM_LIMIT:
         raise ValueError(f"{T} tiers exceed the kernel's shared-memory staging")
     if totals is None:
         totals = sweep_totals(tasks, crit)
@@ -148,14 +118,53 @@ def best_inputs(*args, totals=None) -> tuple:
             ("ideal_frac", ideal_frac, torch.float32, (T, R)),
             ("ideal_task_frac", ideal_task_frac, torch.float32, (T,)),
             ("util", util, torch.float32, (T, R)), ("tier_tasks", tier_tasks, torch.float32, (T,)),
-            ("weights", weights, torch.float32, (5,)), ("feasible", feasible, torch.bool, (N, T)),
-            ("moves_left", moves_left, torch.int32, ()), ("totals", totals, torch.float32, (2,))):
+            ("weights", weights, torch.float32, (5,)), ("totals", totals, torch.float32, (2,))):
         _check(name, x, dtype, shape)
-    apps = tuple(x.contiguous() for x in (demand, tasks, crit, assignment, assignment0,
-                                          feasible, moves_left, totals))
+    apps = tuple(x.contiguous() for x in (demand, tasks, crit, assignment, assignment0, totals))
     tiers = tuple(x.contiguous() for x in (capacity, task_limit, ideal_frac, ideal_task_frac,
                                            weights))
     stats = tuple(x.contiguous() for x in tier_stats(capacity, task_limit, util, tier_tasks))
+    return N, T, R, apps, tiers, stats
+
+
+def eval_inputs(*args, totals=None) -> tuple:
+    """Check the full sweep's arguments (``core.delta.move_delta_cost``'s
+    signature) and compute the tier table: the inputs of one
+    ``launch_move_eval``."""
+    N, T, R, apps, tiers, stats = _sweep_inputs(args, totals, True)
+    return N, T, R, apps + tiers + stats
+
+
+def launch_move_eval(inputs) -> torch.Tensor:
+    """The ``move_eval`` kernel alone on ``eval_inputs``' output."""
+    N, T, R, tensors = inputs
+    dev = tensors[0].device
+    delta = torch.empty((N, T), dtype=torch.float32, device=dev)
+    lib = load_library("move_eval")
+    code = lib.move_eval_launch(N, T, R, *(x.data_ptr() for x in tensors), delta.data_ptr(),
+                                torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(lib, code, "move_eval")
+    return delta
+
+
+def move_eval_cuda(*args, totals=None) -> torch.Tensor:
+    """delta f32[N, T] on the card (``core.delta.move_delta_cost``
+    semantics); ``totals`` f32[2] as ``sweep_totals`` gives them, computed
+    here when absent."""
+    return launch_move_eval(eval_inputs(*args, totals=totals))
+
+
+def best_inputs(*args, totals=None) -> tuple:
+    """Check the fused sweep's arguments (``core.delta.move_best_per_app``'s
+    signature) and compute the tier table: the inputs of one
+    ``launch_move_eval_best``."""
+    N, T, R, apps, tiers, stats = _sweep_inputs(args[:12], totals, False)
+    feasible, moves_left = args[12:]
+    _check("feasible", feasible, torch.bool, (N, T))
+    _check("moves_left", moves_left, torch.int32, ())
+    demand, tasks, crit, assignment, assignment0, totals = apps
+    apps = (demand, tasks, crit, assignment, assignment0, feasible.contiguous(),
+            moves_left.contiguous(), totals)
     return N, T, R, apps + tiers + stats
 
 

@@ -28,11 +28,13 @@ def reset_launch_counts() -> None:
             counts[name] = 0
 
 
-def move_eval(*args):
-    """delta[N, T] — see core.delta.move_delta_cost for the signature."""
+def move_eval(*args, totals=None):
+    """delta[N, T] — see core.delta.move_delta_cost for the signature.
+    ``totals`` f32[2] = (clamp(sum(tasks), 1), clamp(sum(criticality), 1)),
+    when the caller has them; the plain version computes its own."""
     if args[0].is_cuda:
         from repro_torch.kernels.move_eval import move_eval_cuda
-        out = move_eval_cuda(*args)
+        out = move_eval_cuda(*args, totals=totals)
         launch_counts["move_eval"] += 1
         return out
     return _ref.move_eval_ref(*args)

@@ -6,9 +6,10 @@ package, so it also runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python3 -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances are those of the CPU parity tests: the sweep within scaled atol
-1e-5; the fused best with the same +inf set, scores within scaled 1e-5 and
-the same tiers except at ties (scaled gap < 1e-6; the kernel tests its fit
+Tolerances: the full sweep bit-identical to its plain version (so a
+sampled solve on the card follows the plain path's trajectory); the fused
+best with the same +inf set, scores within scaled 1e-5 and the same tiers
+except at ties (scaled gap < 1e-6; the kernel tests its fit
 in load-fraction space, the plain version in absolute units), and at its
 edge cases (``test_move_eval_best_kernel_gathers_its_own_inputs``)
 bit-identical to it; the commit scan and packing bit-identical.  The flash kernels within 3e-5 in f32 (the
@@ -48,22 +49,27 @@ def _assert_best(s_k, t_k, s_p, t_p, d_plain):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,T", [(300, 5), (500, 17), (4096, 128)])
+@pytest.mark.parametrize("N,T", [(300, 5), (500, 17), (4096, 128), (2049, 5), (1001, 17),
+                                 (257, 8), (259, 9), (3, 1)])
 def test_move_eval_kernels_match_plain_versions(cuda_device, N, T):
+    """The full sweep bit for bit, with the caller's totals and without, at
+    one thread an app (T <= 8: N not a multiple of the 256-app block, so the
+    last block's span ends off a 16-byte store) and lane groups (T > 8)."""
     args = random_problem_arrays(N, T, seed=N + T, device=cuda_device)
     feas = torch.as_tensor(np.random.default_rng(N).random((N, T)) > 0.2, device=cuda_device)
+    totals = torch.stack([args[1].sum().clamp(min=1.0), args[2].sum().clamp(min=1.0)])
     ops.reset_launch_counts()
     d_kernel = ops.move_eval(*args)
+    d_given = ops.move_eval(*args, totals=totals)
     d_plain = move_delta_cost(*args)
-    scale = float(d_plain.abs().max()) + 1e-9
-    assert float((d_kernel - d_plain).abs().max()) / scale <= 1e-5
+    assert torch.equal(d_kernel, d_plain) and torch.equal(d_given, d_plain)
     for ml in (0, 5):
         moves_left = torch.tensor(ml, dtype=torch.int32, device=cuda_device)
         s_k, t_k = ops.move_eval_best(*args, feas, moves_left)
         s_p, t_p = move_best_per_app(*args, feas, moves_left)
         _assert_best(s_k, t_k, s_p, t_p, d_plain)
     torch.cuda.synchronize()
-    assert ops.launch_counts["move_eval"] == 1
+    assert ops.launch_counts["move_eval"] == 2
     assert ops.launch_counts["move_eval_best"] == 2
 
 
@@ -161,6 +167,33 @@ def test_balance_on_the_card_goes_through_the_kernels(cuda_device):
     assert_rel(d.solve.objective, d_cpu.solve.objective, 1e-4, "objective")
     agree = float((d.assignment.cpu() == d_cpu.assignment).float().mean())
     assert agree >= 0.98, agree
+
+
+def _host_gumbel(sweep, size, device):
+    """Gumbel noise drawn on the host with numpy, one seed a sweep."""
+    noise = np.random.default_rng(sweep).gumbel(size=size).astype(np.float32)
+    return torch.as_tensor(noise, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau", [2.0 ** -10, 1.0])
+def test_sampled_solve_on_the_card_takes_the_plain_paths_trajectory(cuda_device, tau):
+    """N = 2,000, temperature > 0, the same injected noise: the move_eval
+    kernel's solve (one launch a sweep) and the solve through the plain
+    move_delta_cost on the card give the same assignment, sweeps and moves."""
+    p = P.generate_cluster(num_apps=2000, seed=4, device=cuda_device).problem
+    cfg = P.LocalSearchConfig(temperature=tau, seed=0, max_iters=256)
+    ops.reset_launch_counts()
+    rk = P.solve_local(p, cfg, gumbel_fn=_host_gumbel, device=cuda_device)
+    assert ops.launch_counts["move_eval"] == rk.iterations > 1
+    assert ops.launch_counts["move_eval_best"] == 0
+    rp = P.solve_local(p, cfg, move_eval_fn=move_delta_cost, gumbel_fn=_host_gumbel,
+                       device=cuda_device)
+    assert torch.equal(rk.assignment, rp.assignment)
+    assert (rk.iterations, rk.converged) == (rp.iterations, rp.converged)
+    assert rk.extra["committed_moves"] == rp.extra["committed_moves"] > 0
+    assert rk.objective == rp.objective
+    assert P.validate(p, rk.assignment).ok
 
 
 @pytest.mark.cuda

@@ -77,9 +77,6 @@ def test_unfused_sweep_path_agrees_with_the_fused_one(clusters):
 
 
 def test_unported_paths_raise():
-    p = P.generate_cluster(num_apps=32, seed=0, device="cpu").problem
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.solve_local(p, P.LocalSearchConfig(temperature=0.5), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine_fn("optimal", device="cpu")
 
