@@ -44,6 +44,19 @@ Phases (each raises on failure, so the script exits non-zero):
      card, ms a sweep and the idle share of a profiled sampled solve; and the
      N=300 pass on the card and on the CPU's plain path, which must agree
      (same rounds, objective within rel 1e-4, assignments >= 0.98 equal).
+     The optimal engine (phase 3f): ``_optimize`` on the card (256 Adam
+     steps at the padded N, ms a step, reproducible), ``optimal_round``
+     bit for bit against its plain version on that P (timed beside its
+     plain version, bytes bound and chain floor, and its whole ``_round``
+     call) and on seeded inputs (``kernels.optimal_round.round_case``: the
+     budget, capacity, tied rows binding and every move rejected, at
+     (131,072, 5, 2), (8,193, 5, 3), (1,001, 1, 1), (100,003, 17, 4)); the
+     N=100,000 ``balance("optimal", timeout_s=30)`` in manual_cnst and
+     no_cnst with the counts zeroed just before each (``optimal_round`` at
+     least once a round, ``move_eval_best`` and ``commit_topk``, and
+     ``pack_ffd_tiers`` for manual_cnst), valid, no worse than the start,
+     the same digest on a repeat; the N=300 optimal pass on the card
+     against the CPU's plain path; the idle share of the profiled solve.
   4. The dense serving slice: ``flash_attention`` and ``flash_decode`` against
      their plain versions at the serve path's shapes (prefill B=8, S=1024,
      H=16, KV=2, D=128 in bf16 and f32; a window + softcap case at D=256,
@@ -133,6 +146,13 @@ PACK_SRC = "src/repro_torch/kernels/csrc/pack.cu"
 FLASH_ATTENTION_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_DECODE_SRC = "src/repro_torch/kernels/csrc/flash_decode.cu"
 SSD_CHUNK_SRC = "src/repro_torch/kernels/csrc/ssd_chunk.cu"
+OPTIMAL_ROUND_SRC = "src/repro_torch/kernels/csrc/optimal_round.cu"
+# The optimal engine: the Adam steps timeout_s=30 maps to (TIMEOUT_BUDGETS),
+# and the synthetic rounding inputs held against the plain version
+# (N, T, R): the main path's shape, a tile edge plus one, no movers at
+# T = 1, and ragged N with 17 tiers and 4 resources.
+OPTIMAL_STEPS = 256
+ROUND_SHAPES = ((131_072, 5, 2), (8_193, 5, 3), (1_001, 1, 1), (100_003, 17, 4))
 # The serving slice: full-width qwen2.5-3b, 16 requests in waves of 8 slots,
 # prompts of 128-1024 tokens drawn from the seed, 32 new tokens each; the
 # cache holds the longest prompt, the new tokens and the reference CLI's 8
@@ -568,6 +588,84 @@ def check_pack(label, dem, capacity, hosts, pad, record, dev, *, clock_mhz, time
           f"{ms / max(b, floor):.3f}", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
             "chain_floor_ms": floor}
+
+
+def round_work(args, status) -> tuple[float, float, int]:
+    """(bytes, f32 ops, positions scanned) the rounding scan needs on these
+    inputs and this result: the order, target and home of every position
+    it must scan (all of them, or up to the last mover walked when the
+    budget ran out), each walked mover's demand, tasks and feasibility byte
+    and (R + 1) adds and compares, each accepted mover's assignment and
+    2 (R + 1) load updates, and the tier tables read and written once."""
+    import numpy as np
+
+    order, target, a0 = (args[i].cpu().numpy() for i in (0, 1, 5))
+    N, R = args[6].shape
+    T = args[8].shape[0]
+    accepted, walked = (int(v) for v in status.cpu().tolist())
+    movers = np.nonzero(target[order] != a0[order])[0]
+    spent = accepted == int(args[11].cpu())
+    scanned = int(movers[walked - 1]) + 1 if (spent and walked) else N
+    nbytes = (scanned * (8 + 8 + 4) + walked * (4 * R + 4 + 1) + accepted * 4
+              + T * (R + 1) * 4 * 3 + 8)
+    nops = walked * 2 * (R + 1) + accepted * 2 * (R + 1)
+    return float(nbytes), float(nops), scanned
+
+
+def check_round(label, args, record, *, clock_mhz, timed=False) -> dict:
+    """Hold the rounding kernel (launched directly, so it adds no count)
+    against its plain version on CPU copies of the same inputs (f32 adds
+    and compares round the same on both): status, assignment and tier loads
+    bit for bit.  When ``timed``, time both on the card and give the bytes
+    bound and the chain floor: the walk is a chain over the movers, so no
+    kernel can beat the movers walked times one dependent f32 add and
+    compare (8 cycles) at the card's highest SM clock."""
+    import torch
+    from repro_torch.kernels.optimal_round import optimal_round_cuda
+    from repro_torch.kernels.ref import optimal_round_ref
+
+    fixed = args[:2] + args[5:]
+
+    def fresh():
+        return (args[2].clone(), args[3].clone(), args[4].clone())
+
+    def call(fn, state):
+        return fn(*fixed[:2], *state, *fixed[2:])
+
+    state = fresh()
+    got = call(optimal_round_cuda, state)
+    cpu = [a.cpu().clone() for a in args]
+    want = optimal_round_ref(*cpu)
+    torch.cuda.synchronize()
+    if got.cpu().tolist() != want.tolist():
+        raise AssertionError(f"optimal_round {label}: status {got.tolist()} != {want.tolist()}")
+    for i, name in ((0, "assignment"), (1, "tier loads"), (2, "task counts")):
+        if not torch.equal(state[i].cpu(), cpu[2 + i]):
+            err = float((state[i].cpu().double() - cpu[2 + i].double()).abs().max())
+            raise AssertionError(f"optimal_round {label}: {name} differ, max abs {err:.3e}")
+    N, R = args[6].shape
+    T = args[8].shape[0]
+    accepted, walked = want.tolist()
+    movers = int((args[1] != args[5].long()).sum())
+    head = (f"optimal_round  {label:>22}: N={N} T={T} R={R} budget {int(args[11])}, movers "
+            f"{movers}, walked {walked}, accepted {accepted}, bit-identical")
+    if not timed:
+        print(head, flush=True)
+        return {"accepted": accepted, "walked": walked, "movers": movers}
+    pool = [fresh() for _ in range(24)]
+    ms = time_ms(lambda: call(optimal_round_cuda, pool.pop()))
+    plain_pool = [fresh() for _ in range(4)]
+    plain_ms = time_ms(lambda: call(optimal_round_ref, plain_pool.pop()), reps=3, warmup=1)
+    nbytes, nops, scanned = round_work(args, want)
+    b, by = bound_ms(nbytes, nops)
+    floor = walked * 8 / (clock_mhz * 1e6) * 1e3
+    cycles = ms * 1e-3 * clock_mhz * 1e6 / max(walked, 1)
+    print(f"{head}, kernel {ms:.4f} ms ({cycles:.1f} cycles a walked mover at {clock_mhz:.0f} "
+          f"MHz), plain {plain_ms:.2f} ms on the card (median of 3), bound {b:.6f} ms ({by}; "
+          f"{scanned} positions scanned), chain floor {floor:.4f} ms ({walked} movers x 8 "
+          f"cycles), kernel / max(bound, floor) {ms / max(b, floor):.3f}", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "chain_floor_ms": floor, "accepted": accepted, "walked": walked}
 
 
 def device_profile(fn) -> dict:
@@ -1346,6 +1444,117 @@ def hybrid_phase(dev, record) -> dict:
     return {**out, "times": times, "teacher_f32": tf32}
 
 
+def optimal_phase(cluster, pp, obj0: float, record, dev, *, clock_mhz) -> dict:
+    """Phase 3f.  (a) The rounding kernel bit for bit against its plain
+    version: on the main path's own P (the port's ``_optimize`` on the card,
+    256 steps at the padded N, timed a step) and on synthetic inputs
+    (``kernels.optimal_round.round_case``: every kind at the main path's
+    shape, then the other shapes of ``ROUND_SHAPES``), the main path's timed
+    beside its bound and chain floor.  (b) The N=100k optimal balance,
+    manual_cnst and no_cnst, each with the counts zeroed just before and read
+    just after and once more for its digest.  (c) The N=300 optimal balance
+    on the card against the CPU's plain path, and a profiled optimal solve."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (CoopConfig, OptimalSearchConfig, Sptlb, generate_cluster,
+                                  solve_optimal)
+    from repro_torch.core.solver_optimal import _optimize, _round, round_inputs, start_noise
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.optimal_round import ROUND_KINDS, round_case
+
+    cfg = OptimalSearchConfig(steps=OPTIMAL_STEPS, seed=0)
+    adam = dict(lr=cfg.lr, penalty=cfg.penalty, entropy=cfg.entropy)
+    noise = start_noise(pp, cfg.seed)
+    first = _optimize(pp, noise, steps=cfg.steps, **adam)      # warms the card's kernels
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    probs = _optimize(pp, noise, steps=cfg.steps, **adam)
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t
+    if not (torch.equal(first, probs) and bool(torch.isfinite(probs).all())):
+        raise AssertionError("_optimize on the card is not finite or not reproducible")
+    movers = int((probs.argmax(dim=1) != pp.assignment0.long()).sum())
+    print(f"optimal _optimize N={pp.num_apps}: {cfg.steps} Adam steps in {opt_s:.4f} s "
+          f"({opt_s / cfg.steps * 1e3:.4f} ms a step), argmax != home for {movers} apps, "
+          f"movement budget {int(pp.move_budget)}", flush=True)
+    main = check_round(f"main path N={pp.num_apps}", round_inputs(pp, probs), record,
+                       clock_mhz=clock_mhz, timed=True)
+    main["whole_call_ms"] = time_ms(lambda: _round(pp, probs))
+    print(f"  _round whole call (argmax, gain, stable sort, start loads, copies, kernel): "
+          f"{main['whole_call_ms']:.4f} ms", flush=True)
+    for N, T, R in ROUND_SHAPES:
+        for kind in ROUND_KINDS:
+            got = check_round(f"{kind} N={N},T={T},R={R}",
+                              round_case(N, T, R, kind, seed=N + T + R, device=dev), record,
+                              clock_mhz=clock_mhz)
+            if T > 1 and kind == "budget" and not got["walked"] < got["movers"]:
+                raise AssertionError(f"{kind} N={N}: the budget did not bind")
+            if T > 1 and kind in ("capacity", "overfull") and got["accepted"] == got["walked"]:
+                raise AssertionError(f"{kind} N={N}: capacity did not bind")
+            if T > 1 and kind == "ties" and got["accepted"] == 0:
+                raise AssertionError(f"{kind} N={N}: no move accepted")
+
+    runs = {}
+    for variant in ("manual_cnst", "no_cnst"):
+        coop = CoopConfig() if variant == "manual_cnst" else CoopConfig(variant="no_cnst")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        d = Sptlb(cluster, device=dev).balance("optimal", timeout_s=30, config=coop)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = dict(ops.launch_counts)
+        tm = d.cooperation.timings
+        digest = assignment_digest(d.assignment)
+        rep = Sptlb(cluster, device=dev).balance("optimal", timeout_s=30, config=coop)
+        same = (assignment_digest(rep.assignment) == digest
+                and rep.solve.objective == d.solve.objective)
+        obj = d.solve.objective
+        print(f"optimal slice {variant} N={cluster.problem.num_apps}: objective {obj0:.6f} -> "
+              f"{obj:.6f}, violations ok {d.violations.ok}, rounds {tm['rounds']}, refine sweeps "
+              f"{d.solve.extra['refine']['sweeps']}, moved {d.violations.num_moved}/"
+              f"{d.violations.move_budget}, solve_s {tm['solve_s']:.4f}, pack_s "
+              f"{tm.get('pack_s', 0.0):.4f}, balance wall {wall:.4f} s, digest {digest}, repeat "
+              f"the same {same}, launches {launches}", flush=True)
+        if not d.violations.ok:
+            raise AssertionError(f"optimal {variant}: violations {d.violations}")
+        if not (np.isfinite(obj) and obj <= obj0):
+            raise AssertionError(f"optimal {variant}: objective {obj} is not <= the start {obj0}")
+        if launches["optimal_round"] < tm["rounds"]:
+            raise AssertionError(f"optimal {variant}: optimal_round launched "
+                                 f"{launches['optimal_round']} times in {tm['rounds']} rounds")
+        need = ("move_eval_best", "commit_topk") + (
+            ("pack_ffd_tiers",) if variant == "manual_cnst" else ())
+        for name in need:
+            if launches[name] <= 0:
+                raise AssertionError(f"optimal {variant}: launched {name} no time")
+        if not same:
+            raise AssertionError(f"optimal {variant}: a repeat pass gave another mapping")
+        runs[variant] = {"wall_s": wall, "launches": launches, "rounds": tm["rounds"]}
+
+    # (c) agreement with the plain path on a small input, as phase 3e.
+    small = generate_cluster(num_apps=300, seed=3, device="cpu")
+    coop = CoopConfig(max_rounds=8, timeout_s=1e9)
+    d_cpu = Sptlb(small, device="cpu").balance("optimal", timeout_s=4, config=coop)
+    d_gpu = Sptlb(small, device=dev).balance("optimal", timeout_s=4, config=coop)
+    agree = float((d_gpu.assignment.cpu() == d_cpu.assignment).float().mean())
+    rel = abs(d_gpu.solve.objective - d_cpu.solve.objective) / abs(d_cpu.solve.objective)
+    rounds = (d_gpu.cooperation.timings["rounds"], d_cpu.cooperation.timings["rounds"])
+    print(f"optimal small N=300 seed=3: card objective {d_gpu.solve.objective:.6f}, plain path "
+          f"{d_cpu.solve.objective:.6f}, rel diff {rel:.3e}, rounds {rounds[0]}/{rounds[1]}, "
+          f"assignment agreement {agree:.4f}, violations ok "
+          f"{d_gpu.violations.ok}/{d_cpu.violations.ok}", flush=True)
+    if not (d_gpu.violations.ok and d_cpu.violations.ok and rel <= 1e-4
+            and rounds[0] == rounds[1] and agree >= 0.98):
+        raise AssertionError("the card's optimal balance disagrees with the plain path at N=300")
+
+    prof = device_profile(lambda: solve_optimal(pp, cfg, device=dev))
+    print(solve_profile_line(f"profile: the main path's optimal solve ({cfg.steps} Adam steps, "
+                             f"the rounding, a {max(32, cfg.steps // 4)}-sweep refine) at "
+                             f"N={pp.num_apps}", prof), flush=True)
+    return {"main": main, "runs": runs, "ms_a_step": opt_s / cfg.steps * 1e3}
+
+
 def host_gumbel(sweep: int, size: int, device):
     """Gumbel noise drawn on the host with numpy (one seed a sweep), for the
     sampled solve's ``gumbel_fn``."""
@@ -1481,7 +1690,8 @@ def main() -> int:
               "pack_ffd_tiers": {"max_abs_err": 0.0},
               "flash_attention": {"max_abs_err": 0.0},
               "flash_decode": {"max_abs_err": 0.0},
-              "ssd_chunk": {"max_abs_err": 0.0}}
+              "ssd_chunk": {"max_abs_err": 0.0},
+              "optimal_round": {"max_abs_err": 0.0}}
 
     # -- 2a. sweep kernels at the stated shapes --------------------------------
     for N, T in ((300, 5), (500, 17), (100_000, 5), (100_000, 128)):
@@ -1717,6 +1927,9 @@ def main() -> int:
             and rounds[0] == rounds[1] and agree >= 0.98):
         raise AssertionError("the card's balance disagrees with the plain path at N=300")
 
+    # -- 3f. the optimal engine: its rounding kernel, then the N=100k pass -------
+    optimal = optimal_phase(cluster, pp, obj0, record, dev, clock_mhz=clock)
+
     # -- 4. the serving slice: qwen2.5-3b at full width --------------------------
     serving = serving_phase(dev, record)
     fa, fd = serving["times"]["prefill_main"], serving["times"]["decode_main"]
@@ -1781,6 +1994,16 @@ def main() -> int:
          "max_abs_err": record["ssd_chunk"]["max_abs_err"],
          "ms": ssd["ms"], "plain_ms": ssd["plain_ms"], "bound_ms": ssd["bound_ms"],
          "bound_by": ssd["bound_by"], "library_ms": ssd["library_ms"]},
+        {"name": "optimal_round", "route": "cuda", "source": OPTIMAL_ROUND_SRC,
+         "replaces": "src/repro/core/solver_optimal.py:138",
+         "launches": sum(r["launches"]["optimal_round"] for r in optimal["runs"].values()),
+         "launches_by_path": {v: r["launches"]["optimal_round"]
+                              for v, r in optimal["runs"].items()},
+         "max_abs_err": record["optimal_round"]["max_abs_err"],
+         "ms": optimal["main"]["ms"], "whole_call_ms": optimal["main"]["whole_call_ms"],
+         "plain_ms": optimal["main"]["plain_ms"],
+         "bound_ms": optimal["main"]["bound_ms"], "bound_by": optimal["main"]["bound_by"],
+         "chain_floor_ms": optimal["main"]["chain_floor_ms"], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -16,6 +16,7 @@ from repro_torch.core.problem import (GoalWeights, Problem, bucket_size,
                                       make_problem, pad_problem, tier_loads,
                                       utilization_fraction)
 from repro_torch.core.solver_local import LocalSearchConfig, SolveResult, solve_local
+from repro_torch.core.solver_optimal import OptimalSearchConfig, solve_optimal
 from repro_torch.core.sptlb import BalanceDecision, Sptlb, engine_fn
 from repro_torch.core.telemetry import (ClusterState, ResourceMonitor,
                                         generate_cluster, shard_affinity_of)
@@ -30,6 +31,7 @@ __all__ = [
     "PlannerConfig", "PlanOutlook", "move_costs", "movement_cost_of",
     "GoalWeights", "Problem", "bucket_size", "make_problem", "pad_problem",
     "tier_loads", "utilization_fraction", "LocalSearchConfig", "SolveResult",
-    "solve_local", "BalanceDecision", "Sptlb", "engine_fn", "ClusterState",
+    "solve_local", "OptimalSearchConfig", "solve_optimal", "BalanceDecision", "Sptlb",
+    "engine_fn", "ClusterState",
     "ResourceMonitor", "generate_cluster", "shard_affinity_of",
 ]

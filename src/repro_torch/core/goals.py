@@ -1,9 +1,9 @@
 """Goal terms (paper §3.2.1, items 5-9) and the scalarized objective.
 
-The PyTorch counterpart of ``repro.core.goals`` (the hard-assignment
-objective; the soft relaxation belongs to the optimal engine, which is not
-ported yet).  Each term is a function of (problem, assignment); lower is
-better.
+The PyTorch counterpart of ``repro.core.goals``: the hard-assignment
+objective, each term a function of (problem, assignment), and its soft
+relaxation over a row-stochastic P[N, T] (``soft_objective``), which the
+optimal engine differentiates.  Lower is better.
 """
 from __future__ import annotations
 
@@ -78,4 +78,48 @@ def objective(problem: Problem, assignment: torch.Tensor) -> torch.Tensor:
            + w.criticality * terms["criticality"])
     if problem.has_utility:
         obj = obj + FLEET_UTILITY_WEIGHT * terms["utility_shortfall"]
+    return obj
+
+
+def soft_objective(problem: Problem, probs: torch.Tensor) -> torch.Tensor:
+    """Relaxed objective over a row-stochastic assignment matrix P[N, T]:
+    the hard goals' expectations under independent per-app categoricals.
+
+    Used by OptimalSearch (``solver_optimal.py``) under autograd.  Its
+    hinges are ``torch.maximum`` against 0, as the reference's
+    ``jnp.maximum``: at a tie both give each side half the gradient.
+    """
+    zero = probs.new_zeros(())
+    util = probs.T @ problem.demand                      # [T, R] expected load
+    tasks = probs.T @ problem.tasks                      # [T]
+    util_frac = util / problem.capacity
+    task_frac = tasks / problem.task_limit
+
+    over = torch.maximum(util_frac - problem.ideal_frac, zero)
+    over_t = torch.maximum(task_frac - problem.ideal_task_frac, zero)
+    under_ideal = torch.sum(over * over) + torch.sum(over_t * over_t)
+
+    mean_frac = torch.mean(util_frac, dim=0, keepdim=True)
+    resource_balance = torch.sum((util_frac - mean_frac) ** 2)
+    task_balance = torch.sum((task_frac - torch.mean(task_frac)) ** 2)
+
+    # P(move) = 1 - P[n, x0_n]
+    stay = torch.gather(probs, 1, problem.assignment0.long()[:, None])[:, 0]
+    moved = 1.0 - stay
+    total_tasks = torch.clamp(torch.sum(problem.tasks), min=1.0)
+    movement_cost = torch.sum(moved * problem.tasks) / total_tasks
+    total_crit = torch.clamp(torch.sum(problem.criticality), min=1.0)
+    criticality = torch.sum(moved * problem.criticality) / total_crit
+
+    w = problem.weights
+    obj = (w.under_ideal * under_ideal
+           + w.resource_balance * resource_balance
+           + w.task_balance * task_balance
+           + w.movement_cost * movement_cost
+           + w.criticality * criticality)
+    if problem.has_utility:
+        # Expected delivered fraction: each app's categorical mixes the
+        # tiers' fair-throttle factors.
+        delivered = probs @ tier_delivery_factor(util_frac)
+        obj = obj + FLEET_UTILITY_WEIGHT * _utility_shortfall(problem, delivered)
     return obj

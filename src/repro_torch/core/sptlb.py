@@ -29,6 +29,7 @@ from repro_torch.core.levels import CoopConfig, Hierarchy
 from repro_torch.core.planner import PlanOutlook, movement_cost_of
 from repro_torch.core.problem import Problem, bucket_size, pad_problem
 from repro_torch.core.solver_local import LocalSearchConfig, SolveResult, solve_local
+from repro_torch.core.solver_optimal import OptimalSearchConfig, solve_optimal
 from repro_torch.core.telemetry import ClusterState
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
@@ -72,7 +73,8 @@ def engine_fn(engine: Engine, timeout_s: int = 30, seed: int = 0,
     """Build a solve_fn(problem, init_assignment=None) for the chosen engine.
 
     ``init_assignment`` warm-starts re-solves inside the manual_cnst feedback
-    loop (engines without warm-start support ignore it).  ``batch_moves``
+    loop (engines without warm-start support, ``optimal`` and the greedy
+    baselines, ignore it, as the reference's do).  ``batch_moves``
     overrides the top-k commit batch of the LocalSearch paths (None keeps the
     config default); ``bucket_apps`` pads the app axis to power-of-two
     buckets as the reference does; ``device`` is where the engine solves.
@@ -88,9 +90,13 @@ def engine_fn(engine: Engine, timeout_s: int = 30, seed: int = 0,
 
         return _bucketed(fn) if bucket_apps else fn
     if engine == "optimal":
-        raise NotImplementedError(
-            "the 'optimal' engine (core/solver_optimal.py) is not ported yet: "
-            "ROADMAP Queue 1, 'OptimalSearch engine'")
+        kw = {} if batch_moves is None else {"batch_moves": batch_moves}
+        ocfg = OptimalSearchConfig(steps=budget, seed=seed, **kw)
+
+        def fn(p, init_assignment=None):
+            return solve_optimal(p, ocfg, device=device)
+
+        return _bucketed(fn) if bucket_apps else fn
     if engine.startswith("greedy-"):
         # Host-side numpy: never bucketed.
         obj = engine.split("-", 1)[1]

@@ -15,10 +15,14 @@ import torch
 
 def utility_of(delivered, knee, slope, weight) -> torch.Tensor:
     """Evaluate the curve family elementwise; ``slope = +inf`` is the exact
-    step curve (the deficit == 0 branch is selected before inf*0 appears)."""
-    deficit = torch.clamp(knee - delivered, min=0.0)
-    loss = torch.where(deficit > 0.0, slope * deficit, torch.zeros_like(deficit))
-    return weight * torch.clamp(1.0 - loss, 0.0, 1.0)
+    step curve (the deficit == 0 branch is selected before inf*0 appears).
+    The hinge and the clip are ``torch.maximum`` / ``torch.minimum``, as the
+    reference's ``jnp.maximum`` / ``jnp.clip``, so that the soft objective's
+    gradient splits at a tie as the reference's does."""
+    zero = delivered.new_zeros(())
+    deficit = torch.maximum(knee - delivered, zero)
+    loss = torch.where(deficit > 0.0, slope * deficit, zero)
+    return weight * torch.minimum(torch.maximum(1.0 - loss, zero), zero + 1.0)
 
 
 def tier_delivery_factor(util_frac: torch.Tensor) -> torch.Tensor:

@@ -28,10 +28,11 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# Per-source extra flags: the move_eval and commit kernels round every
-# operation on its own (no fused multiply-add), as the plain torch version's
-# ops do.
-EXTRA_FLAGS = {"move_eval": ["-fmad=false"], "commit": ["-fmad=false"], "pack": [],
+# Per-source extra flags: the move_eval, commit and optimal_round kernels
+# round every operation on its own (no fused multiply-add), as the plain
+# torch version's ops do.
+EXTRA_FLAGS = {"move_eval": ["-fmad=false"], "commit": ["-fmad=false"],
+               "optimal_round": ["-fmad=false"], "pack": [],
                "flash_attention": [], "flash_decode": [], "ssd_chunk": []}
 
 _P = ctypes.c_void_p
@@ -44,6 +45,9 @@ SIGNATURES = {
     },
     "commit": {
         "commit_topk_launch": [_I, _I, _I] + [_P] * 17 + [_F, _F, _P, _P],
+    },
+    "optimal_round": {
+        "optimal_round_launch": [_I, _I, _I] + [_P] * 14,
     },
     "pack": {
         "pack_ffd_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P],

@@ -16,7 +16,7 @@ from typing import Optional
 from repro_torch.kernels import ref as _ref
 
 launch_counts = {"move_eval": 0, "move_eval_best": 0, "commit_topk": 0, "pack_ffd_tiers": 0,
-                 "flash_attention": 0, "flash_decode": 0, "ssd_chunk": 0}
+                 "optimal_round": 0, "flash_attention": 0, "flash_decode": 0, "ssd_chunk": 0}
 
 
 def reset_launch_counts() -> None:
@@ -63,6 +63,18 @@ def commit_topk(*args, neg_tol: float, batch_quality: float):
         launch_counts["commit_topk"] += 1
         return out
     return _ref.commit_topk_ref(*args, neg_tol=neg_tol, batch_quality=batch_quality)
+
+
+def optimal_round(*args):
+    """OptimalSearch's rounding scan, in place -> status i32[2] =
+    (accepted, movers walked); see kernels.ref.optimal_round_ref for the
+    signature."""
+    if args[0].is_cuda:
+        from repro_torch.kernels.optimal_round import optimal_round_cuda
+        out = optimal_round_cuda(*args)
+        launch_counts["optimal_round"] += 1
+        return out
+    return _ref.optimal_round_ref(*args)
 
 
 def pack_ffd_tiers(demand_sorted, capacity, hosts_per_tier, *, num_hosts_pad: int):

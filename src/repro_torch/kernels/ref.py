@@ -76,6 +76,45 @@ def commit_topk_ref(cand_n, best_s, best_t, x, util, tier_tasks, demand, tasks,
     return status
 
 
+def optimal_round_ref(order, target, x, util, tier_tasks, assignment0, demand, tasks,
+                      capacity, task_limit, feas, budget) -> torch.Tensor:
+    """OptimalSearch's confidence-ordered rounding scan.
+
+    ``order`` (i64[N]) lists the apps most confident first; ``target``
+    (i64[N]) is each app's argmax tier.  Only movers (target != home) can
+    change anything, so the scan walks them in that order: each is moved if
+    the destination is feasible (``feas[n, t]``), its loads stay within
+    capacity and task limit plus the literal 1e-6 (f32), and the movement
+    budget (i32[]) is positive; it stops once the budget is spent.  ``x``,
+    ``util`` and ``tier_tasks`` are updated in place (util[src] + (-d),
+    then util[t] + d, in f32).  Returns status i32[2] = (accepted, movers
+    walked).
+    """
+    tol = torch.tensor(1e-6, dtype=torch.float32, device=capacity.device)
+    cap_tol, lim_tol = capacity + tol, task_limit + tol
+    home = assignment0[order].to(torch.int64)
+    movers = order[target[order] != home]
+    left = int(budget)
+    accepted = walked = 0
+    for n, t, src in zip(movers.tolist(), target[movers].tolist(),
+                         assignment0[movers].tolist()):
+        if left <= 0:
+            break
+        walked += 1
+        d, k = demand[n], tasks[n]
+        if not (bool(feas[n, t]) and bool(torch.all(util[t] + d <= cap_tol[t]))
+                and bool(tier_tasks[t] + k <= lim_tol[t])):
+            continue
+        x[n] = t
+        util[src] = util[src] + (-d)
+        util[t] = util[t] + d
+        tier_tasks[src] = tier_tasks[src] + (-k)
+        tier_tasks[t] = tier_tasks[t] + k
+        left -= 1
+        accepted += 1
+    return torch.tensor([accepted, walked], dtype=torch.int32, device=x.device)
+
+
 def pack_ffd_tiers_ref(demand_sorted: torch.Tensor, capacity: torch.Tensor,
                        hosts_per_tier: torch.Tensor, *, num_hosts_pad: int) -> torch.Tensor:
     """First-fit scan of each tier's pre-sorted items, batched over tiers.

@@ -133,3 +133,38 @@ def test_unported_shedding_is_refused(clusters):
     _, ct = clusters
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P.Sptlb(ct, device="cpu").balance("local", config=P.CoopConfig(shed=object()))
+
+
+@pytest.mark.parametrize("mode", ["reject_all", "raise"])
+def test_tripped_breakers_match_reference(clusters, mode):
+    """The host level wrapped in the reference's ``FaultyLevel`` (it
+    duck-types over the port's levels), four passes on one board: the
+    breaker trips and the later passes bypass the level, the same in both
+    packages — assignments, rounds, objectives and board snapshots."""
+    from repro.core.levels import level_factory as ref_level_factory
+    from repro.sim.events import FaultyLevel
+    from repro_torch.core.levels import level_factory
+
+    def faulty(factory):
+        return (factory("region"), lambda cluster: FaultyLevel(factory("host")(cluster), mode))
+
+    cj, ct = clusters
+    hj, ht = R.Hierarchy(faulty(ref_level_factory)), P.Hierarchy(faulty(level_factory))
+    board_j, board_t = R.BreakerBoard(), BreakerBoard()
+    cfg = dict(max_rounds=2, timeout_s=1e9)
+    for i in range(4):
+        dj = R.Sptlb(cj).balance("local", timeout_s=4, hierarchy=hj,
+                                 config=R.CoopConfig(breakers=board_j, **cfg))
+        dt = P.Sptlb(ct, device="cpu").balance("local", timeout_s=4, hierarchy=ht,
+                                               config=P.CoopConfig(breakers=board_t, **cfg))
+        snap_j, snap_t = dj.cooperation.timings.breakers, dt.cooperation.timings.breakers
+        print(f"{mode} pass {i}: moved {dt.violations.num_moved}, rounds "
+              f"{dt.cooperation.timings['rounds']}, bypassed {snap_t['bypassed']}, trips "
+              f"{snap_t['trips']}")
+        assert np.array_equal(np.asarray(dj.assignment), host(dt.assignment))
+        assert dt.cooperation.timings["rounds"] == dj.cooperation.timings["rounds"]
+        assert_rel(dt.solve.objective, dj.solve.objective, 1e-6, f"pass {i} objective")
+        assert snap_t == snap_j
+    assert board_t.snapshot() == board_j.snapshot()
+    assert board_t.trips == board_j.trips > 0
+    assert snap_t["bypassed"] == ["host"]

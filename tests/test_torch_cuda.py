@@ -12,7 +12,8 @@ best with the same +inf set, scores within scaled 1e-5 and the same tiers
 except at ties (scaled gap < 1e-6; the kernel tests its fit
 in load-fraction space, the plain version in absolute units), and at its
 edge cases (``test_move_eval_best_kernel_gathers_its_own_inputs``)
-bit-identical to it; the commit scan and packing bit-identical.  The flash kernels within 3e-5 in f32 (the
+bit-identical to it; the commit scan, packing and the optimal engine's
+rounding scan bit-identical.  The flash kernels within 3e-5 in f32 (the
 reference's flash tolerance) and, in bf16, within atol 2e-3 and rtol 2^-7:
 kernel and plain version both compute in f32 and round the output once, so
 they part by at most one bf16 ulp; rounding the probabilities to bf16 would
@@ -27,9 +28,11 @@ import torch
 import repro_torch.core as P
 from repro_torch.core.delta import move_best_per_app, move_delta_cost
 from repro_torch.kernels import ops
+from repro_torch.kernels.optimal_round import ROUND_KINDS, round_case
 from repro_torch.kernels.pack import pack_edge_cases, pack_ffd, pack_ffd_tiers
 from repro_torch.kernels.ref import (commit_topk_ref, flash_attention_ref, flash_decode_ref,
-                                    pack_ffd_tiers_ref, random_problem_arrays, ssd_chunk_ref)
+                                    optimal_round_ref, pack_ffd_tiers_ref, random_problem_arrays,
+                                    ssd_chunk_ref)
 
 from _torch_port import assert_rel, cuda_device, host  # noqa: F401
 
@@ -649,3 +652,78 @@ def test_reduced_zamba2_on_the_card_gives_the_cpu_logits(cuda_device):
     for name in ("attn_k", "attn_v"):
         close(card_cache[name], cpu_cache[name], name)
     assert int(card_cache["pos"]) == S + steps
+
+
+def _round_both(args):
+    """The rounding kernel on the card and its plain version on CPU copies of
+    the same inputs (f32 additions and comparisons round the same on both):
+    status, assignment and loads bit for bit; returns the status."""
+    cpu = [a.cpu().clone() for a in args]
+    ops.reset_launch_counts()
+    status = ops.optimal_round(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["optimal_round"] == 1
+    want = optimal_round_ref(*cpu)
+    assert status.cpu().tolist() == want.tolist()
+    for i in (2, 3, 4):                           # x, util, tier_tasks
+        assert torch.equal(args[i].cpu(), cpu[i])
+    return want.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ROUND_KINDS)
+@pytest.mark.parametrize("N,T,R", [(131_072, 5, 2), (100_003, 17, 4), (8_193, 5, 3),
+                                   (1_001, 1, 1), (300, 5, 2)])
+def test_optimal_round_kernel_matches_plain_version(cuda_device, kind, N, T, R):
+    """Tiles of 4096 positions: N = 131,072 (32 tiles) on a tile edge, 8,193
+    (two tiles and one) one past it, 100,003, 1,001 and 300 ragged; T = 1 (no
+    movers); R = 1 to 4; the budget, capacity or tied rows binding, and every
+    move rejected."""
+    args = round_case(N, T, R, kind, seed=N + T + R, device=cuda_device)
+    movers = int((args[1] != args[5].long()).sum())
+    accepted, walked = _round_both(args)
+    if movers == 0:                               # T = 1
+        assert accepted == walked == 0
+    elif kind == "budget":
+        assert accepted == int(args[11].cpu()) and walked < movers
+    elif kind in ("capacity", "overfull"):
+        assert accepted < walked == movers
+        assert accepted == 0 if kind == "overfull" else (accepted > 0 or N < 8_192)
+    else:
+        assert accepted == walked == movers
+
+
+@pytest.mark.cuda
+def test_optimal_round_refuses_what_it_cannot_take(cuda_device):
+    """R > 4 is refused before the launch; T = 4,000 tiers at R = 4 do not fit
+    the shared memory beside the tile of movers, and the launch refuses them."""
+    for T, R, err in ((5, 5, ValueError), (4_000, 4, RuntimeError)):
+        args = round_case(300, T, R, "free", seed=0, device=cuda_device)
+        with pytest.raises(err):
+            ops.optimal_round(*args)
+
+
+@pytest.mark.cuda
+def test_optimal_solve_on_the_card_is_valid_and_repeats(cuda_device):
+    """N = 2,000: one rounding launch a solve, the refine through the sweep and
+    commit kernels; valid, no worse than the start, the same mapping again
+    with its seed; and the balance pass on it through the bus."""
+    ct = P.generate_cluster(num_apps=2000, seed=4, device=cuda_device)
+    p = ct.problem
+    cfg = P.OptimalSearchConfig(steps=64, seed=0)
+    ops.reset_launch_counts()
+    r1 = P.solve_optimal(p, cfg, device=cuda_device)
+    counts = dict(ops.launch_counts)
+    assert counts["optimal_round"] == 1
+    assert counts["move_eval_best"] == r1.extra["refine"]["sweeps"] > 0
+    assert counts["commit_topk"] > 0
+    assert r1.assignment.is_cuda and P.validate(p, r1.assignment).ok
+    assert r1.objective <= float(P.objective(p, p.assignment0))
+    r2 = P.solve_optimal(p, cfg, device=cuda_device)
+    assert torch.equal(r1.assignment, r2.assignment) and r1.objective == r2.objective
+    ops.reset_launch_counts()
+    d = P.Sptlb(ct, device=cuda_device).balance(
+        "optimal", timeout_s=4, config=P.CoopConfig(max_rounds=8, timeout_s=1e9))
+    assert d.violations.ok and d.assignment.is_cuda
+    assert ops.launch_counts["optimal_round"] == d.cooperation.timings["rounds"] > 0
+    assert ops.launch_counts["pack_ffd_tiers"] > 0

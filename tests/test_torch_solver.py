@@ -76,9 +76,10 @@ def test_unfused_sweep_path_agrees_with_the_fused_one(clusters):
     assert torch.equal(fused.assignment, unfused.assignment)
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(clusters):
+    _, ct = clusters
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine_fn("optimal", device="cpu")
+        P.Sptlb(ct, device="cpu").balance("optimal", config=P.CoopConfig(shed=object()))
 
 
 def test_commit_scan_keeps_loads_consistent_and_stops_when_converged(clusters):
