@@ -57,6 +57,20 @@ Phases (each raises on failure, so the script exits non-zero):
      ``pack_ffd_tiers`` for manual_cnst), valid, no worse than the start,
      the same digest on a repeat; the N=300 optimal pass on the card
      against the CPU's plain path; the idle share of the profiled solve.
+     The control loop (phase 3g): ``BalanceController.step`` for 12 ticks
+     on the N=100,000 cluster with utility curves (``attach_curves``), a
+     ``LoadShedder`` at 0.8 of capacity, fault tolerance armed and an
+     ``AdmissionController`` pricing 64 seeded arrivals a tick: base load,
+     ticks 2-4 at 1.15 x the target, telemetry 3 ticks stale at ticks
+     9-10; the counts zeroed just before tick 0.  Checks: tick 2 sheds and
+     rebalances, its plan serves at most the target with no protected app
+     capped, no cap lifts before tick 7 and all lift there, the sweep,
+     commit and pack kernels launched, every applied decision valid, the
+     mode leaves NORMAL at tick 9, a repeat gives the same records and
+     digest (its tick 2 profiled: the idle share), and the N=300 schedule on
+     the card and on the CPU's plain path gives the same per-tick fields.
+     Each tick's wall-clock split into the shed plan, the admissions and the
+     balance's ``solve_s``.
   4. The dense serving slice: ``flash_attention`` and ``flash_decode`` against
      their plain versions at the serve path's shapes (prefill B=8, S=1024,
      H=16, KV=2, D=128 in bf16 and f32; a window + softcap case at D=256,
@@ -91,7 +105,8 @@ Phases (each raises on failure, so the script exits non-zero):
      teacher-forced check of wave 1 once more with the whole model in f32,
      which must agree within 1e-3 of the largest logit.
   6. A ``{"kernels": [...]}`` line (the flash kernels' launches summed over
-     both serving runs), then the card line again, then the final
+     both serving runs, the scheduling kernels' over the balance pass and
+     the control loop), then the card line again, then the final
      ``{"ok": true, "device": {...}}`` line.
 
 ``python3 chip_smoke.py --probe SRC`` runs only the balancing slice of the
@@ -153,6 +168,17 @@ OPTIMAL_ROUND_SRC = "src/repro_torch/kernels/csrc/optimal_round.cu"
 # T = 1, and ragged N with 17 tiers and 4 resources.
 OPTIMAL_STEPS = 256
 ROUND_SHAPES = ((131_072, 5, 2), (8_193, 5, 3), (1_001, 1, 1), (100_003, 17, 4))
+# The control loop (phase 3g): 12 ticks of ``BalanceController.step`` at the
+# slice's N=100,000 with a LoadShedder serving at most 0.8 of capacity: ticks
+# 0-1 at base load, 2-4 with the offered load at 1.15 x that target, 5-8 at
+# base load, 9-10 with telemetry collected 3 ticks before ``now`` (health
+# 0.5, under CONSERVATIVE's 0.7), 11 fresh; 64 arrivals priced a tick; the
+# same schedule at N=300 on the card and on the CPU's plain path.
+CONTROL_TICKS = 12
+CONTROL_OVERLOAD = 1.15
+CONTROL_TARGET = 0.8
+CONTROL_ARRIVALS = 64
+CONTROL_SMALL_N = 300
 # The serving slice: full-width qwen2.5-3b, 16 requests in waves of 8 slots,
 # prompts of 128-1024 tokens drawn from the seed, 32 new tokens each; the
 # cache holds the longest prompt, the new tokens and the reference CLI's 8
@@ -1555,6 +1581,204 @@ def optimal_phase(cluster, pp, obj0: float, record, dev, *, clock_mhz) -> dict:
     return {"main": main, "runs": runs, "ms_a_step": opt_s / cfg.steps * 1e3}
 
 
+def control_tick(tick: int) -> tuple[bool, int]:
+    """(overloaded, staleness) of one tick of phase 3g's schedule."""
+    return 2 <= tick <= 4, (3 if tick in (9, 10) else 0)
+
+
+def overload_demand(demand, capacity):
+    """The demand scaled so that the offered load (over capacity, max over
+    resources, in f64) is ``CONTROL_OVERLOAD`` x the shedder's target."""
+    import numpy as np
+
+    offered = demand.astype(np.float64).sum(axis=0) / capacity.astype(np.float64).sum(axis=0)
+    return demand * np.float32(CONTROL_OVERLOAD * CONTROL_TARGET / float(offered.max()))
+
+
+def arrival_rows(tick: int) -> list:
+    """The tick's seeded arrival records (the population's distributions);
+    the same keys every tick, so that deferred keys back off."""
+    import numpy as np
+
+    n = CONTROL_ARRIVALS
+    rng = np.random.default_rng(1000 + tick)
+    cpu, mem = rng.lognormal(1.2, 0.9, n), rng.lognormal(1.8, 0.9, n)
+    tasks = np.maximum(1, rng.poisson(rng.lognormal(1.6, 0.7, n)))
+    slo = rng.choice(4, n, p=[0.2, 0.2, 0.45, 0.15])
+    crit = rng.beta(2.0, 5.0, n)
+    return [dict(demand=np.array([cpu[i], mem[i]]), tasks=float(tasks[i]), slo=int(slo[i]),
+                 criticality=float(crit[i]), key=f"arrival_{i}") for i in range(n)]
+
+
+def control_trajectory(base, device, *, profile_tick=None) -> dict:
+    """Phase 3g's schedule through a ``BalanceController`` on ``device``
+    (shedding at ``CONTROL_TARGET``, fault tolerance armed, ``timeout_s=30``,
+    an ``AdmissionController`` attached), with the launch counters zeroed
+    just before tick 0 and read after the last tick.  Per tick: the event's
+    fields, the shed plan, the wall-clock split into the shed plan, the
+    admissions and the balance's ``solve_s``.  ``profile_tick`` runs that
+    tick's step under ``torch.profiler``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import (BalanceController, ControllerConfig, FaultToleranceConfig,
+                                  ShedConfig, TickInput)
+    from repro_torch.kernels import ops
+    from repro_torch.streams import AdmissionController
+
+    cuda = torch.device(device).type == "cuda"
+    base = base.to(device)
+    p = base.problem
+    d_base = p.demand.cpu().numpy()
+    d_over = overload_demand(d_base, p.capacity.cpu().numpy())
+    ctl = BalanceController(base, ControllerConfig(
+        shed=ShedConfig(target_frac=CONTROL_TARGET), fault=FaultToleranceConfig(),
+        timeout_s=30), device=device)
+    ctl.admission = AdmissionController()
+    plan_fn, timing = ctl.shedder.plan, {}
+
+    def timed_plan(*args, **kw):
+        t = time.perf_counter()
+        out = plan_fn(*args, **kw)
+        timing["shed_s"] = time.perf_counter() - t
+        timing["plan"] = out
+        return out
+
+    ctl.shedder.plan = timed_plan
+    ticks, prof = [], None
+    if cuda:
+        torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for tick in range(CONTROL_TICKS):
+        over, stale = control_tick(tick)
+        cluster = dataclasses.replace(base, problem=dataclasses.replace(
+            p, demand=torch.as_tensor(d_over if over else d_base, device=device),
+            assignment0=ctl.cluster.problem.assignment0))
+        inp = TickInput(cluster=cluster, now=tick, collected_at=tick - stale if stale else None)
+        shed0, readmit0 = ctl.shedder.shed_events, ctl.shedder.readmit_events
+        t = time.perf_counter()
+        if tick == profile_tick:
+            box = {}
+            prof = device_profile(lambda: box.setdefault("r", ctl.step(inp)))
+            r = box["r"]
+        else:
+            r = ctl.step(inp)
+        if cuda:
+            torch.cuda.synchronize()
+        step_s = time.perf_counter() - t
+        t = time.perf_counter()
+        for row in arrival_rows(tick):
+            ctl.admission.decide(ctl.cluster.problem, mode=ctl.mode.value, now=tick, **row)
+        admit_s = time.perf_counter() - t
+        d = r.decision
+        ticks.append({
+            "tick": tick, "triggered": r.triggered, "applied": r.applied, "mode": r.mode,
+            "shed_active": r.shed_active, "shed": ctl.shedder.shed_events - shed0,
+            "readmitted": ctl.shedder.readmit_events - readmit0, "moved": r.moved,
+            "d2b_before": r.d2b_before, "d2b_after": r.d2b_after,
+            "valid": None if d is None else bool(d.violations.ok),
+            "step_s": step_s, "shed_s": timing.get("shed_s", 0.0), "admit_s": admit_s,
+            "solve_s": 0.0 if d is None else d.solve.extra["balance_timings"]["solve_s"],
+            "evaluate_s": 0.0 if d is None else d.solve.extra["balance_timings"]["evaluate_s"],
+            "rounds": 0 if d is None else d.cooperation.timings["rounds"],
+            "reason": r.reason, "plan": timing.pop("plan", None)})
+    if cuda:
+        torch.cuda.synchronize()
+    return {"ticks": ticks, "launches": dict(ops.launch_counts), "ctl": ctl, "profile": prof,
+            "digest": assignment_digest(ctl.cluster.problem.assignment0),
+            "admission": ctl.admission.audit()}
+
+
+CONTROL_FIELDS = ("triggered", "applied", "mode", "shed_active", "shed", "readmitted")
+
+
+def control_phase(dev) -> dict:
+    """Phase 3g: the control loop at N=100,000 on the card (the schedule of
+    ``control_tick``), its checks, a repeat with tick 2 profiled, and the
+    schedule at N=300 on the card against the CPU's plain path."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.core import attach_curves, generate_cluster
+
+    def curved(cluster):
+        return dataclasses.replace(cluster, problem=attach_curves(cluster.problem))
+
+    base = curved(generate_cluster(num_apps=100_000, seed=1, device=dev))
+    run = control_trajectory(base, dev)
+    for r in run["ticks"]:
+        print(f"control N={base.problem.num_apps} tick {r['tick']}: triggered {r['triggered']}, "
+              f"applied {r['applied']}, mode {r['mode']}, capped {r['shed_active']} (shed "
+              f"{r['shed']}, readmitted {r['readmitted']}), moved {r['moved']}, d2b "
+              f"{r['d2b_before']:.6f} -> {r['d2b_after']}, valid {r['valid']}, rounds "
+              f"{r['rounds']}; wall {r['step_s']:.4f} s step (shed plan {r['shed_s']:.4f} s, "
+              f"balance solve_s {r['solve_s']:.4f} s, evaluate_s {r['evaluate_s']:.4f} s) + "
+              f"{r['admit_s']:.4f} s for {CONTROL_ARRIVALS} admissions; "
+              f"{r['reason'][:90]}", flush=True)
+    ticks, launches = run["ticks"], run["launches"]
+    print(f"control: launches over the {CONTROL_TICKS} ticks {launches}, admissions "
+          f"{run['admission']}, final digest {run['digest']}, audit "
+          f"{ {k: v for k, v in run['ctl'].audit().items() if not isinstance(v, (list, dict))} }",
+          flush=True)
+
+    # The shed tick: served (f64, from the caps) within the target, nobody
+    # protected capped.
+    p, shed_cfg = base.problem, run["ctl"].config.shed
+    plan = ticks[2]["plan"]
+    if not (ticks[2]["shed"] > 0 and ticks[2]["triggered"]):
+        raise AssertionError(f"control: tick 2 shed {ticks[2]['shed']} apps, triggered "
+                             f"{ticks[2]['triggered']}")
+    demand = overload_demand(p.demand.cpu().numpy(), p.capacity.cpu().numpy()).astype(np.float64)
+    demand *= p.valid.cpu().numpy()[:, None]
+    served = (demand * plan.caps.astype(np.float64)[:, None]).sum(axis=0)
+    target = CONTROL_TARGET * p.capacity.cpu().numpy().astype(np.float64).sum(axis=0)
+    crit = p.criticality.cpu().numpy()
+    print(f"control: tick 2 served {served.tolist()} of target {target.tolist()}, overload "
+          f"{plan.overload_frac}, capped {int((plan.caps < 1).sum())}, highest criticality "
+          f"capped {float(crit[plan.caps < 1].max()):.4f}", flush=True)
+    if np.any(served > target * (1 + 1e-9)):
+        raise AssertionError("control: the tick-2 plan serves more than the target")
+    if np.any(crit[plan.caps < 1.0] >= shed_cfg.protect_critical):
+        raise AssertionError("control: a protected app was capped")
+    # Readmission: no cap lifts before tick 7, every cap lifts there.
+    if any(ticks[t]["readmitted"] for t in range(2, 7)):
+        raise AssertionError("control: a cap lifted during ticks 2-6")
+    if not (ticks[7]["readmitted"] == ticks[6]["shed_active"] > 0
+            and ticks[7]["shed_active"] == 0):
+        raise AssertionError(f"control: tick 7 readmitted {ticks[7]['readmitted']} of "
+                             f"{ticks[6]['shed_active']} capped")
+    for name in ("move_eval_best", "commit_topk", "pack_ffd_tiers"):
+        if launches[name] <= 0:
+            raise AssertionError(f"control: the trajectory launched {name} no time")
+    if any(r["applied"] and not r["valid"] for r in ticks):
+        raise AssertionError("control: an applied decision is not valid")
+    if not (all(r["mode"] == "normal" for r in ticks[:9]) and ticks[9]["mode"] != "normal"):
+        raise AssertionError(f"control: modes {[r['mode'] for r in ticks]}")
+
+    again = control_trajectory(base, dev, profile_tick=2)
+    key = ("moved",) + CONTROL_FIELDS
+    same = (again["digest"] == run["digest"]
+            and [[r[k] for k in key] for r in again["ticks"]]
+            == [[r[k] for k in key] for r in ticks])
+    print(f"control repeat: digest {again['digest']}, the same records and digest {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("control: a repeat of the trajectory gave other records")
+    print(solve_profile_line("profile: control tick 2 (shed plan, trigger, balance, "
+                             f"evaluation) at N={p.num_apps}", again["profile"]), flush=True)
+
+    small = curved(generate_cluster(num_apps=CONTROL_SMALL_N, seed=3, device="cpu"))
+    on_card = control_trajectory(small, dev)["ticks"]
+    on_cpu = control_trajectory(small, "cpu")["ticks"]
+    agree = all(a[k] == b[k] for a, b in zip(on_card, on_cpu) for k in CONTROL_FIELDS)
+    print(f"control N={CONTROL_SMALL_N}: card {[[r[k] for k in CONTROL_FIELDS] for r in on_card]}"
+          f", plain path agrees {agree}; moved card/cpu "
+          f"{[(a['moved'], b['moved']) for a, b in zip(on_card, on_cpu)]}", flush=True)
+    if not agree:
+        raise AssertionError("control: the card's N=300 trajectory disagrees with the plain path")
+    return {"run": run, "again": again}
+
+
 def host_gumbel(sweep: int, size: int, device):
     """Gumbel noise drawn on the host with numpy (one seed a sweep), for the
     sampled solve's ``gumbel_fn``."""
@@ -1930,6 +2154,10 @@ def main() -> int:
     # -- 3f. the optimal engine: its rounding kernel, then the N=100k pass -------
     optimal = optimal_phase(cluster, pp, obj0, record, dev, clock_mhz=clock)
 
+    # -- 3g. the control loop: BalanceController ticks at N=100k ----------------
+    control = control_phase(dev)
+    control_launches = control["run"]["launches"]
+
     # -- 4. the serving slice: qwen2.5-3b at full width --------------------------
     serving = serving_phase(dev, record)
     fa, fd = serving["times"]["prefill_main"], serving["times"]["decode_main"]
@@ -1945,7 +2173,9 @@ def main() -> int:
     kernels = [
         {"name": "move_eval_best", "route": "cuda", "source": MOVE_EVAL_SRC,
          "replaces": "src/repro/kernels/move_eval.py:275",
-         "launches": launches["move_eval_best"],
+         "launches": launches["move_eval_best"] + control_launches["move_eval_best"],
+         "launches_by_path": {"balance": launches["move_eval_best"],
+                              "control": control_launches["move_eval_best"]},
          "max_abs_err": record["move_eval_best"]["max_abs_err"],
          "ms": main_sweep["move_eval_best"]["ms"],
          "plain_ms": main_sweep["move_eval_best"]["plain_ms"],
@@ -1964,14 +2194,18 @@ def main() -> int:
          "bound_by": main_sweep["move_eval"]["bound_by"], "library_ms": None},
         {"name": "commit_topk", "route": "cuda", "source": COMMIT_SRC,
          "replaces": "src/repro/core/solver_local.py:219",
-         "launches": launches["commit_topk"],
+         "launches": launches["commit_topk"] + control_launches["commit_topk"],
+         "launches_by_path": {"balance": launches["commit_topk"],
+                              "control": control_launches["commit_topk"]},
          "max_abs_err": record["commit_topk"]["max_abs_err"],
          "ms": main_commit["ms"], "plain_ms": main_commit["plain_ms"],
          "bound_ms": main_commit["bound_ms"], "bound_by": main_commit["bound_by"],
          "library_ms": None},
         {"name": "pack_ffd_tiers", "route": "cuda", "source": PACK_SRC,
          "replaces": "src/repro/kernels/pack.py:116",
-         "launches": launches["pack_ffd_tiers"],
+         "launches": launches["pack_ffd_tiers"] + control_launches["pack_ffd_tiers"],
+         "launches_by_path": {"balance": launches["pack_ffd_tiers"],
+                              "control": control_launches["pack_ffd_tiers"]},
          "max_abs_err": record["pack_ffd_tiers"]["max_abs_err"],
          "ms": pack_main["ms"], "plain_ms": pack_main["plain_ms"],
          "bound_ms": pack_main["bound_ms"], "bound_by": pack_main["bound_by"],

@@ -44,12 +44,8 @@ from repro_torch.core.planner import movement_cost_of
 from repro_torch.core.problem import Problem, bucket_size
 from repro_torch.core.solver_local import SolveResult
 from repro_torch.core.telemetry import ClusterState
-from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.device import DEFAULT_DEVICE, host_array, resolve_device
 from repro_torch.kernels.pack import DispatchStats, pack_ffd_tiers
-
-
-def _host(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 class RegionScheduler(SchedulerLevel):
@@ -165,7 +161,7 @@ class RegionScheduler(SchedulerLevel):
         base = self.budget if self.budget is not None else REGION_LATENCY_BUDGET_MS
         factor = float(getattr(plan, "relax_latency_factor",
                                RELAX_LATENCY_FACTOR))
-        x0 = _host(self.cluster.problem.assignment0)
+        x0 = host_array(self.cluster.problem.assignment0)
         self._budget_per_app = np.where(
             np.asarray(relax_tiers)[x0], base * factor, base).astype(np.float32)
         self.budget = None
@@ -203,7 +199,7 @@ class HostScheduler(SchedulerLevel):
         key = ("host_pack_consts", str(self.device))
         if key not in cache:
             cache[key] = (
-                _host(cluster.problem.demand),                 # [N, R]
+                host_array(cluster.problem.demand),            # [N, R]
                 torch.as_tensor(cluster.host_capacity, device=self.device),
                 torch.as_tensor(cluster.hosts_per_tier.astype(np.int32),
                                 device=self.device))
@@ -380,7 +376,7 @@ def region_overlap_avoid(cluster: ClusterState) -> np.ndarray:
         shared = regions @ regions.T                         # [T, T]
         na = regions.sum(axis=1)
         overlap_ok = shared > 0.5 * na[:, None]
-        x0 = _host(c.problem.assignment0)
+        x0 = host_array(c.problem.assignment0)
         cache["region_overlap_avoid"] = ~overlap_ok[x0]      # [N, T]
     return cache["region_overlap_avoid"]
 
@@ -617,7 +613,7 @@ def enforce_cost_budget(cluster: ClusterState, res: SolveResult,
     moves, so the budget holds after the fixpoint too.  ``levels`` may be
     empty (hierarchy-unaware engines: no re-vet to run).
     """
-    x_np = _host(res.assignment)
+    x_np = host_array(res.assignment)
     total = movement_cost_of(x_np, x0_np, move_cost)
     timings["movement_cost"] = total
     if total <= cost_budget + 1e-9:
@@ -627,8 +623,8 @@ def enforce_cost_budget(cluster: ClusterState, res: SolveResult,
     per = (np.ones(moved.size, np.float32) if move_cost is None
            else np.asarray(move_cost)[moved])
     p = cluster.problem
-    slo_ok_home = _host(p.slo_allowed)[
-        x0_np[moved], _host(p.slo)[moved]]
+    slo_ok_home = host_array(p.slo_allowed)[
+        x0_np[moved], host_array(p.slo)[moved]]
     # lexsort: last key is primary — strand-fixers (slo_ok_home False) first,
     # then ascending per-move cost within each class.
     order = np.lexsort((per, slo_ok_home))
@@ -670,7 +666,7 @@ def _restart_phase(cluster: ClusterState, problem: Problem, res: SolveResult,
     the result can never get worse, only cost extra solves.
     """
     dev = cluster.problem.device
-    x_best = _host(res.assignment).copy()
+    x_best = host_array(res.assignment).copy()
     obj_best = float(_objective(cluster.problem, torch.as_tensor(x_best, device=dev)))
     rng = np.random.default_rng(x_best.size)     # deterministic per problem
     attempts = improved = 0
@@ -686,7 +682,7 @@ def _restart_phase(cluster: ClusterState, problem: Problem, res: SolveResult,
         attempts += 1
         r = timed_solve(problem, init_assignment=torch.as_tensor(
             x_pert.astype(np.int32), device=dev))
-        x_r = _revert_fixpoint(levels, _host(r.assignment), x0_np,
+        x_r = _revert_fixpoint(levels, host_array(r.assignment), x0_np,
                                timings, breakers=breakers)
         obj_r = float(_objective(cluster.problem, torch.as_tensor(x_r, device=dev)))
         if obj_r < obj_best - 1e-9:
@@ -757,7 +753,7 @@ def cooperate(
             problem = problem.with_avoid(torch.as_tensor(
                 region_overlap_avoid(cluster), device=problem.device))
         res = timed_solve0(problem)
-        res = enforce_cost_budget(cluster, res, _host(problem.assignment0),
+        res = enforce_cost_budget(cluster, res, host_array(problem.assignment0),
                                   cfg.move_cost, cfg.cost_budget, (), timings)
         total = time.perf_counter() - t0
         res.extra["coop_timings"] = _finish_timings(timings, total)
@@ -778,7 +774,7 @@ def cooperate(
             bp.relax(lv, cfg.plan, cluster)
 
     dev = problem.device
-    x0_np = _host(problem.assignment0)
+    x0_np = host_array(problem.assignment0)
     x0_dev = problem.assignment0
 
     def timed_solve(p, **kw):
@@ -799,7 +795,7 @@ def cooperate(
             r = SolveResult(
                 assignment=x_fb, iterations=0, converged=False,
                 objective=float(_objective(cluster.problem, x_fb)),
-                num_moved=int(np.sum(_host(x_fb) != x0_np)),
+                num_moved=int(np.sum(host_array(x_fb) != x0_np)),
                 solve_time_s=0.0)
         timings.solve_s += time.perf_counter() - t
         return r
@@ -837,7 +833,7 @@ def cooperate(
     res = timed_solve(problem)
     rounds = 1
     while rounds <= cfg.max_rounds and (time.perf_counter() - t0) < wallclock:
-        x_np = _host(res.assignment)            # one device->host pull/round
+        x_np = host_array(res.assignment)       # one device->host pull/round
         moved = np.where(x_np != x0_np)[0]
         timings.round_costs.append(
             round(movement_cost_of(x_np, x0_np, cfg.move_cost), 4))
@@ -942,7 +938,7 @@ def cooperate(
     # _revert_fixpoint; the batched pack already re-vetted tiers whose
     # returners arrived alongside surviving newcomers, this closes the
     # no-movers-left gap).
-    x_np = _revert_fixpoint(active, _host(res.assignment), x0_np,
+    x_np = _revert_fixpoint(active, host_array(res.assignment), x0_np,
                             timings, breakers=bp)
     x_final = torch.as_tensor(x_np, device=dev)
     # Reverting moves changes the mapping, so the solver's reported

@@ -204,8 +204,10 @@ class CoopConfig:
     move_cost: Optional[np.ndarray] = None  # f32[N] per-app move pricing
     cost_budget: float = float("inf")
     breakers: object = None  # core.health.BreakerBoard | None
-    # A load-shedding plan (an actuated demand throttle).  Load shedding is
-    # not ported yet: ``Sptlb.balance`` refuses a config that sets it.
+    # core.shedding.ShedPlan | None.  Unlike ``plan`` (which only steers the
+    # solver), an active shed plan is an *actuated* throttle: the bus scales
+    # the problem's demand by the delivery caps before the solver sees it
+    # AND before the decision is judged — the fleet really serves less.
     shed: object = None
 
     def premask_for(self, name: str) -> bool:

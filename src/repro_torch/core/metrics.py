@@ -18,10 +18,7 @@ import torch
 
 from repro_torch.core.problem import Problem, utilization_fraction
 from repro_torch.core.telemetry import ClusterState
-
-
-def _host(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+from repro_torch.device import host_array
 
 
 @dataclasses.dataclass
@@ -38,16 +35,16 @@ class ProjectedMetrics:
 def projected_metrics(problem: Problem, assignment) -> ProjectedMetrics:
     assignment = torch.as_tensor(assignment, device=problem.device)
     util_frac, task_frac = utilization_fraction(problem, assignment)
-    x = _host(assignment)
-    x0 = _host(problem.assignment0)
+    x = host_array(assignment)
+    x0 = host_array(problem.assignment0)
     moved = np.where(x != x0)[0]
     transitions: dict = {}
     for n in moved:
         key = (int(x0[n]), int(x[n]))
         transitions[key] = transitions.get(key, 0) + 1
     return ProjectedMetrics(
-        util_frac=_host(util_frac),
-        task_frac=_host(task_frac),
+        util_frac=host_array(util_frac),
+        task_frac=host_array(task_frac),
         num_moved=len(moved),
         moved_apps=moved,
         transitions=transitions,
@@ -64,12 +61,12 @@ def difference_to_balance(problem: Problem, assignment) -> float:
     """
     assignment = torch.as_tensor(assignment, device=problem.device)
     util_frac, task_frac = utilization_fraction(problem, assignment)
-    util_frac = _host(util_frac)
-    task_frac = _host(task_frac)
-    total_frac = (_host(problem.demand).sum(axis=0)
-                  / _host(problem.capacity).sum(axis=0))       # [R]
-    total_task_frac = (_host(problem.tasks).sum()
-                       / _host(problem.task_limit).sum())
+    util_frac = host_array(util_frac)
+    task_frac = host_array(task_frac)
+    total_frac = (host_array(problem.demand).sum(axis=0)
+                  / host_array(problem.capacity).sum(axis=0))       # [R]
+    total_task_frac = (host_array(problem.tasks).sum()
+                       / host_array(problem.task_limit).sum())
     diffs = [np.max(np.abs(util_frac[:, r] - total_frac[r]))
              for r in range(util_frac.shape[1])]
     diffs.append(float(np.max(np.abs(task_frac - total_task_frac))))
@@ -91,7 +88,7 @@ def network_p99_ms(cluster: ClusterState, assignment, *,
         return 0.0
     rng = np.random.default_rng(seed)
     lat = cluster.region_latency
-    x = _host(assignment)
+    x = host_array(assignment)
     # Latency an app experiences after a move: from its data-source region to
     # the region the destination tier actually places it in.  The in-tier
     # region scheduler prefers the closest region but spills to the next one

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.core.levels import RELAX_LATENCY_FACTOR
 from repro_torch.core.problem import Problem
+from repro_torch.device import host_array
 
 # Advisory kinds.
 CAPACITY = "capacity"
@@ -305,17 +306,13 @@ def move_costs(problem: Problem) -> np.ndarray:
     return np.where(valid, cost, 0.0).astype(np.float32)
 
 
-def _host(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
 def movement_cost_of(assignment, assignment0, move_cost=None) -> float:
     """Total reconfiguration cost of a mapping vs the incumbent placement.
 
     With ``move_cost=None`` every move costs 1 (a plain move count), so
     callers without a pricing model still get a meaningful scalar.
     """
-    moved = _host(assignment) != _host(assignment0)
+    moved = host_array(assignment) != host_array(assignment0)
     if move_cost is None:
         return float(np.sum(moved))
     return float(np.asarray(move_cost)[moved].sum())

@@ -157,31 +157,31 @@ class Problem:
         return Problem(**moved)
 
 
-def tier_loads(problem: Problem, assignment: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-tier loads (util f32[T, R], tasks f32[T]); padding rows masked.
+def tier_sum(rows: torch.Tensor, assignment: torch.Tensor, num_tiers: int) -> torch.Tensor:
+    """Rows ``[N, ...]`` summed into their tiers: ``[num_tiers, ...]``.
 
     On the CPU the rows are added in app order (``index_add_``).  On a card
     ``index_add_`` adds with atomics, in an order that changes from run to
     run, so the same cluster would start from loads that differ in the last
-    bits; there the loads are a masked reduction over the app axis, which
+    bits; there the sum is a masked reduction over the app axis, which
     gives the same bits every run.
     """
-    T = problem.num_tiers
     idx = assignment.long()
+    if rows.device.type == "cuda":
+        member = idx[:, None] == torch.arange(num_tiers, device=idx.device)[None, :]
+        member = member.view(*member.shape, *([1] * (rows.ndim - 1)))
+        return torch.where(member, rows.unsqueeze(1), 0.0).sum(dim=0)
+    out = torch.zeros((num_tiers, *rows.shape[1:]), dtype=rows.dtype, device=rows.device)
+    return out.index_add_(0, idx, rows)
+
+
+def tier_loads(problem: Problem, assignment: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-tier loads (util f32[T, R], tasks f32[T]); padding rows masked
+    (``tier_sum``: the same bits every run on a card)."""
+    T = problem.num_tiers
     w = problem.valid.to(problem.demand.dtype)
-    demand = problem.demand * w[:, None]
-    tasks_w = problem.tasks * w
-    if problem.device.type == "cuda":
-        member = idx[:, None] == torch.arange(T, device=idx.device)[None, :]   # [N, T]
-        util = torch.where(member[:, :, None], demand[:, None, :], 0.0).sum(dim=0)
-        tasks = torch.where(member, tasks_w[:, None], 0.0).sum(dim=0)
-        return util, tasks
-    util = torch.zeros((T, problem.num_resources), dtype=problem.demand.dtype,
-                       device=problem.device)
-    util.index_add_(0, idx, demand)
-    tasks = torch.zeros((T,), dtype=problem.tasks.dtype, device=problem.device)
-    tasks.index_add_(0, idx, tasks_w)
-    return util, tasks
+    return (tier_sum(problem.demand * w[:, None], assignment, T),
+            tier_sum(problem.tasks * w, assignment, T))
 
 
 def utilization_fraction(problem: Problem, assignment: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -189,11 +189,15 @@ class Sptlb:
         solve_fn = engine_fn(engine, timeout_s, seed,
                              batch_moves=cfg.batch_moves,
                              bucket_apps=cfg.bucket_apps, device=self.device)
-        if cfg.shed is not None:
-            raise NotImplementedError(
-                "load shedding (CoopConfig.shed) is not ported yet: ROADMAP "
-                "Queue 1, 'shedding + admission + controller'")
+        # An active shed plan (core.shedding) is an actuated throttle: the
+        # fleet really serves ``cap x demand``, so BOTH the solver's problem
+        # and the decision's evaluation see the capped demand — unlike
+        # ``plan``, which only steers the solver.
         base_cluster = self.cluster
+        shed = cfg.shed
+        if shed is not None and shed.active:
+            base_cluster = dataclasses.replace(
+                self.cluster, problem=shed.apply(self.cluster.problem))
         solve_cluster = base_cluster
         plan = cfg.plan
         if plan is not None and plan.active:
@@ -223,9 +227,11 @@ class Sptlb:
             res = coop.result
         t_solve = time.perf_counter()
 
-        # Decision evaluation is against the real collected problem — a plan
-        # only steers the solver (tightened capacity would otherwise mis-score
-        # a perfectly good mapping as over-capacity).
+        # Decision evaluation is against the *served* problem (real collected
+        # demand, scaled by any actuated shed caps) — a plan only steers the
+        # solver (tightened capacity would otherwise mis-score a perfectly
+        # good mapping as over-capacity), but shed caps change what the fleet
+        # actually serves.
         problem: Problem = base_cluster.problem
         if coop is not None:
             movement = coop.timings.get("movement_cost", 0.0)
@@ -243,6 +249,13 @@ class Sptlb:
                 "min_tier_factor": float(plan.tier_factor.min()),
                 "avoid_tiers": int(plan.avoid_tiers.sum()),
                 "relax_tiers": int(plan.relax_home_tiers.sum()),
+            }
+        if shed is not None and shed.active:
+            res.extra["shed"] = {
+                "capped": int(np.sum(shed.caps < 1.0)),
+                "churn": shed.churned,
+                "churn_cost": shed.churn_cost,
+                "overload_frac": shed.overload_frac,
             }
         decision = BalanceDecision(
             assignment=res.assignment,

@@ -1,8 +1,8 @@
 """Device policy of the port.
 
 Entry points (``generate_cluster``, ``make_problem``, ``Sptlb``,
-``solve_local``, ``HostScheduler``) take ``device=`` and default to
-``"cuda"``.  Asking for CUDA where there is no card raises: the port never
+``solve_local``, ``HostScheduler``, ``BalanceController``) take ``device=``
+and default to ``"cuda"``.  Asking for CUDA where there is no card raises: the port never
 quietly runs on the CPU.  Callers that want the CPU (the parity tests) say
 so with ``device="cpu"``.
 
@@ -11,6 +11,7 @@ cast to int64 only where they index.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -28,3 +29,10 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
         if dev.index is None:            # compare equal to tensor.device
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def host_array(x) -> np.ndarray:
+    """``x``'s values as a host numpy array: a tensor is copied off its
+    device (a CPU tensor's array shares its memory), anything else goes
+    through ``np.asarray``."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)

@@ -53,3 +53,71 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: CUDA kernels have no CPU mode")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+# --- the control loop's tick schedule (chip_smoke.py phase 3g) -------------
+#
+# Ticks 0-1 at base load, 2-4 with the offered load at OVERLOAD x the
+# shedder's target, 5-8 at base load, 9-10 at base load with telemetry
+# collected 3 ticks before ``now``, 11 fresh.  Each tick's cluster carries
+# the controller's current assignment; 64 arrivals are priced after each
+# step in the controller's mode.
+
+CONTROL_TICKS = 12
+OVERLOAD = 1.15
+SHED_TARGET = 0.8
+ARRIVALS = 64
+
+
+def control_tick(tick: int) -> tuple[bool, int]:
+    """(overloaded, staleness) of one tick of the schedule."""
+    return 2 <= tick <= 4, (3 if tick in (9, 10) else 0)
+
+
+def overload_demand(demand, capacity, target_frac=SHED_TARGET, over=OVERLOAD) -> np.ndarray:
+    """The demand scaled so that the offered load is ``over`` x the target
+    (offered over capacity, max over resources, computed in f64)."""
+    demand = np.asarray(demand, np.float32)
+    offered = demand.astype(np.float64).sum(axis=0) / np.asarray(capacity, np.float64).sum(axis=0)
+    return demand * np.float32(over * target_frac / float(offered.max()))
+
+
+def arrival_rows(tick: int, n: int = ARRIVALS) -> list:
+    """``n`` seeded arrival records (the population's distributions), the
+    same keys every tick so that deferred keys back off."""
+    rng = np.random.default_rng(1000 + tick)
+    cpu, mem = rng.lognormal(1.2, 0.9, n), rng.lognormal(1.8, 0.9, n)
+    tasks = np.maximum(1, rng.poisson(rng.lognormal(1.6, 0.7, n)))
+    slo = rng.choice(4, n, p=[0.2, 0.2, 0.45, 0.15])
+    crit = rng.beta(2.0, 5.0, n)
+    return [dict(demand=np.array([cpu[i], mem[i]]), tasks=float(tasks[i]), slo=int(slo[i]),
+                 criticality=float(crit[i]), key=f"arrival_{i}") for i in range(n)]
+
+
+def run_control(pkg, ctl, base, as_array, ticks: int = CONTROL_TICKS) -> list:
+    """Step ``ctl`` (a ``BalanceController`` of ``pkg``, the reference's
+    core or the port's) through the schedule from the ``base`` cluster;
+    ``as_array`` makes the package's demand array from numpy.  One record a
+    tick."""
+    p = base.problem
+    d_base = np.asarray(host(p.demand), np.float32)
+    d_over = overload_demand(d_base, host(p.capacity))
+    records = []
+    for tick in range(ticks):
+        over, stale = control_tick(tick)
+        cluster = dataclasses.replace(base, problem=dataclasses.replace(
+            p, demand=as_array(d_over if over else d_base),
+            assignment0=ctl.cluster.problem.assignment0))
+        shed0, readmit0 = ctl.shedder.shed_events, ctl.shedder.readmit_events
+        r = ctl.step(pkg.TickInput(cluster=cluster, now=tick,
+                                   collected_at=tick - stale if stale else None))
+        states = [ctl.admission.decide(ctl.cluster.problem, mode=ctl.mode.value, now=tick,
+                                       **row).state.value for row in arrival_rows(tick)]
+        records.append({
+            "tick": tick, "triggered": r.triggered, "applied": r.applied, "mode": r.mode,
+            "shed_active": r.shed_active, "shed_churn": r.shed_churn,
+            "shed": ctl.shedder.shed_events - shed0,
+            "readmitted": ctl.shedder.readmit_events - readmit0, "moved": r.moved,
+            "d2b_before": r.d2b_before, "d2b_after": r.d2b_after,
+            "admissions": {s: states.count(s) for s in sorted(set(states))}})
+    return records

@@ -130,9 +130,14 @@ def test_healthy_breaker_board_changes_nothing(clusters):
 
 
 def test_unported_shedding_is_refused(clusters):
+    """Shedding is ported (``tests/test_torch_control.py``); the controller
+    path still refused is the sharded fleet solver: a standing
+    ``ControllerConfig.shards`` raises at its routing point when a
+    dirty-shard request pre-triggers the tick."""
     _, ct = clusters
+    ctl = P.BalanceController(ct, P.ControllerConfig(shards=2), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.Sptlb(ct, device="cpu").balance("local", config=P.CoopConfig(shed=object()))
+        ctl.step(P.TickInput(now=0, dirty_shards=(0,)))
 
 
 @pytest.mark.parametrize("mode", ["reject_all", "raise"])

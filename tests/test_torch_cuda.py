@@ -21,6 +21,8 @@ part them by more.  The SSD chunk kernel within the reference's 5e-5 (f32
 operands, 3xTF32 tensor-core products), also with x drawn 30 times larger.  A reduced-config serve on the card gives the CPU plain path's
 tokens, and a reduced Zamba2 on the card gives the CPU's logits and caches.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -34,7 +36,8 @@ from repro_torch.kernels.ref import (commit_topk_ref, flash_attention_ref, flash
                                     optimal_round_ref, pack_ffd_tiers_ref, random_problem_arrays,
                                     ssd_chunk_ref)
 
-from _torch_port import assert_rel, cuda_device, host  # noqa: F401
+from _torch_port import (SHED_TARGET, assert_rel, cuda_device, host,  # noqa: F401
+                         overload_demand, run_control)
 
 torch.set_num_threads(1)
 
@@ -727,3 +730,88 @@ def test_optimal_solve_on_the_card_is_valid_and_repeats(cuda_device):
     assert d.violations.ok and d.assignment.is_cuda
     assert ops.launch_counts["optimal_round"] == d.cooperation.timings["rounds"] > 0
     assert ops.launch_counts["pack_ffd_tiers"] > 0
+
+
+def _curved(cluster):
+    return dataclasses.replace(cluster, problem=P.attach_curves(cluster.problem))
+
+
+@pytest.mark.cuda
+def test_shed_plan_balance_on_the_card_is_valid_and_repeats(cuda_device):
+    """N = 2,000 at 1.15x the shedder's target: the plan caps apps, the
+    balance under it launches the sweep, commit and pack kernels, is valid
+    against the served (capped) demand and gives the same mapping again."""
+    ct = _curved(P.generate_cluster(num_apps=2000, seed=5, device=cuda_device))
+    p = ct.problem
+    d1 = overload_demand(host(p.demand), host(p.capacity))
+    ct = dataclasses.replace(ct, problem=dataclasses.replace(
+        p, demand=torch.as_tensor(d1, device=cuda_device)))
+    plan = P.LoadShedder(P.ShedConfig(target_frac=SHED_TARGET)).plan(ct.problem)
+    assert plan.active and len(plan.shed_ids) > 0
+    cfg = P.CoopConfig(shed=plan, max_rounds=8, timeout_s=1e9)
+    ops.reset_launch_counts()
+    first = P.Sptlb(ct, device=cuda_device).balance("local", timeout_s=4, config=cfg)
+    for name in ("move_eval_best", "commit_topk", "pack_ffd_tiers"):
+        assert ops.launch_counts[name] > 0, name
+    assert first.violations.ok and first.assignment.is_cuda
+    assert first.solve.extra["shed"]["capped"] == int((plan.caps < 1).sum())
+    again = P.Sptlb(ct, device=cuda_device).balance("local", timeout_s=4, config=cfg)
+    assert torch.equal(first.assignment, again.assignment)
+    assert first.solve.objective == again.solve.objective
+
+
+@pytest.mark.cuda
+def test_delivered_fractions_on_the_card_repeat_and_match_the_cpu(cuda_device):
+    """The card's tier loads are a masked reduction, so its delivered
+    fractions repeat their bits run to run.  Against the CPU, whose loads
+    add in app order (``index_add_``), a throttled tier's factor may part
+    in the last bit: within rel 1e-6 there, bit for bit on every app whose
+    tier is not throttled."""
+    ct = _curved(P.generate_cluster(num_apps=4000, seed=2, device="cpu"))
+    p = dataclasses.replace(ct.problem, demand=ct.problem.demand * 1.5)   # the hot tier throttles
+    caps = np.where(np.random.default_rng(3).random(4000) < 0.1, 0.25, 1.0).astype(np.float32)
+    x = p.assignment0
+    pg = p.to(cuda_device)
+    for c in (None, caps):
+        want = P.delivered_fractions(p, x, c)
+        got = P.delivered_fractions(pg, x.to(cuda_device), c)
+        again = P.delivered_fractions(pg, x.to(cuda_device), c)
+        assert torch.equal(got, again)
+        assert_rel(got, want, 1e-6, "delivered")
+        full = host(want) == (1.0 if c is None else c)
+        assert 0 < full.sum() < full.size
+        np.testing.assert_array_equal(host(got)[full], host(want)[full])
+        u_cpu, u_card = P.fleet_utility(p, x, c), P.fleet_utility(pg, x.to(cuda_device), c)
+        for a, b in zip(u_cpu, u_card):
+            assert_rel(b, a, 1e-5, "fleet utility")
+
+
+@pytest.mark.cuda
+def test_control_trajectory_on_the_card_matches_the_cpu(cuda_device):
+    """Six ticks of the control schedule at N = 2,000 (base load, the
+    overload from tick 2 with its shed, cooldown) on the card and on the
+    CPU's plain path: the same triggered, applied, mode and shed records,
+    the moves and difference-to-balance at the balance bar."""
+    from repro_torch.streams import AdmissionController
+
+    runs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        ct = _curved(P.generate_cluster(num_apps=2000, seed=5, device=dev))
+        ctl = P.BalanceController(ct, P.ControllerConfig(
+            shed=P.ShedConfig(target_frac=SHED_TARGET), fault=P.FaultToleranceConfig(),
+            timeout_s=4), device=dev)
+        ctl.admission = AdmissionController()
+        if dev.type == "cuda":
+            ops.reset_launch_counts()
+        runs[dev.type] = run_control(P, ctl, ct, lambda a, d=dev: torch.as_tensor(a, device=d),
+                                     ticks=6)
+        if dev.type == "cuda":
+            assert ops.launch_counts["move_eval_best"] > 0
+            assert ctl.cluster.problem.assignment0.is_cuda
+    assert runs["cuda"][2]["shed"] > 0
+    for a, b in zip(runs["cpu"], runs["cuda"]):
+        for key in ("triggered", "applied", "mode", "shed_active", "shed_churn", "shed",
+                    "readmitted", "admissions"):
+            assert b[key] == a[key], (b["tick"], key)
+        assert abs(b["moved"] - a["moved"]) <= 0.02 * 2000, b["tick"]
+        assert_rel(b["d2b_before"], a["d2b_before"], 1e-4, f"tick {b['tick']}")

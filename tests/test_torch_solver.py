@@ -77,9 +77,13 @@ def test_unfused_sweep_path_agrees_with_the_fused_one(clusters):
 
 
 def test_unported_paths_raise(clusters):
+    """The delta solve over dirty shards routes to the sharded fleet solver,
+    which is not ported: a controller without a standing shard count raises
+    when a tick brings ``dirty_shards`` with ``num_shards``."""
     _, ct = clusters
+    ctl = P.BalanceController(ct, P.ControllerConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.Sptlb(ct, device="cpu").balance("optimal", config=P.CoopConfig(shed=object()))
+        ctl.step(P.TickInput(now=0, dirty_shards=(0,), num_shards=2))
 
 
 def test_commit_scan_keeps_loads_consistent_and_stops_when_converged(clusters):
