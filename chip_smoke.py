@@ -47,16 +47,21 @@ Phases (each raises on failure, so the script exits non-zero):
      The optimal engine (phase 3f): ``_optimize`` on the card (256 Adam
      steps at the padded N, ms a step, reproducible), ``optimal_round``
      bit for bit against its plain version on that P (timed beside its
-     plain version, bytes bound and chain floor, and its whole ``_round``
-     call) and on seeded inputs (``kernels.optimal_round.round_case``: the
-     budget, capacity, tied rows binding and every move rejected, at
-     (131,072, 5, 2), (8,193, 5, 3), (1,001, 1, 1), (100,003, 17, 4)); the
-     N=100,000 ``balance("optimal", timeout_s=30)`` in manual_cnst and
-     no_cnst with the counts zeroed just before each (``optimal_round`` at
-     least once a round, ``move_eval_best`` and ``commit_topk``, and
-     ``pack_ffd_tiers`` for manual_cnst), valid, no worse than the start,
-     the same digest on a repeat; the N=300 optimal pass on the card
-     against the CPU's plain path; the idle share of the profiled solve.
+     plain version, bytes bound and chain floor, its staging and walk
+     launches alone, and its whole ``_round`` call with the torch work
+     before the kernel part by part) and on seeded inputs
+     (``kernels.optimal_round.round_case``: the budget, capacity, tied rows
+     binding and every move rejected, at (131,072, 5, 2), each timed beside
+     its chain floor with its cycles a walked mover, then at (8,193, 5, 3),
+     (1,001, 1, 1), (100,003, 17, 4)) and at the walk's block edges
+     (``round_edge_cases``, each with its stated status); the N=100,000
+     ``balance("optimal", timeout_s=30)`` in manual_cnst and no_cnst with
+     the counts zeroed just before each (``optimal_round`` at least once a
+     round, each launch on the body ``choose_body`` names, ``move_eval_best``
+     and ``commit_topk``, and ``pack_ffd_tiers`` for manual_cnst), valid, no
+     worse than the start, the same digest on a repeat; the N=300 optimal
+     pass on the card against the CPU's plain path; the idle share of the
+     profiled solve.
      The control loop (phase 3g): ``BalanceController.step`` for 12 ticks
      on the N=100,000 cluster with utility curves (``attach_curves``), a
      ``LoadShedder`` at 0.8 of capacity, fault tolerance armed and an
@@ -110,7 +115,9 @@ Phases (each raises on failure, so the script exits non-zero):
      ``{"ok": true, "device": {...}}`` line.
 
 ``python3 chip_smoke.py --probe SRC`` runs only the balancing slice of the
-``repro_torch`` package under SRC and prints one JSON line (see ``probe``):
+``repro_torch`` package under SRC, with the rounding kernel on the main
+path's P and every ``round_case`` kind at (131,072, 5, 2), and prints one
+JSON line (see ``probe``):
 run it on this tree's ``src`` and on a ``git archive`` of another commit's,
 in turns, to compare the two on one card.
 
@@ -168,6 +175,10 @@ OPTIMAL_ROUND_SRC = "src/repro_torch/kernels/csrc/optimal_round.cu"
 # T = 1, and ragged N with 17 tiers and 4 resources.
 OPTIMAL_STEPS = 256
 ROUND_SHAPES = ((131_072, 5, 2), (8_193, 5, 3), (1_001, 1, 1), (100_003, 17, 4))
+# The rounding walk's chain floor a walked mover: one dependent f32 add, 4
+# cycles on Volta and later SMs (the pack's chain, an add and a compare on
+# it, takes 8).
+ROUND_CHAIN_CYCLES = 4
 # The control loop (phase 3g): 12 ticks of ``BalanceController.step`` at the
 # slice's N=100,000 with a LoadShedder serving at most 0.8 of capacity: ticks
 # 0-1 at base load, 2-4 with the offered load at 1.15 x that target, 5-8 at
@@ -638,16 +649,20 @@ def round_work(args, status) -> tuple[float, float, int]:
     return float(nbytes), float(nops), scanned
 
 
-def check_round(label, args, record, *, clock_mhz, timed=False) -> dict:
+def check_round(label, args, record, *, clock_mhz, timed=False, plain=True) -> dict:
     """Hold the rounding kernel (launched directly, so it adds no count)
     against its plain version on CPU copies of the same inputs (f32 adds
     and compares round the same on both): status, assignment and tier loads
-    bit for bit.  When ``timed``, time both on the card and give the bytes
-    bound and the chain floor: the walk is a chain over the movers, so no
-    kernel can beat the movers walked times one dependent f32 add and
-    compare (8 cycles) at the card's highest SM clock."""
+    bit for bit.  When ``timed``, time it on the card (and its plain version
+    when ``plain``), with its staging and walk launches alone on the
+    "registers" body, and give the bytes bound and the chain floor: the walk
+    is a chain over the movers, each of which adds to the loads that the
+    next one's fit test reads, so no kernel can beat the movers walked times
+    one dependent f32 add (ROUND_CHAIN_CYCLES) at the card's highest SM
+    clock (the fit tests of a block, its vote and the budget's count can be
+    taken off that chain, as the "registers" body takes them)."""
     import torch
-    from repro_torch.kernels.optimal_round import optimal_round_cuda
+    from repro_torch.kernels import optimal_round as K
     from repro_torch.kernels.ref import optimal_round_ref
 
     fixed = args[:2] + args[5:]
@@ -659,7 +674,7 @@ def check_round(label, args, record, *, clock_mhz, timed=False) -> dict:
         return fn(*fixed[:2], *state, *fixed[2:])
 
     state = fresh()
-    got = call(optimal_round_cuda, state)
+    got = call(K.optimal_round_cuda, state)
     cpu = [a.cpu().clone() for a in args]
     want = optimal_round_ref(*cpu)
     torch.cuda.synchronize()
@@ -671,27 +686,43 @@ def check_round(label, args, record, *, clock_mhz, timed=False) -> dict:
             raise AssertionError(f"optimal_round {label}: {name} differ, max abs {err:.3e}")
     N, R = args[6].shape
     T = args[8].shape[0]
+    body = K.choose_body(T, R)
     accepted, walked = want.tolist()
     movers = int((args[1] != args[5].long()).sum())
     head = (f"optimal_round  {label:>22}: N={N} T={T} R={R} budget {int(args[11])}, movers "
-            f"{movers}, walked {walked}, accepted {accepted}, bit-identical")
+            f"{movers}, walked {walked}, accepted {accepted}, {body} body, bit-identical")
     if not timed:
         print(head, flush=True)
-        return {"accepted": accepted, "walked": walked, "movers": movers}
+        return {"accepted": accepted, "walked": walked, "movers": movers, "body": body}
     pool = [fresh() for _ in range(24)]
-    ms = time_ms(lambda: call(optimal_round_cuda, pool.pop()))
-    plain_pool = [fresh() for _ in range(4)]
-    plain_ms = time_ms(lambda: call(optimal_round_ref, plain_pool.pop()), reps=3, warmup=1)
+    ms = time_ms(lambda: call(K.optimal_round_cuda, pool.pop()))
+    parts = ""
+    stage_ms = walk_ms = None
+    if body == "registers":
+        scratch = K.staging_buffer(args)
+        stage_ms = time_ms(lambda: K.stage(args, scratch))
+        pool = [fresh() for _ in range(24)]
+        walk_ms = time_ms(lambda: K.walk(fixed[:2] + pool.pop() + fixed[2:], scratch))
+        walk_cycles = walk_ms * 1e-3 * clock_mhz * 1e6 / max(walked, 1)
+        parts = (f", staging alone {stage_ms:.4f} ms, walk alone {walk_ms:.4f} ms "
+                 f"({walk_cycles:.1f} cycles a walked mover)")
+    plain_ms = None
+    if plain:
+        plain_pool = [fresh() for _ in range(4)]
+        plain_ms = time_ms(lambda: call(optimal_round_ref, plain_pool.pop()), reps=3, warmup=1)
+        parts += f", plain {plain_ms:.2f} ms on the card (median of 3)"
     nbytes, nops, scanned = round_work(args, want)
     b, by = bound_ms(nbytes, nops)
-    floor = walked * 8 / (clock_mhz * 1e6) * 1e3
+    floor = walked * ROUND_CHAIN_CYCLES / (clock_mhz * 1e6) * 1e3
     cycles = ms * 1e-3 * clock_mhz * 1e6 / max(walked, 1)
     print(f"{head}, kernel {ms:.4f} ms ({cycles:.1f} cycles a walked mover at {clock_mhz:.0f} "
-          f"MHz), plain {plain_ms:.2f} ms on the card (median of 3), bound {b:.6f} ms ({by}; "
-          f"{scanned} positions scanned), chain floor {floor:.4f} ms ({walked} movers x 8 "
-          f"cycles), kernel / max(bound, floor) {ms / max(b, floor):.3f}", flush=True)
+          f"MHz){parts}, bound {b:.6f} ms ({by}; {scanned} positions scanned), chain floor "
+          f"{floor:.4f} ms ({walked} movers x {ROUND_CHAIN_CYCLES} cycles), kernel / max(bound, floor) "
+          f"{ms / max(b, floor):.3f}", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-            "chain_floor_ms": floor, "accepted": accepted, "walked": walked}
+            "chain_floor_ms": floor, "accepted": accepted, "walked": walked, "movers": movers,
+            "body": body,
+            "stage_ms": stage_ms, "walk_ms": walk_ms, "cycles_a_mover": cycles}
 
 
 def device_profile(fn) -> dict:
@@ -1475,8 +1506,9 @@ def optimal_phase(cluster, pp, obj0: float, record, dev, *, clock_mhz) -> dict:
     version: on the main path's own P (the port's ``_optimize`` on the card,
     256 steps at the padded N, timed a step) and on synthetic inputs
     (``kernels.optimal_round.round_case``: every kind at the main path's
-    shape, then the other shapes of ``ROUND_SHAPES``), the main path's timed
-    beside its bound and chain floor.  (b) The N=100k optimal balance,
+    shape, then the other shapes of ``ROUND_SHAPES``; ``round_edge_cases``),
+    the main path's and every kind at its shape timed beside the bound and
+    the chain floor.  (b) The N=100k optimal balance,
     manual_cnst and no_cnst, each with the counts zeroed just before and read
     just after and once more for its digest.  (c) The N=300 optimal balance
     on the card against the CPU's plain path, and a profiled optimal solve."""
@@ -1484,9 +1516,11 @@ def optimal_phase(cluster, pp, obj0: float, record, dev, *, clock_mhz) -> dict:
     import torch
     from repro_torch.core import (CoopConfig, OptimalSearchConfig, Sptlb, generate_cluster,
                                   solve_optimal)
+    from repro_torch.core.problem import tier_loads
     from repro_torch.core.solver_optimal import _optimize, _round, round_inputs, start_noise
     from repro_torch.kernels import ops
-    from repro_torch.kernels.optimal_round import ROUND_KINDS, round_case
+    from repro_torch.kernels.optimal_round import (ROUND_KINDS, body_launches, round_case,
+                                                   round_edge_cases)
 
     cfg = OptimalSearchConfig(steps=OPTIMAL_STEPS, seed=0)
     adam = dict(lr=cfg.lr, penalty=cfg.penalty, entropy=cfg.entropy)
@@ -1506,19 +1540,42 @@ def optimal_phase(cluster, pp, obj0: float, record, dev, *, clock_mhz) -> dict:
     main = check_round(f"main path N={pp.num_apps}", round_inputs(pp, probs), record,
                        clock_mhz=clock_mhz, timed=True)
     main["whole_call_ms"] = time_ms(lambda: _round(pp, probs))
+    # What the whole call runs in torch before the kernel, part by part.
+    p_target = torch.max(probs, dim=1)[0]
+    gain = p_target - torch.gather(probs, 1, pp.assignment0.long()[:, None])[:, 0]
+    prep = {"argmax and gain": lambda: torch.max(probs, dim=1)[0] - torch.gather(
+                probs, 1, pp.assignment0.long()[:, None])[:, 0],
+            "stable sort": lambda: torch.sort(-gain, stable=True),
+            "start loads": lambda: tier_loads(pp, pp.assignment0),
+            "feasibility mask": lambda: pp.feasible_mask(),
+            "all of round_inputs": lambda: round_inputs(pp, probs)}
+    main["prep_ms"] = {name: time_ms(fn) for name, fn in prep.items()}
     print(f"  _round whole call (argmax, gain, stable sort, start loads, copies, kernel): "
-          f"{main['whole_call_ms']:.4f} ms", flush=True)
+          f"{main['whole_call_ms']:.4f} ms; before the kernel: " + ", ".join(
+              f"{name} {ms:.4f} ms" for name, ms in main["prep_ms"].items()), flush=True)
+    main["kinds"] = {}
     for N, T, R in ROUND_SHAPES:
         for kind in ROUND_KINDS:
+            # every kind at the main path's shape is timed, beside its floor
+            timed = (N, T, R) == ROUND_SHAPES[0]
             got = check_round(f"{kind} N={N},T={T},R={R}",
                               round_case(N, T, R, kind, seed=N + T + R, device=dev), record,
-                              clock_mhz=clock_mhz)
+                              clock_mhz=clock_mhz, timed=timed, plain=False)
+            if timed:
+                main["kinds"][kind] = {k: got[k] for k in (
+                    "ms", "stage_ms", "walk_ms", "chain_floor_ms", "cycles_a_mover", "walked",
+                    "accepted")}
             if T > 1 and kind == "budget" and not got["walked"] < got["movers"]:
                 raise AssertionError(f"{kind} N={N}: the budget did not bind")
             if T > 1 and kind in ("capacity", "overfull") and got["accepted"] == got["walked"]:
                 raise AssertionError(f"{kind} N={N}: capacity did not bind")
             if T > 1 and kind == "ties" and got["accepted"] == 0:
                 raise AssertionError(f"{kind} N={N}: no move accepted")
+
+    for name, (args, want) in round_edge_cases(device=dev).items():
+        got = check_round(f"edge {name}", args, record, clock_mhz=clock_mhz)
+        if (got["accepted"], got["walked"]) != want:
+            raise AssertionError(f"optimal_round edge {name}: status {got} != {want}")
 
     runs = {}
     for variant in ("manual_cnst", "no_cnst"):
@@ -1530,6 +1587,7 @@ def optimal_phase(cluster, pp, obj0: float, record, dev, *, clock_mhz) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches = dict(ops.launch_counts)
+        bodies = dict(body_launches)
         tm = d.cooperation.timings
         digest = assignment_digest(d.assignment)
         rep = Sptlb(cluster, device=dev).balance("optimal", timeout_s=30, config=coop)
@@ -1541,7 +1599,8 @@ def optimal_phase(cluster, pp, obj0: float, record, dev, *, clock_mhz) -> dict:
               f"{d.solve.extra['refine']['sweeps']}, moved {d.violations.num_moved}/"
               f"{d.violations.move_budget}, solve_s {tm['solve_s']:.4f}, pack_s "
               f"{tm.get('pack_s', 0.0):.4f}, balance wall {wall:.4f} s, digest {digest}, repeat "
-              f"the same {same}, launches {launches}", flush=True)
+              f"the same {same}, launches {launches}, optimal_round bodies {bodies}",
+              flush=True)
         if not d.violations.ok:
             raise AssertionError(f"optimal {variant}: violations {d.violations}")
         if not (np.isfinite(obj) and obj <= obj0):
@@ -1556,7 +1615,11 @@ def optimal_phase(cluster, pp, obj0: float, record, dev, *, clock_mhz) -> dict:
                 raise AssertionError(f"optimal {variant}: launched {name} no time")
         if not same:
             raise AssertionError(f"optimal {variant}: a repeat pass gave another mapping")
-        runs[variant] = {"wall_s": wall, "launches": launches, "rounds": tm["rounds"]}
+        if sum(bodies.values()) != launches["optimal_round"]:
+            raise AssertionError(f"optimal {variant}: bodies {bodies} for "
+                                 f"{launches['optimal_round']} launches")
+        runs[variant] = {"wall_s": wall, "launches": launches, "rounds": tm["rounds"],
+                         "bodies": bodies}
 
     # (c) agreement with the plain path on a small input, as phase 3e.
     small = generate_cluster(num_apps=300, seed=3, device="cpu")
@@ -1807,8 +1870,10 @@ def probe(src: str) -> int:
     solver's arguments to (score, tier), with the totals where the wrapper
     takes them) and its kernel alone, the same two for the full sweep
     (``move_eval``), two N=100,000 passes (wall-clock, solve_s, pack_s, rounds,
-    sweeps, objective and mapping digest) and the pack kernel on the last
-    proposal."""
+    sweeps, objective and mapping digest), the pack kernel on the last
+    proposal, and the rounding kernel (its wrapper, from the solver's
+    arguments) on the main path's P (the tree's own ``_optimize``, 256 Adam
+    steps) and on every ``round_case`` kind at (131,072, 5, 2)."""
     sys.path.insert(0, os.path.abspath(src))
     import inspect
 
@@ -1869,12 +1934,37 @@ def probe(src: str) -> int:
     dd, cc = torch.as_tensor(dem, device=dev), torch.as_tensor(cluster.host_capacity, device=dev)
     hh = torch.as_tensor(cluster.hosts_per_tier.astype(np.int32), device=dev)
     pack_ms = time_ms(lambda: pack_ffd_tiers_cuda(dd, cc, hh, num_hosts_pad=host._hosts_pad))
+    round_ms = probe_round(pp, dev)
     print(json.dumps({"probe": src, "card": card_line(), "sweep_whole_call_ms": sweep_ms,
                       "sweep_totals_given": bool(kw), "sweep_kernel_ms": kernel_ms,
                       "eval_whole_call_ms": eval_ms, "eval_totals_given": bool(kw_e),
                       "eval_kernel_ms": eval_kernel_ms,
-                      "pack_ms": pack_ms, "passes": passes}), flush=True)
+                      "pack_ms": pack_ms, "passes": passes, "round_ms": round_ms}), flush=True)
     return 0
+
+
+def probe_round(pp, dev) -> dict:
+    """``--probe``'s rounding times: the kernel's wrapper on fresh copies of
+    x and the loads, at the main path's P and at every kind of
+    ``round_case`` at (131,072, 5, 2), with each status."""
+    from repro_torch.core import OptimalSearchConfig
+    from repro_torch.core.solver_optimal import _optimize, round_inputs, start_noise
+    from repro_torch.kernels.optimal_round import ROUND_KINDS, optimal_round_cuda, round_case
+
+    cfg = OptimalSearchConfig(steps=OPTIMAL_STEPS, seed=0)
+    probs = _optimize(pp, start_noise(pp, cfg.seed), steps=cfg.steps, lr=cfg.lr,
+                      penalty=cfg.penalty, entropy=cfg.entropy)
+    cases = {"main": round_inputs(pp, probs)}
+    N, T, R = ROUND_SHAPES[0]
+    for kind in ROUND_KINDS:
+        cases[kind] = round_case(N, T, R, kind, seed=N + T + R, device=dev)
+    out = {}
+    for name, args in cases.items():
+        pool = [(args[2].clone(), args[3].clone(), args[4].clone()) for _ in range(24)]
+        status = optimal_round_cuda(*args[:2], *pool.pop(), *args[5:]).tolist()
+        ms = time_ms(lambda: optimal_round_cuda(*args[:2], *pool.pop(), *args[5:]))
+        out[name] = {"ms": ms, "status": status}
+    return out
 
 
 def main() -> int:
@@ -2234,7 +2324,13 @@ def main() -> int:
          "launches_by_path": {v: r["launches"]["optimal_round"]
                               for v, r in optimal["runs"].items()},
          "max_abs_err": record["optimal_round"]["max_abs_err"],
-         "ms": optimal["main"]["ms"], "whole_call_ms": optimal["main"]["whole_call_ms"],
+         "bodies": {b: sum(r["bodies"][b] for r in optimal["runs"].values())
+                    for b in ("registers", "shared")},
+         "ms": optimal["main"]["ms"], "stage_ms": optimal["main"]["stage_ms"],
+         "walk_ms": optimal["main"]["walk_ms"],
+         "whole_call_ms": optimal["main"]["whole_call_ms"],
+         "before_kernel_ms": optimal["main"]["prep_ms"]["all of round_inputs"],
+         "kinds_ms": {k: v["ms"] for k, v in optimal["main"]["kinds"].items()},
          "plain_ms": optimal["main"]["plain_ms"],
          "bound_ms": optimal["main"]["bound_ms"], "bound_by": optimal["main"]["bound_by"],
          "chain_floor_ms": optimal["main"]["chain_floor_ms"], "library_ms": None},

@@ -47,7 +47,10 @@ SIGNATURES = {
         "commit_topk_launch": [_I, _I, _I] + [_P] * 17 + [_F, _F, _P, _P],
     },
     "optimal_round": {
-        "optimal_round_launch": [_I, _I, _I] + [_P] * 14,
+        "optimal_round_stage": [_I] * 3 + [_P] * 8,
+        "optimal_round_walk": [_I] * 3 + [_P] * 9,
+        "optimal_round_shared": [_I] * 3 + [_P] * 14,
+        "optimal_round_scratch_words": [_I, _I, _I],
     },
     "pack": {
         "pack_ffd_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P],
@@ -62,6 +65,9 @@ SIGNATURES = {
         "ssd_chunk_launch": [_I] * 7 + [_P] * 9,
     },
 }
+
+# Return types other than int.
+RESTYPES = {"optimal_round_scratch_words": ctypes.c_longlong}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -138,7 +144,7 @@ def load_library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             for fn, argtypes in SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).restype = RESTYPES.get(fn, ctypes.c_int)
             lib.cuda_error_string.argtypes = [ctypes.c_int]
             lib.cuda_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib

@@ -20,10 +20,11 @@ launch_counts = {"move_eval": 0, "move_eval_best": 0, "commit_topk": 0, "pack_ff
 
 
 def reset_launch_counts() -> None:
-    """Zero every kernel's count, and the flash attention body counts."""
-    from repro_torch.kernels.flash_attention import body_launches
+    """Zero every kernel's count, and the flash attention and rounding
+    body counts."""
+    from repro_torch.kernels import flash_attention, optimal_round
 
-    for counts in (launch_counts, body_launches):
+    for counts in (launch_counts, flash_attention.body_launches, optimal_round.body_launches):
         for name in counts:
             counts[name] = 0
 

@@ -30,7 +30,8 @@ import torch
 import repro_torch.core as P
 from repro_torch.core.delta import move_best_per_app, move_delta_cost
 from repro_torch.kernels import ops
-from repro_torch.kernels.optimal_round import ROUND_KINDS, round_case
+from repro_torch.kernels import optimal_round as K_round
+from repro_torch.kernels.optimal_round import ROUND_KINDS, round_case, round_edge_cases
 from repro_torch.kernels.pack import pack_edge_cases, pack_ffd, pack_ffd_tiers
 from repro_torch.kernels.ref import (commit_topk_ref, flash_attention_ref, flash_decode_ref,
                                     optimal_round_ref, pack_ffd_tiers_ref, random_problem_arrays,
@@ -678,10 +679,10 @@ def _round_both(args):
 @pytest.mark.parametrize("N,T,R", [(131_072, 5, 2), (100_003, 17, 4), (8_193, 5, 3),
                                    (1_001, 1, 1), (300, 5, 2)])
 def test_optimal_round_kernel_matches_plain_version(cuda_device, kind, N, T, R):
-    """Tiles of 4096 positions: N = 131,072 (32 tiles) on a tile edge, 8,193
-    (two tiles and one) one past it, 100,003, 1,001 and 300 ragged; T = 1 (no
-    movers); R = 1 to 4; the budget, capacity or tied rows binding, and every
-    move rejected."""
+    """Staging chunks of 1,024 positions: N = 131,072 (128 chunks) on a chunk
+    edge, 8,193 one past it, 100,003, 1,001 and 300 ragged; T = 1 (no
+    movers); R = 1 to 4, one to three columns a lane; the budget, capacity
+    or tied rows binding, and every move rejected."""
     args = round_case(N, T, R, kind, seed=N + T + R, device=cuda_device)
     movers = int((args[1] != args[5].long()).sum())
     accepted, walked = _round_both(args)
@@ -697,13 +698,47 @@ def test_optimal_round_kernel_matches_plain_version(cuda_device, kind, N, T, R):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(round_edge_cases()))
+def test_optimal_round_block_edges(cuda_device, name):
+    """The "registers" body's rounds at their edges: 31, 32, 33 and 63, 64,
+    65 movers (a lane's two movers of a 64-mover round, a 32-mover ballot
+    round); a rejection at the first and last mover of a round, also at
+    three columns a lane (rounds of 32); the budget spent at a round's edge
+    and one past it; a mover that fails only because an earlier one of its
+    round filled its target; a block of infeasible movers; dense and
+    run-length rejections; more movers than the ring holds), bit for bit."""
+    args, want = round_edge_cases(device=cuda_device)[name]
+    assert K_round.choose_body(args[8].shape[0], args[6].shape[1]) == "registers"
+    assert tuple(_round_both(args)) == want
+    assert K_round.body_launches == {"registers": 1, "shared": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ROUND_KINDS)
+@pytest.mark.parametrize("T,R,body", [(32, 3, "registers"), (33, 3, "shared"),
+                                      (25, 4, "registers"), (26, 4, "shared")])
+def test_optimal_round_wide_tables_on_both_bodies(cuda_device, kind, T, R, body):
+    """Tables on each side of the registers body's 128 columns (T * (R + 1)
+    = 128 and 132, 125 and 130), each on the body ``choose_body`` names,
+    bit for bit."""
+    args = round_case(20_000, T, R, kind, seed=T + R, device=cuda_device)
+    _round_both(args)
+    assert K_round.body_launches == {"registers": int(body == "registers"),
+                                     "shared": int(body == "shared")}
+
+
+@pytest.mark.cuda
 def test_optimal_round_refuses_what_it_cannot_take(cuda_device):
-    """R > 4 is refused before the launch; T = 4,000 tiers at R = 4 do not fit
-    the shared memory beside the tile of movers, and the launch refuses them."""
+    """R > 4 is refused before the launch (``choose_body``); T = 4,000 tiers
+    at R = 4 go to the "shared" body, whose tables do not fit the shared
+    memory beside its tile of movers, and its launch refuses them; neither
+    falls back on the other body."""
     for T, R, err in ((5, 5, ValueError), (4_000, 4, RuntimeError)):
         args = round_case(300, T, R, "free", seed=0, device=cuda_device)
+        ops.reset_launch_counts()
         with pytest.raises(err):
             ops.optimal_round(*args)
+        assert K_round.body_launches == {"registers": 0, "shared": 0}
 
 
 @pytest.mark.cuda

@@ -47,6 +47,8 @@ from repro_torch import from_reference
 from repro_torch.core import goals as PG
 from repro_torch.core import solver_optimal as PO
 from repro_torch.core.sptlb import engine_fn
+from repro_torch.kernels.optimal_round import choose_body, round_edge_cases
+from repro_torch.kernels.ref import optimal_round_ref
 
 from _torch_port import assert_rel, host, reference_problem_arrays
 
@@ -155,6 +157,41 @@ def test_round_given_reference_probs_is_bit_identical(ref, case):
         gain = probs.max(axis=1) - probs[np.arange(len(a0)), a0]
         tied = (gain == 0) & (target != a0)
         assert tied.sum() > 0 and (xj[tied] == target[tied]).sum() > 0
+
+
+@pytest.mark.parametrize("T,R,body", [
+    (5, 2, "registers"), (5, 3, "registers"), (1, 1, "registers"), (17, 4, "registers"),
+    (32, 3, "registers"), (33, 3, "shared"), (25, 4, "registers"), (26, 4, "shared"),
+    (4_000, 4, "shared"), (64, 1, "registers"), (65, 1, "shared"), (43, 2, "shared")])
+def test_round_body_follows_the_table_shape(T, R, body):
+    """The rounding kernel's body from (T, R) alone, no card needed: the
+    smoke's and the card tests' shapes (5 x 3, 5 x 4, 17 x 5, 1 x 2 columns)
+    and up to 128 columns take the registers body, wider tables the shared
+    one (T = 4,000 at R = 4 there, which its launch refuses); R > 4 neither."""
+    assert choose_body(T, R) == body
+    with pytest.raises(ValueError):
+        choose_body(5, 5)
+
+
+@pytest.mark.parametrize("name", sorted(round_edge_cases()))
+def test_round_edge_cases_give_their_stated_status(name):
+    """Each of the card tests' block-edge cases does what its name says: the
+    plain version gives its stated (accepted, walked), and in
+    ``filled_by_earlier`` mover 9 alone would fit its target but mover 5
+    fills it first."""
+    args, want = round_edge_cases()[name]
+    x = args[2].clone()
+    status = optimal_round_ref(args[0], args[1], x, args[3].clone(), args[4].clone(),
+                               *args[5:])
+    assert tuple(status.tolist()) == want
+    movers = torch.nonzero(args[1] != args[5].long())[:, 0]
+    assert int((x != args[5]).sum()) == want[0]
+    if name == "filled_by_earlier":
+        i, j = movers[5], movers[9]
+        t = int(args[1][j])
+        assert int(args[1][i]) == t and int(x[i]) == t and int(x[j]) == int(args[5][j])
+        room = args[8][t] + 1e-6 - args[3][t]
+        assert bool((args[6][j] <= room).all())
 
 
 @pytest.mark.parametrize("steps", [40, 300])
