@@ -76,6 +76,24 @@ Phases (each raises on failure, so the script exits non-zero):
      the card and on the CPU's plain path gives the same per-tick fields.
      Each tick's wall-clock split into the shed plan, the admissions and the
      balance's ``solve_s``.
+     The sharded fleet solver (phase 3h): ``synthetic_fleet(1_000_000,
+     num_tiers=64, seed=9)`` and ``solve_fleet(cluster,
+     FleetConfig(num_shards=8, timeout_s=30))`` once warm and once measured
+     with the counts zeroed just before: partition, solve, merge and
+     coordinator seconds, apps/s, sweeps a shard, the start and final
+     objective (beside the reference's CPU record), the digest on a repeat;
+     gated on no stranded app, buckets (131,072, 9), a valid mapping (the
+     objectives are printed: this fleet starts balanced and the pass raises
+     its global objective, in the reference as well), the same digest, one
+     launch of each shard-batched kernel a sweep
+     for all 8 shards (and none of the unbatched ones), and each shard equal
+     to ``solve_local`` on that shard alone bit for bit; a delta pass over
+     dirty shards (0, 3) (the dirty ones as in the full pass, the clean ones
+     at their incumbents); both batched kernels against their plain versions
+     and the unbatched kernels on each shard at 8 x 131,072 x 9 and
+     32 x 65,536 x 3 with some shards inactive, bit for bit, each timed
+     beside its plain version, its bound and the unbatched kernel launched
+     once a shard.
   4. The dense serving slice: ``flash_attention`` and ``flash_decode`` against
      their plain versions at the serve path's shapes (prefill B=8, S=1024,
      H=16, KV=2, D=128 in bf16 and f32; a window + softcap case at D=256,
@@ -111,7 +129,8 @@ Phases (each raises on failure, so the script exits non-zero):
      which must agree within 1e-3 of the largest logit.
   6. A ``{"kernels": [...]}`` line (the flash kernels' launches summed over
      both serving runs, the scheduling kernels' over the balance pass and
-     the control loop), then the card line again, then the final
+     the control loop, the shard-batched ones' over the measured fleet
+     pass), then the card line again, then the final
      ``{"ok": true, "device": {...}}`` line.
 
 ``python3 chip_smoke.py --probe SRC`` runs only the balancing slice of the
@@ -190,6 +209,24 @@ CONTROL_OVERLOAD = 1.15
 CONTROL_TARGET = 0.8
 CONTROL_ARRIVALS = 64
 CONTROL_SMALL_N = 300
+# The sharded fleet (phase 3h): the reference's own million-app case
+# (benchmarks/solver_scale.py::bench_shard_scale: synthetic_fleet(N,
+# num_tiers=64, seed=9), FleetConfig(num_shards=8, timeout_s=30)), the
+# buckets the reference's CPU run recorded for it and its objective there
+# (BENCH_solver.json shard_scale/N1000000_S8; printed for information, not
+# a gate), the second shape the batched kernels are held at (32 shards:
+# 65,536 x 3), the shards each check leaves inactive, and the delta pass's
+# dirty shards.
+FLEET_APPS = 1_000_000
+FLEET_TIERS = 64
+FLEET_SEED = 9
+FLEET_SHARDS = 8
+FLEET_BUCKETS = (131_072, 9)
+FLEET_REFERENCE_OBJECTIVE = 20.95606803894043
+FLEET_WIDE_SHARDS = 32
+FLEET_INACTIVE = {FLEET_SHARDS: (1, 5), FLEET_WIDE_SHARDS: tuple(range(0, 32, 4))}
+FLEET_DIRTY = (0, 3)
+
 # The serving slice: full-width qwen2.5-3b, 16 requests in waves of 8 slots,
 # prompts of 128-1024 tokens drawn from the seed, 32 new tokens each; the
 # cache holds the longest prompt, the new tokens and the reference CLI's 8
@@ -1842,6 +1879,259 @@ def control_phase(dev) -> dict:
     return {"run": run, "again": again}
 
 
+def batched_sweep_work(args, active) -> tuple[float, float]:
+    """(bytes, f32 ops) of one shard-batched sweep: ``sweep_bytes`` and
+    ``sweep_ops`` of each active shard, the (score, tier) written for each
+    inactive one, and each shard's flag, budget and totals."""
+    S, N, R = args[0].shape
+    T = args[5].shape[1]
+    act = int(active.sum())
+    nbytes = act * sweep_bytes(N, T, R, True) + (S - act) * N * 8 + S * (4 + 4 + 8)
+    return float(nbytes), act * sweep_ops(N, T, R, True)
+
+
+def check_batched(label, sharded, record, dev) -> dict:
+    """Hold both shard-batched kernels, at the start of ``sharded``'s solve
+    with the shards ``FLEET_INACTIVE`` names left inactive, against their
+    plain versions and against the unbatched kernels on each shard alone,
+    bit for bit; then time each (the sweep as the whole call and the kernel
+    alone; the unbatched kernels once a shard for comparison) beside its
+    plain version and its bound."""
+    import torch
+    from repro_torch.core.solver_local import batched_start
+    from repro_torch.kernels import move_eval as K
+    from repro_torch.kernels.commit import commit_topk_batched_cuda, commit_topk_cuda
+    from repro_torch.kernels.ref import commit_topk_batched_ref, move_eval_best_batched_ref
+
+    sp = sharded.problems
+    x, util, tasks, feas, budget, totals, wvec = batched_start(sp)
+    S, N = x.shape
+    T = sp.capacity.shape[1]
+    active = torch.tensor([s not in FLEET_INACTIVE[S] for s in range(S)], device=dev)
+    live = [s for s in range(S) if bool(active[s])]
+    args = (sp.demand, sp.tasks, sp.criticality, x, sp.assignment0, sp.capacity,
+            sp.task_limit, sp.ideal_frac, sp.ideal_task_frac, util, tasks, wvec, feas, budget)
+    shard_args = [tuple(a[s] for a in args) for s in range(S)]
+
+    # -- the sweep ---------------------------------------------------------------
+    inputs = K.best_inputs_batched(*args, totals=totals, active=active)
+    s_k, t_k = K.launch_move_eval_best_batched(inputs)
+    s_p, t_p = move_eval_best_batched_ref(*args, active=active)
+    same_1 = all(torch.equal(s_k[s], o[0]) and torch.equal(t_k[s], o[1]) for s, o in
+                 ((s, K.move_eval_best_cuda(*shard_args[s], totals=totals[s])) for s in live))
+    torch.cuda.synchronize()
+    finite = torch.isfinite(s_p)
+    err = float((s_k[finite] - s_p[finite]).abs().max()) if bool(finite.any()) else 0.0
+    exact = torch.equal(s_k, s_p) and torch.equal(t_k, t_p)
+    if not (exact and same_1):
+        raise AssertionError(f"move_eval_best_batched {label}: plain version equal {exact} "
+                             f"(max abs err {err:.3e}), unbatched kernel equal {same_1}")
+    record["move_eval_best_batched"]["max_abs_err"] = max(
+        record["move_eval_best_batched"]["max_abs_err"], err)
+    b, by = bound_ms(*batched_sweep_work(args, active))
+    sweep = {"ms": time_ms(lambda: K.move_eval_best_batched_cuda(*args, totals=totals,
+                                                                 active=active)),
+             "kernel_ms": time_ms(lambda: K.launch_move_eval_best_batched(inputs)),
+             "unbatched_ms": time_ms(lambda: [K.move_eval_best_cuda(*shard_args[s],
+                                                                    totals=totals[s])
+                                              for s in live]),
+             "plain_ms": time_ms(lambda: move_eval_best_batched_ref(*args, active=active),
+                                 reps=5, warmup=1),
+             "bound_ms": b, "bound_by": by}
+    print(f"move_eval_best_batched {label} ({S} x {N} x {T}, {len(live)} active): bit for bit "
+          f"the plain version and the unbatched kernel on each shard; whole call "
+          f"{sweep['ms']:.4f} ms, kernel alone {sweep['kernel_ms']:.4f} ms, the unbatched "
+          f"kernel once an active shard {sweep['unbatched_ms']:.4f} ms, plain "
+          f"{sweep['plain_ms']:.4f} ms, bound {b:.4f} ms ({by})", flush=True)
+
+    # -- the commit ---------------------------------------------------------------
+    cand_n = torch.sort(s_k, dim=1, stable=True).indices[:, :COMMIT_K].contiguous()
+    neg_tol, batch_quality = commit_config()
+    knobs = dict(neg_tol=neg_tol, batch_quality=batch_quality)
+    tail = (sp.demand, sp.tasks, sp.criticality, sp.assignment0, sp.capacity, sp.task_limit,
+            sp.ideal_frac, sp.ideal_task_frac, wvec, totals, budget)
+
+    def fresh():
+        return [x.clone(), util.clone(), tasks.clone()]
+
+    got, want, one = fresh(), fresh(), fresh()
+    st_k = commit_topk_batched_cuda(cand_n, s_k, t_k, *got, *tail, active, **knobs)
+    st_p = commit_topk_batched_ref(cand_n, s_k, t_k, *want, *tail, active, **knobs)
+    same_1 = True
+    for s in live:
+        st_1 = commit_topk_cuda(cand_n[s], s_k[s], t_k[s], *(v[s] for v in one),
+                                *(a[s] for a in tail), **knobs)
+        same_1 = same_1 and torch.equal(st_k[s], st_1)
+    same_1 = same_1 and all(torch.equal(a, c) for a, c in zip(got, one))
+    torch.cuda.synchronize()
+    exact = torch.equal(st_k, st_p) and all(torch.equal(a, c) for a, c in zip(got, want))
+    err = max(float((a - c).abs().max()) for a, c in zip(got[1:], want[1:]))
+    if not (exact and same_1):
+        raise AssertionError(f"commit_topk_batched {label}: plain version equal {exact} "
+                             f"(max abs err {err:.3e}), unbatched kernel equal {same_1}")
+    record["commit_topk_batched"]["max_abs_err"] = max(
+        record["commit_topk_batched"]["max_abs_err"], err)
+    nbytes = nops = 0.0
+    for s in live:
+        w_b, w_o = commit_work(shard_args[s][:12], (cand_n[s], s_k[s], t_k[s], totals[s],
+                                                      budget[s]), x[s], got[0][s], neg_tol)
+        nbytes, nops = nbytes + w_b, nops + w_o
+    b, by = bound_ms(nbytes, nops)
+    pool = [fresh() for _ in range(24)]
+    ms = time_ms(lambda: commit_topk_batched_cuda(cand_n, s_k, t_k, *pool.pop(), *tail, active,
+                                                  **knobs))
+    pool = [fresh() for _ in range(24)]
+
+    def unbatched():
+        state = pool.pop()
+        for s in live:
+            commit_topk_cuda(cand_n[s], s_k[s], t_k[s], *(v[s] for v in state),
+                             *(a[s] for a in tail), **knobs)
+
+    unbatched_ms = time_ms(unbatched)
+    pool = [fresh() for _ in range(4)]
+    plain_ms = time_ms(lambda: commit_topk_batched_ref(cand_n, s_k, t_k, *pool.pop(), *tail,
+                                                       active, **knobs), reps=3, warmup=1)
+    accepted = st_k[:, 1].tolist()
+    commit = {"ms": ms, "unbatched_ms": unbatched_ms, "plain_ms": plain_ms, "bound_ms": b,
+              "bound_by": by}
+    print(f"commit_topk_batched    {label} ({S} x {N} x {T}, k={COMMIT_K}, {len(live)} active): "
+          f"accepted {accepted}, bit for bit the plain version and the unbatched kernel on "
+          f"each shard; kernel {ms:.4f} ms, the unbatched kernel once an active shard "
+          f"{unbatched_ms:.4f} ms, plain {plain_ms:.4f} ms (median of 3), bound {b:.8f} ms "
+          f"({by})", flush=True)
+    return {"shape": [S, N, T], "active": len(live), "sweep": sweep, "commit": commit}
+
+
+def fleet_phase(dev, record) -> dict:
+    """Phase 3h: the sharded fleet solver at N=1,000,000 on the card.  The
+    reference's case once warm and once measured (the counts zeroed just
+    before the measured pass), its checks, each shard against
+    ``solve_local`` on that shard alone, a delta pass, and both batched
+    kernels against their plain versions at the two million-app shapes."""
+    import math
+
+    import torch
+    from repro_torch.core import LocalSearchConfig, objective, solve_local, validate
+    from repro_torch.device import host_array
+    from repro_torch.kernels import ops
+    from repro_torch.shard import (FleetConfig, ShardSolveConfig, partition_problem,
+                                   plan_shards, solve_fleet, solve_shards, synthetic_fleet)
+    from repro_torch.shard.fleet import global_objective
+
+    t = time.perf_counter()
+    cluster = synthetic_fleet(FLEET_APPS, num_tiers=FLEET_TIERS, seed=FLEET_SEED, device=dev)
+    build_s = time.perf_counter() - t
+    p = cluster.problem
+    obj0 = global_objective(p, host_array(p.assignment0))
+    cfg = FleetConfig(num_shards=FLEET_SHARDS, timeout_s=30)
+    t = time.perf_counter()
+    warm = solve_fleet(cluster, cfg, device=dev)
+    warm_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    fd = solve_fleet(cluster, cfg, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(ops.launch_counts)
+    sh, tm, res = fd.sharded, fd.timings, fd.solve
+    digest, digest_warm = (assignment_digest(torch.as_tensor(a))
+                           for a in (fd.assignment, warm.assignment))
+    print(f"fleet N={FLEET_APPS} T={FLEET_TIERS} seed={FLEET_SEED} S={sh.num_shards} (built in "
+          f"{build_s:.2f} s; warm pass {warm_s:.4f} s): buckets ({sh.app_bucket}, "
+          f"{sh.tier_bucket}), objective {obj0:.6e} -> {fd.objective:.6f} (the reference's CPU "
+          f"run: {FLEET_REFERENCE_OBJECTIVE}), stranded {fd.stranded}, migrations "
+          f"{fd.migrations}, saturated {fd.saturated}; partition_s {tm['partition_s']:.4f}, "
+          f"solve_s {tm['solve_s']:.4f}, merge_s {tm['merge_s']:.4f}, coordinator_s "
+          f"{tm['coordinator_s']:.4f}, total_s {tm['total_s']:.4f} (wall {wall:.4f} s), "
+          f"{fd.apps_per_s:.1f} apps/s; sweeps {res.sweeps}, per shard "
+          f"{res.iterations.tolist()} (committed {res.committed.tolist()}), digest {digest} "
+          f"(warm pass {digest_warm}); launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if fd.stranded != 0:
+        raise AssertionError(f"the fleet pass stranded {fd.stranded} apps")
+    if (sh.app_bucket, sh.tier_bucket) != FLEET_BUCKETS:
+        raise AssertionError(f"buckets ({sh.app_bucket}, {sh.tier_bucket}), not {FLEET_BUCKETS}")
+    # Each tier of this fleet starts at the same utilization, so the start is
+    # balanced (objective ~1e-9) and the pass cannot improve on it: the
+    # shards' own objectives count their inert padded tiers (unit capacity,
+    # no load) in their means, and at 131,072 apps a shard the sweep's f32
+    # deltas round below -tol for moves that are not improving, so the
+    # global objective rises, in the reference as well (its CPU run:
+    # 20.956).  The mapping is held to the hard constraints instead, and
+    # every objective is printed.
+    start = [float(objective(sh.shard(s), sh.problems.assignment0[s]))
+             for s in range(sh.num_shards)]
+    valid = validate(p, torch.as_tensor(fd.assignment, device=dev))
+    print(f"  shard objectives {[round(v, 6) for v in start]} -> "
+          f"{[round(float(v), 6) for v in res.objective]}; the global objective "
+          f"{obj0:.6e} -> {fd.objective:.6f}; moved {valid.num_moved}/{valid.move_budget}, "
+          f"violations ok {valid.ok}", flush=True)
+    if not (valid.ok and math.isfinite(fd.objective)):
+        raise AssertionError(f"fleet mapping: violations {valid}, objective {fd.objective}")
+    if digest != digest_warm:
+        raise AssertionError("a second fleet pass of the same cluster gave another mapping")
+    if not (res.sweeps > 0 and launches["move_eval_best_batched"] == res.sweeps
+            == launches["commit_topk_batched"]):
+        raise AssertionError(f"{res.sweeps} sweeps made {launches['move_eval_best_batched']} "
+                             f"batched sweep and {launches['commit_topk_batched']} batched "
+                             "commit launches (one each a sweep for all shards)")
+    if launches["move_eval_best"] or launches["commit_topk"]:
+        raise AssertionError(f"the fleet pass launched the unbatched kernels: {launches}")
+
+    # Each shard of the batched pass against solve_local on that shard alone.
+    local = LocalSearchConfig(max_iters=cfg.max_iters, tol=cfg.tol, batch_moves=cfg.batch_moves,
+                              batch_quality=cfg.batch_quality)
+    t = time.perf_counter()
+    for s in range(sh.num_shards):
+        alone = solve_local(sh.shard(s), local, device=dev)
+        if not (torch.equal(res.x[s], alone.assignment)
+                and (int(res.iterations[s]), int(res.committed[s]), float(res.objective[s]))
+                == (alone.iterations, alone.extra["committed_moves"], alone.objective)):
+            raise AssertionError(f"shard {s} of the batched pass differs from solve_local on "
+                                 "that shard alone")
+    alone_s = time.perf_counter() - t
+    print(f"  each of the {sh.num_shards} shards equals solve_local on that shard alone bit for "
+          f"bit (assignment, sweeps, commits, objective); the {sh.num_shards} solves took "
+          f"{alone_s:.4f} s", flush=True)
+
+    # Where a batched solve's time goes: PROFILE_SWEEPS sweeps under the profiler.
+    prof = device_profile(lambda: solve_shards(sh, ShardSolveConfig(max_iters=PROFILE_SWEEPS),
+                                               device=dev))
+    print(solve_profile_line(f"  profile: {PROFILE_SWEEPS} batched sweeps of the {sh.num_shards} "
+                             "shards", prof), flush=True)
+
+    # The delta pass: the dirty shards re-solve as in the full pass, the clean
+    # ones keep their incumbents.
+    t = time.perf_counter()
+    fdd = solve_fleet(cluster, cfg, dirty_shards=FLEET_DIRTY, device=dev)
+    delta_s = time.perf_counter() - t
+    rd = fdd.solve
+    for s in range(sh.num_shards):
+        if s in FLEET_DIRTY:
+            ok = torch.equal(rd.x[s], res.x[s]) and rd.iterations[s] == res.iterations[s]
+        else:
+            ok = (torch.equal(rd.x[s], sh.problems.assignment0[s]) and rd.iterations[s] == 0
+                  and rd.committed[s] == 0 and math.isnan(float(rd.objective[s])))
+        if not (ok and bool(rd.solved[s]) == (s in FLEET_DIRTY)):
+            raise AssertionError(f"delta pass: shard {s} (dirty {s in FLEET_DIRTY}) is wrong")
+    if fdd.stranded != 0:
+        raise AssertionError(f"the delta pass stranded {fdd.stranded} apps")
+    print(f"  delta pass, dirty shards {FLEET_DIRTY}: solved_shards "
+          f"{fdd.timings['solved_shards']}, delta_reverted {fdd.timings['delta_reverted']}, "
+          f"objective {fdd.objective:.6f}, {rd.sweeps} sweeps, solve_s "
+          f"{fdd.timings['solve_s']:.4f}, total_s {fdd.timings['total_s']:.4f} (wall "
+          f"{delta_s:.4f} s); dirty shards as in the full pass, clean ones at their "
+          "incumbents", flush=True)
+
+    # Both batched kernels at the two million-app shapes.
+    main = check_batched(f"S={sh.num_shards}", sh, record, dev)
+    wide_sh = partition_problem(p, plan_shards(cluster, FLEET_WIDE_SHARDS))
+    wide = check_batched(f"S={wide_sh.num_shards}", wide_sh, record, dev)
+    return {"launches": launches, "sweeps": res.sweeps, "main": main, "wide": wide}
+
+
 def host_gumbel(sweep: int, size: int, device):
     """Gumbel noise drawn on the host with numpy (one seed a sweep), for the
     sampled solve's ``gumbel_fn``."""
@@ -2005,7 +2295,9 @@ def main() -> int:
               "flash_attention": {"max_abs_err": 0.0},
               "flash_decode": {"max_abs_err": 0.0},
               "ssd_chunk": {"max_abs_err": 0.0},
-              "optimal_round": {"max_abs_err": 0.0}}
+              "optimal_round": {"max_abs_err": 0.0},
+              "move_eval_best_batched": {"max_abs_err": 0.0},
+              "commit_topk_batched": {"max_abs_err": 0.0}}
 
     # -- 2a. sweep kernels at the stated shapes --------------------------------
     for N, T in ((300, 5), (500, 17), (100_000, 5), (100_000, 128)):
@@ -2248,6 +2540,10 @@ def main() -> int:
     control = control_phase(dev)
     control_launches = control["run"]["launches"]
 
+    # -- 3h. the sharded fleet solver at N=1,000,000 ------------------------------
+    fleet = fleet_phase(dev, record)
+    torch.cuda.empty_cache()
+
     # -- 4. the serving slice: qwen2.5-3b at full width --------------------------
     serving = serving_phase(dev, record)
     fa, fd = serving["times"]["prefill_main"], serving["times"]["decode_main"]
@@ -2335,6 +2631,18 @@ def main() -> int:
          "bound_ms": optimal["main"]["bound_ms"], "bound_by": optimal["main"]["bound_by"],
          "chain_floor_ms": optimal["main"]["chain_floor_ms"], "library_ms": None},
     ]
+    for name, part in (("move_eval_best_batched", "sweep"), ("commit_topk_batched", "commit")):
+        t = fleet["main"][part]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": MOVE_EVAL_SRC if part == "sweep" else COMMIT_SRC,
+            "replaces": ("src/repro/kernels/move_eval.py:275" if part == "sweep"
+                         else "src/repro/core/solver_local.py:219"),
+            "launches": fleet["launches"][name], "launches_by_path": {"fleet": fleet["launches"][name]},
+            "max_abs_err": record[name]["max_abs_err"], "shape": fleet["main"]["shape"],
+            "ms": t["ms"], "unbatched_ms": t["unbatched_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+            "wide": {"shape": fleet["wide"]["shape"], **fleet["wide"][part]}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

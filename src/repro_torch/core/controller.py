@@ -55,10 +55,11 @@ Public surface (this is the redesigned API):
     rounds (advisory schedules, fault windows, telemetry/capacity/
     membership deltas).
 
-The sharded fleet solver is not ported yet (ROADMAP Queue 1 item 4): a
-tick that would route to it (``ControllerConfig.shards``, or
-``TickInput.dirty_shards`` with ``num_shards``) raises
-``NotImplementedError`` at the routing point.
+The sharded fleet solver is ported (``repro_torch.shard``), but the
+controller's route to it is not wired yet (ROADMAP Queue 1 item 5, with
+the service that sends such ticks): a tick that would route to it
+(``ControllerConfig.shards``, or ``TickInput.dirty_shards`` with
+``num_shards``) raises ``NotImplementedError`` at the routing point.
 """
 from __future__ import annotations
 
@@ -779,12 +780,14 @@ class BalanceController:
             delta = dirty is not None
             shards = self.config.shards or (inp.num_shards if delta else None)
             if shards:
-                # The sharded fleet path (partitioned batched solve + the
-                # coordinator's priced boundary migrations; the delta solve
-                # when only dirty shards are given) is not ported yet.
+                # The route to the sharded fleet path (repro_torch.shard:
+                # partitioned batched solve + the coordinator's priced
+                # boundary migrations; the delta solve when only dirty
+                # shards are given) is not wired into the controller yet.
                 raise NotImplementedError(
-                    f"the sharded fleet solver ({shards} shards, dirty shards {dirty}) "
-                    "is not ported yet: ROADMAP Queue 1 item 4, shard/")
+                    f"the controller's route to the sharded fleet solver ({shards} shards, "
+                    f"dirty shards {dirty}) is not wired yet: ROADMAP Queue 1 item 5, "
+                    "with service/")
             else:
                 self._sptlb.cluster = balance_cluster
                 decision = self._sptlb.balance(

@@ -311,3 +311,50 @@ def pad_problem(problem: Problem, bucket: Optional[int] = None) -> Problem:
         avoid=padn(problem.avoid, False),
         **extra,
     )
+
+
+# --- shard stacks --------------------------------------------------------------
+#
+# The sharded fleet solver holds S subproblems of one shape as one Problem
+# whose every tensor, the goal weights included, carries a leading [S] axis
+# (the reference stacks its pytree the same way).  Such a stack is not a
+# problem: its ``num_apps`` and ``num_tiers`` read the S axis.  The batched
+# solver consumes the stack; ``shard_of`` gives shard s as a Problem.
+
+def _map_problem(problem: Problem, fn) -> Problem:
+    fields = {}
+    for f in dataclasses.fields(problem):
+        value = getattr(problem, f.name)
+        if isinstance(value, GoalWeights):
+            value = GoalWeights(*(fn(getattr(value, n)) for n in GOAL_NAMES))
+        elif isinstance(value, torch.Tensor):
+            value = fn(value)
+        fields[f.name] = value
+    return Problem(**fields)
+
+
+def stack_problems(problems) -> Problem:
+    """S problems of one shape stacked on a leading [S] axis."""
+    problems = list(problems)
+    fields = {}
+    for f in dataclasses.fields(Problem):
+        values = [getattr(p, f.name) for p in problems]
+        if f.name == "weights":
+            fields[f.name] = GoalWeights(*(torch.stack([getattr(w, n) for w in values])
+                                           for n in GOAL_NAMES))
+        elif values[0] is None:
+            fields[f.name] = None
+        else:
+            fields[f.name] = torch.stack(values)
+    return Problem(**fields)
+
+
+def shard_of(stacked: Problem, s: int) -> Problem:
+    """Shard ``s`` of a stack: a Problem of views into the stack's tensors."""
+    return _map_problem(stacked, lambda x: x[s])
+
+
+def select_shards(stacked: Problem, idx) -> Problem:
+    """The stack of the shards ``idx`` (a gather of every leaf, in order)."""
+    index = torch.as_tensor(np.asarray(idx, np.int64), device=stacked.demand.device)
+    return _map_problem(stacked, lambda x: x.index_select(0, index))

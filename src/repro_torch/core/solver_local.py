@@ -21,6 +21,15 @@ on the CPU its plain version) updates the assignment and the tier loads in
 place and writes a two-int status; reading it is the sweep's only
 synchronisation with the host, and it tells whether the search converged.
 
+Shard-batched path (``solve_local_batched``, temperature 0).  S problems
+of one shape, stacked on a leading axis (``core.problem.stack_problems``),
+searched together as the reference's ``jit(vmap(_solve_local_jit))`` does:
+a sweep makes one ``ops.move_eval_best_batched`` launch, one row-wise
+stable sort and one ``ops.commit_topk_batched`` launch for every shard, and
+reads back one status[S, 2].  A converged shard is masked out of both
+launches and its count stops, as vmap-of-while_loop leaves it; shard s ends
+exactly where ``solve_local`` on shard s alone ends, on the same device.
+
 Sampled path (temperature > 0).  Each sweep scores the full delta[N, T]
 (``kernels.ops.move_eval``: the ``move_eval`` kernel on a card), masks it
 with ``constraints.move_mask`` and draws one improving move by Gumbel-max
@@ -44,7 +53,7 @@ import torch
 
 from repro_torch.core import constraints as C
 from repro_torch.core import goals
-from repro_torch.core.problem import Problem, tier_loads
+from repro_torch.core.problem import Problem, shard_of, tier_loads
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import ops
 
@@ -220,3 +229,96 @@ def solve_local(problem: Problem, config: LocalSearchConfig = LocalSearchConfig(
             "solve_s": dt,
         },
     )
+
+
+@dataclasses.dataclass
+class BatchedSolveResult:
+    """Per-shard outputs of ``solve_local_batched`` (a leading [S] axis)."""
+
+    assignment: torch.Tensor      # i32[S, N] on the solve's device
+    iterations: np.ndarray        # i32[S] sweeps each shard took part in
+    converged: np.ndarray         # bool[S]
+    committed: np.ndarray         # i32[S] committed moves
+    objective: np.ndarray         # f32[S] final objective of each shard
+    sweeps: int                   # batched sweeps (launches of each kernel)
+    solve_time_s: float
+
+
+def batched_start(stacked: Problem) -> tuple:
+    """A stack's start, each shard's computed as ``solve_local`` computes it
+    on that shard alone: (x i32[S, N], util f32[S, T, R], tasks f32[S, T],
+    feasible bool[S, N, T], budget i32[S], totals f32[S, 2], weights
+    f32[S, 5])."""
+    views = [shard_of(stacked, s) for s in range(stacked.demand.shape[0])]
+    x = stacked.assignment0.to(torch.int32).clone()
+    loads = [tier_loads(v, x[s]) for s, v in enumerate(views)]
+    util = torch.stack([u for u, _ in loads]).contiguous()
+    tasks = torch.stack([k for _, k in loads]).contiguous()
+    feas = torch.stack([v.feasible_mask() for v in views]).contiguous()
+    budget = torch.stack([v.move_budget for v in views])
+    totals = torch.stack([torch.stack([torch.clamp(torch.sum(v.tasks), min=1.0),
+                                       torch.clamp(torch.sum(v.criticality), min=1.0)])
+                          for v in views])
+    wvec = torch.stack([_weights_vector(v) for v in views])
+    return x, util, tasks, feas, budget, totals, wvec
+
+
+def solve_local_batched(stacked: Problem, config: LocalSearchConfig = LocalSearchConfig(),
+                        *, device=DEFAULT_DEVICE) -> BatchedSolveResult:
+    """Top-k LocalSearch (temperature 0) over a stack of S problems of one
+    shape (every field with a leading [S] axis; ``core.problem.stack_problems``).
+
+    Each shard's start (loads, feasibility, budget, the two totals, the
+    goal weights) is computed as ``solve_local`` computes it on that shard
+    alone, once a solve; a sweep then computes every active shard's budget
+    left, makes one batched sweep launch, sorts the rows, makes one batched
+    commit launch and reads back status[S, 2], its one host sync.  Shard s
+    of the result equals ``solve_local(shard_of(stacked, s), config)`` bit
+    for bit on the same device: on the CPU both run the plain versions, on a
+    card both run the kernels, whose batched entries give each shard the
+    unbatched kernel's bits.
+    """
+    if config.temperature > 0.0:
+        raise ValueError("the batched LocalSearch runs at temperature 0 only, as the "
+                         "reference's batched shard solve does")
+    t0 = time.perf_counter()
+    dev = resolve_device(device)
+    sp = stacked.to(dev)
+    S, N = sp.demand.shape[:2]
+    views = [shard_of(sp, s) for s in range(S)]
+    x, util, tasks, feas, budget, totals, wvec = batched_start(sp)   # x, util, tasks in place
+    k = max(1, min(int(config.batch_moves), N))
+    neg_tol = float(np.float32(-config.tol))
+    static = (sp.demand, sp.tasks, sp.criticality)
+    tiers = (sp.capacity, sp.task_limit, sp.ideal_frac, sp.ideal_task_frac)
+
+    active = torch.ones(S, dtype=torch.bool, device=dev)
+    iterations = np.zeros(S, np.int32)
+    committed = np.zeros(S, np.int32)
+    done = np.zeros(S, bool)
+    sweeps = 0
+    while not done.all() and sweeps < config.max_iters:
+        moves_left = (budget - torch.sum((x != sp.assignment0).to(torch.int32), dim=1)
+                      ).to(torch.int32)
+        best_s, best_t = ops.move_eval_best_batched(
+            *static, x, sp.assignment0, *tiers, util, tasks, wvec, feas, moves_left,
+            totals=totals, active=active)
+        # Row by row, as solve_local orders one problem's candidates.
+        cand_n = torch.sort(best_s, dim=1, stable=True).indices[:, :k].contiguous()
+        status = ops.commit_topk_batched(
+            cand_n, best_s, best_t, x, util, tasks, *static, sp.assignment0, *tiers, wvec,
+            totals, moves_left, active, neg_tol=neg_tol, batch_quality=config.batch_quality)
+        rows = status.tolist()                     # the sweep's one host sync
+        sweeps += 1
+        for s in np.flatnonzero(~done):
+            improving, accepted = rows[s]
+            iterations[s] += 1
+            committed[s] += accepted
+            done[s] = not improving
+        active = active & (status[:, 0] != 0)       # ~done, kept on the card
+
+    objective = np.array([float(goals.objective(v, x[s])) for s, v in enumerate(views)],
+                         np.float32)
+    return BatchedSolveResult(assignment=x, iterations=iterations, converged=done,
+                              committed=committed, objective=objective, sweeps=sweeps,
+                              solve_time_s=time.perf_counter() - t0)

@@ -42,9 +42,11 @@ SIGNATURES = {
     "move_eval": {
         "move_eval_best_launch": [_I, _I, _I] + [_P] * 22,
         "move_eval_launch": [_I, _I, _I] + [_P] * 19,
+        "move_eval_best_batched_launch": [_I] * 4 + [_P] * 23,
     },
     "commit": {
         "commit_topk_launch": [_I, _I, _I] + [_P] * 17 + [_F, _F, _P, _P],
+        "commit_topk_batched_launch": [_I] * 5 + [_P] * 18 + [_F, _F, _P, _P],
     },
     "optimal_round": {
         "optimal_round_stage": [_I] * 3 + [_P] * 8,

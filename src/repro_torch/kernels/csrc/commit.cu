@@ -43,11 +43,24 @@
 // 3. Write back: the assignment of each candidate, the tier loads, status.
 //    The host reads back only `status` per sweep.
 //
+// Shard-batched entry (commit_topk_batched_launch): the counterpart of the
+// reference's vmap of this scan over a shard stack.  One one-warp CTA a
+// shard runs the same body (commit_body) on its shard's slices, so each
+// shard's result is the unbatched kernel's; an active[S] mask leaves the
+// shards whose solve has converged untouched with status (0, 0).  S CTAs
+// run side by side, so a launch costs about one unbatched launch.
+//
 // Numerics.  The exact delta repeats core/delta.py::single_move_delta
-// operation for operation (compiled with -fmad=false, like move_eval.cu):
-// caching a quotient or a mean moves an operation earlier, never changes
-// it, and the load updates are the same f32 additions in the same order, so
-// x and the tier loads stay bit-identical to the plain version's.
+// operation for operation as it runs on a card (compiled with -fmad=false,
+// like move_eval.cu): caching a quotient or a mean moves an operation
+// earlier, never changes it, and the load updates are the same f32
+// additions in the same order, so x and the tier loads stay bit-identical
+// to the plain version's.  On a card torch.mean multiplies the sum by the
+// float 1/T and `x / T` by a host scalar multiplies by its float
+// reciprocal, so the kernel multiplies by 1.0f / T where a division would
+// part from them at the last bit (a third of quotients at T = 3), and a
+// decision on the cancelling f'^2 - f^2 could then flip; for the same
+// reason the means sum the tiers in torch's order (tier_means).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -95,7 +108,7 @@ struct Cands {
 template <int R>
 __device__ void cand_parts(int i, int src, int T, const Tiers& s, const Cands& c,
                            const float* totals) {
-  const float Tf = (float)T;
+  const float inv_T = 1.0f / (float)T;     // the plain version's `/ T` on a card
   const int t = c.t[i];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -103,13 +116,13 @@ __device__ void cand_parts(int i, int src, int T, const Tiers& s, const Cands& c
     const float dC_src = d / s.capacity[src * R + r], dC_dst = d / s.capacity[t * R + r];
     c.dC_src[i * R + r] = dC_src;
     c.dC_dst[i * R + r] = dC_dst;
-    c.dmean[i * R + r] = (dC_dst - dC_src) / Tf;
+    c.dmean[i * R + r] = (dC_dst - dC_src) * inv_T;
   }
   const float k = c.tasks[i];
   const float dK_src = k / s.task_limit[src], dK_dst = k / s.task_limit[t];
   c.dK[i * 3 + 0] = dK_src;
   c.dK[i * 3 + 1] = dK_dst;
-  c.dK[i * 3 + 2] = (dK_dst - dK_src) / Tf;
+  c.dK[i * 3 + 2] = (dK_dst - dK_src) * inv_T;
   const int home = c.home[i];
   const float was_moved = (src != home) ? 1.0f : 0.0f;
   const float will_move = (t != home) ? 1.0f : 0.0f;
@@ -119,28 +132,46 @@ __device__ void cand_parts(int i, int src, int T, const Tiers& s, const Cands& c
   c.csrc[i] = src;
 }
 
-// The tier means of the fractions, reduced over the warp: mean[r] for the
-// resources, mean[R] for the task counts.  Each is the lane-strided partial
-// sum and the xor-shuffle sum of one reduction; the R + 1 reductions run
-// side by side.
+// The tier means of the fractions as torch.mean computes them on a card,
+// bit for bit: the sum in its order, times the float 1/T.  mean[r] for the
+// resources reduces f[T, R] over its tiers one output a thread: four
+// accumulators take tiers t = 0, 1, 2, 3 (mod 4) in turn and are then added
+// in order (every lane computes it).  mean[R] for the task counts reduces
+// g[T] over the lanes: lane j sums tiers j, j + 32, ..., then a tree with
+// halving offsets (the xor tree gives every lane those bits); so does a
+// single resource, whose [T, 1] reduces as a vector.  (From 128 tiers on,
+// torch reads a vector in 16-byte pieces and sums g in another order.)
 template <int R>
 __device__ __forceinline__ void tier_means(int T, const Tiers& s, float (&mean)[R + 1]) {
-  const float Tf = (float)T;
-  float part[R + 1];
-#pragma unroll
-  for (int r = 0; r <= R; ++r) part[r] = 0.0f;
+  const float inv_T = 1.0f / (float)T;     // torch.mean's factor on a card
+  constexpr int kTree = (R == 1) ? 2 : 1;  // reductions that take the lane tree
+  float part[2] = {0.0f, 0.0f};
 #pragma unroll 1
   for (int tt = threadIdx.x; tt < T; tt += 32) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) part[r] += s.frac[tt * R + r];
-    part[R] += s.gfrac[tt];
+    if (R == 1) part[1] += s.frac[tt];
+    part[0] += s.gfrac[tt];
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
 #pragma unroll
-    for (int r = 0; r <= R; ++r) part[r] += __shfl_xor_sync(0xffffffffu, part[r], off);
+    for (int q = 0; q < kTree; ++q) part[q] += __shfl_xor_sync(0xffffffffu, part[q], off);
+  mean[R] = part[0] * inv_T;
+  if (R == 1) {
+    mean[0] = part[1] * inv_T;
+    return;
+  }
 #pragma unroll
-  for (int r = 0; r <= R; ++r) mean[r] = part[r] / Tf;
+  for (int r = 0; r < R; ++r) {
+    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+#pragma unroll 1
+    for (int tt = 0; tt < T; tt += 4) {
+      a0 += s.frac[tt * R + r];
+      if (tt + 1 < T) a1 += s.frac[(tt + 1) * R + r];
+      if (tt + 2 < T) a2 += s.frac[(tt + 2) * R + r];
+      if (tt + 3 < T) a3 += s.frac[(tt + 3) * R + r];
+    }
+    mean[r] = (((a0 + a1) + a2) + a3) * inv_T;
+  }
 }
 
 // core/delta.py::single_move_delta for candidate i: src -> t against the
@@ -184,8 +215,11 @@ __host__ __device__ inline size_t commit_smem_bytes(int T, int R, int k) {
          + (size_t)k * (12 + 4 * R) * sizeof(float);
 }
 
+// The scan of one problem's candidates: both commit kernels run it, the
+// batched one with its shard's pointers, so a shard's commits are the
+// unbatched kernel's bit for bit.
 template <int R>
-__global__ void commit_topk_kernel(int T, int k,
+__device__ __forceinline__ void commit_body(int T, int k,
                                    const int64_t* __restrict__ cand_n,
                                    const float* __restrict__ best_s,
                                    const int* __restrict__ best_t,
@@ -336,6 +370,69 @@ __global__ void commit_topk_kernel(int T, int k,
 }
 
 template <int R>
+__global__ void commit_topk_kernel(int T, int k,
+                                   const int64_t* __restrict__ cand_n,
+                                   const float* __restrict__ best_s,
+                                   const int* __restrict__ best_t,
+                                   int* x, float* util, float* tier_tasks,
+                                   const float* __restrict__ demand,
+                                   const float* __restrict__ tasks,
+                                   const float* __restrict__ crit,
+                                   const int* __restrict__ a0,
+                                   const float* __restrict__ capacity,
+                                   const float* __restrict__ task_limit,
+                                   const float* __restrict__ ideal_frac,
+                                   const float* __restrict__ ideal_task_frac,
+                                   const float* __restrict__ weights,
+                                   const float* __restrict__ totals_in,
+                                   const int* __restrict__ moves_left,
+                                   float neg_tol, float batch_quality,
+                                   int* __restrict__ status) {
+  commit_body<R>(T, k, cand_n, best_s, best_t, x, util, tier_tasks, demand, tasks, crit, a0,
+                 capacity, task_limit, ideal_frac, ideal_task_frac, weights, totals_in,
+                 moves_left, neg_tol, batch_quality, status);
+}
+
+// The shard-batched scan (the counterpart of the reference's vmap of this
+// scan over a shard stack, src/repro/shard/solve.py): one one-warp CTA a
+// shard, each on its shard's N apps and T tiers, `s` strides from every
+// base pointer; candidate ids are the shard's own app indices.  A shard
+// whose solve has converged (active[s] == 0) writes nothing and reports
+// status (0, 0).
+template <int R>
+__global__ void commit_topk_batched_kernel(int N, int T, int k,
+                                           const int64_t* __restrict__ cand_n,
+                                           const float* __restrict__ best_s,
+                                           const int* __restrict__ best_t,
+                                           int* x, float* util, float* tier_tasks,
+                                           const float* __restrict__ demand,
+                                           const float* __restrict__ tasks,
+                                           const float* __restrict__ crit,
+                                           const int* __restrict__ a0,
+                                           const float* __restrict__ capacity,
+                                           const float* __restrict__ task_limit,
+                                           const float* __restrict__ ideal_frac,
+                                           const float* __restrict__ ideal_task_frac,
+                                           const float* __restrict__ weights,
+                                           const float* __restrict__ totals_in,
+                                           const int* __restrict__ moves_left,
+                                           const int* __restrict__ active,
+                                           float neg_tol, float batch_quality,
+                                           int* __restrict__ status) {
+  const size_t s = blockIdx.x;
+  if (!active[s]) {
+    if (threadIdx.x == 0) { status[2 * s] = 0; status[2 * s + 1] = 0; }
+    return;
+  }
+  const size_t n = (size_t)N, t = (size_t)T;
+  commit_body<R>(T, k, cand_n + s * k, best_s + s * n, best_t + s * n, x + s * n,
+                 util + s * t * R, tier_tasks + s * t, demand + s * n * R, tasks + s * n,
+                 crit + s * n, a0 + s * n, capacity + s * t * R, task_limit + s * t,
+                 ideal_frac + s * t * R, ideal_task_frac + s * t, weights + 5 * s,
+                 totals_in + 2 * s, moves_left + s, neg_tol, batch_quality, status + 2 * s);
+}
+
+template <int R>
 int launch(int T, int k, const void* cand_n, const void* best_s, const void* best_t, void* x,
            void* util, void* tier_tasks, const void* demand, const void* tasks,
            const void* crit, const void* a0, const void* capacity, const void* task_limit,
@@ -355,6 +452,31 @@ int launch(int T, int k, const void* cand_n, const void* best_s, const void* bes
       (const float*)crit, (const int*)a0, (const float*)capacity, (const float*)task_limit,
       (const float*)ideal_frac, (const float*)ideal_task_frac, (const float*)w,
       (const float*)totals, (const int*)moves_left, neg_tol, batch_quality, (int*)status);
+  return (int)cudaGetLastError();
+}
+
+template <int R>
+int launch_batched(int S, int N, int T, int k, const void* cand_n, const void* best_s,
+                   const void* best_t, void* x, void* util, void* tier_tasks,
+                   const void* demand, const void* tasks, const void* crit, const void* a0,
+                   const void* capacity, const void* task_limit, const void* ideal_frac,
+                   const void* ideal_task_frac, const void* w, const void* totals,
+                   const void* moves_left, const void* active, float neg_tol,
+                   float batch_quality, void* status, cudaStream_t stream) {
+  const size_t smem = commit_smem_bytes(T, R, k);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(commit_topk_batched_kernel<R>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  commit_topk_batched_kernel<R><<<S, 32, smem, stream>>>(
+      N, T, k, (const int64_t*)cand_n, (const float*)best_s, (const int*)best_t, (int*)x,
+      (float*)util, (float*)tier_tasks, (const float*)demand, (const float*)tasks,
+      (const float*)crit, (const int*)a0, (const float*)capacity, (const float*)task_limit,
+      (const float*)ideal_frac, (const float*)ideal_task_frac, (const float*)w,
+      (const float*)totals, (const int*)moves_left, (const int*)active, neg_tol,
+      batch_quality, (int*)status);
   return (int)cudaGetLastError();
 }
 
@@ -380,6 +502,36 @@ extern "C" int commit_topk_launch(int T, int R, int k, const void* cand_n, const
     default: return (int)cudaErrorInvalidValue;
   }
 #undef COMMIT_LAUNCH
+}
+
+// The shard-batched scan: S problems of N apps and T tiers each, every
+// array with a leading [S] axis, cand_n [S, k]; status [S, 2].
+extern "C" int commit_topk_batched_launch(int S, int N, int T, int R, int k,
+                                          const void* cand_n, const void* best_s,
+                                          const void* best_t, void* x, void* util,
+                                          void* tier_tasks, const void* demand,
+                                          const void* tasks, const void* crit, const void* a0,
+                                          const void* capacity, const void* task_limit,
+                                          const void* ideal_frac, const void* ideal_task_frac,
+                                          const void* w, const void* totals,
+                                          const void* moves_left, const void* active,
+                                          float neg_tol, float batch_quality, void* status,
+                                          void* stream) {
+  if (k <= 0 || S < 0) return (int)cudaErrorInvalidValue;
+  if (S == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+#define COMMIT_BATCHED(RR)                                                                \
+  launch_batched<RR>(S, N, T, k, cand_n, best_s, best_t, x, util, tier_tasks, demand,     \
+                     tasks, crit, a0, capacity, task_limit, ideal_frac, ideal_task_frac,   \
+                     w, totals, moves_left, active, neg_tol, batch_quality, status, s)
+  switch (R) {
+    case 1: return COMMIT_BATCHED(1);
+    case 2: return COMMIT_BATCHED(2);
+    case 3: return COMMIT_BATCHED(3);
+    case 4: return COMMIT_BATCHED(4);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef COMMIT_BATCHED
 }
 
 extern "C" const char* cuda_error_string(int code) {

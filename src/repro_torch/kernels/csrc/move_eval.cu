@@ -3,7 +3,10 @@
 // Replaces the Pallas TPU kernels of src/repro/kernels/move_eval.py:
 //   move_eval_best_kernel <- move_eval_best_pallas (_move_eval_best_kernel)
 //   move_eval_kernel      <- move_eval_pallas      (_move_eval_kernel)
-// Both share pair_delta(), the counterpart of the Pallas _block_delta.
+//   move_eval_best_batched_kernel <- the same best kernel under the
+//     reference's vmap over a shard stack (src/repro/shard/solve.py)
+// All share pair_delta(), the counterpart of the Pallas _block_delta; the
+// two best kernels share best_body().
 //
 // What it computes: for app n and tier t, the exact change of the scalarized
 // objective if n moved to t (core/delta.py closed form), plus the destination
@@ -31,6 +34,12 @@
 // store tier j of an app beside tier j+1, so its stores are already
 // contiguous.  feasible is read as bytes, not padded floats, and tiers are
 // not padded to the TPU's 128 lanes.
+//
+// The batched sweep is the best kernel on a grid of (app blocks, S): each
+// block offsets every pointer by its shard and runs best_body(), so shard s
+// gives the unbatched kernel's bits on shard s alone; one launch serves all
+// shards a sweep, and a converged shard (active[s] == 0) only writes
+// (+inf, 0).
 //
 // Bound on this card: per app the best function reads R+2 four-byte values,
 // two tier ids and T feasibility bytes and writes 8 bytes; the full sweep
@@ -194,15 +203,17 @@ __device__ __forceinline__ void gather_app(AppRow& a, int n, int T, int R, const
 
 static const int kThreads = 256;           // threads a block, both kernels
 
-// At most 64 registers a thread, so that 4 blocks of kThreads share an SM:
-// the main path's 131,072 apps (512 blocks at T <= 8) then run in one wave.
-__global__ void __launch_bounds__(kThreads, 4)
-move_eval_best_kernel(int N, int T, int R, int G, BestApps apps, BestTiers tiers,
-                      float* __restrict__ best_score, int* __restrict__ best_tier) {
+// The fused sweep of the apps of block `block` against one problem's tier
+// table: both best kernels run it, the batched one with its shard's
+// pointers, so a shard's (score, tier) is the unbatched kernel's bit for bit.
+__device__ __forceinline__ void best_body(int block, int N, int T, int R, int G,
+                                          const BestApps& apps, const BestTiers& tiers,
+                                          float* __restrict__ best_score,
+                                          int* __restrict__ best_tier) {
   extern __shared__ float sm_tier[];
   stage_best_tables(sm_tier, tiers, T, R);
   const float* consts = sm_tier + (4 * R + 4) * T;
-  int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  int gid = block * blockDim.x + threadIdx.x;
   int n = gid / G;
   int j = gid % G;
   if (n >= N) return;                      // whole groups leave together
@@ -233,6 +244,46 @@ move_eval_best_kernel(int N, int T, int R, int G, BestApps apps, BestTiers tiers
     best_score[n] = s;
     best_tier[n] = (bt == T) ? 0 : bt;     // argmin of an all-inf row is 0
   }
+}
+
+// At most 64 registers a thread, so that 4 blocks of kThreads share an SM:
+// the main path's 131,072 apps (512 blocks at T <= 8) then run in one wave.
+__global__ void __launch_bounds__(kThreads, 4)
+move_eval_best_kernel(int N, int T, int R, int G, BestApps apps, BestTiers tiers,
+                      float* __restrict__ best_score, int* __restrict__ best_tier) {
+  best_body(blockIdx.x, N, T, R, G, apps, tiers, best_score, best_tier);
+}
+
+// The shard-batched sweep (the counterpart of the reference's vmap over the
+// shard stack, src/repro/shard/solve.py): blockIdx.y is the shard, whose
+// slices of every per-app and per-tier array lie `s` strides from the
+// base.  A shard whose solve has converged (active[s] == 0) computes
+// nothing and reports every app as having no move: (+inf, tier 0).
+__global__ void __launch_bounds__(kThreads, 4)
+move_eval_best_batched_kernel(int N, int T, int R, int G, BestApps apps, BestTiers tiers,
+                              const int* __restrict__ active,
+                              float* __restrict__ best_score, int* __restrict__ best_tier) {
+  const size_t s = blockIdx.y;
+  best_score += s * N;
+  best_tier += s * N;
+  if (!active[s]) {
+    int gid = blockIdx.x * blockDim.x + threadIdx.x;
+    int n = gid / G;
+    if (n < N && gid % G == 0) {
+      best_score[n] = INFINITY;
+      best_tier[n] = 0;
+    }
+    return;
+  }
+  const size_t NR = (size_t)N * R, TR = (size_t)T * R;
+  BestApps a{apps.demand + s * NR, apps.tasks + s * N, apps.crit + s * N,
+             apps.a_src + s * N, apps.a0 + s * N, apps.feasible + s * N * T,
+             apps.moves_left + s, apps.totals + 2 * s};
+  BestTiers t{tiers.capacity + s * TR, tiers.task_limit + s * T, tiers.ideal_frac + s * TR,
+              tiers.ideal_task_frac + s * T, tiers.weights + 5 * s, tiers.f + s * TR,
+              tiers.g + s * T, tiers.mean_f + s * R, tiers.mean_g + s,
+              tiers.inv_cap + s * TR, tiers.inv_klim + s * T};
+  best_body(blockIdx.x, N, T, R, G, a, t, best_score, best_tier);
 }
 
 // Floats of the staged tier table, rounded up to a whole 16 bytes so that
@@ -328,6 +379,33 @@ extern "C" int move_eval_best_launch(int N, int T, int R, const void* demand, co
   size_t smem = sizeof(float) * ((size_t)(4 * R + 4) * T + R + 6);
   move_eval_best_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       N, T, R, G, apps, tiers, (float*)best_score, (int*)best_tier);
+  return (int)cudaGetLastError();
+}
+
+// The shard-batched fused sweep: S problems of N apps and T tiers each,
+// every array with a leading [S] axis; one launch for all shards.
+extern "C" int move_eval_best_batched_launch(
+    int S, int N, int T, int R, const void* demand, const void* tasks, const void* crit,
+    const void* a_src, const void* a0, const void* feasible, const void* moves_left,
+    const void* totals, const void* active, const void* capacity, const void* task_limit,
+    const void* ideal_frac, const void* ideal_task_frac, const void* weights, const void* f,
+    const void* g, const void* mean_f, const void* mean_g, const void* inv_cap,
+    const void* inv_klim, void* best_score, void* best_tier, void* stream) {
+  if (N == 0 || S == 0) return 0;
+  if (S > 65535) return (int)cudaErrorInvalidValue;
+  BestApps apps{(const float*)demand, (const float*)tasks, (const float*)crit,
+                (const int*)a_src, (const int*)a0, (const uint8_t*)feasible,
+                (const int*)moves_left, (const float*)totals};
+  BestTiers tiers{(const float*)capacity, (const float*)task_limit, (const float*)ideal_frac,
+                  (const float*)ideal_task_frac, (const float*)weights, (const float*)f,
+                  (const float*)g, (const float*)mean_f, (const float*)mean_g,
+                  (const float*)inv_cap, (const float*)inv_klim};
+  int G = (T <= kThreadPerAppMaxT) ? 1 : group_width(T);
+  long long threads = (long long)N * G;
+  dim3 grid((unsigned)((threads + kThreads - 1) / kThreads), (unsigned)S);
+  size_t smem = sizeof(float) * ((size_t)(4 * R + 4) * T + R + 6);
+  move_eval_best_batched_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      N, T, R, G, apps, tiers, (const int*)active, (float*)best_score, (int*)best_tier);
   return (int)cudaGetLastError();
 }
 

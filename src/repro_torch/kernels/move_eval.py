@@ -11,6 +11,8 @@ when absent, from ``sweep_totals``.
 
   * ``move_eval_best_cuda``: the LocalSearch top-k sweep, (score, tier) per
     app.
+  * ``move_eval_best_batched_cuda``: the same for S stacked problems (the
+    sharded fleet solver's sweep), one launch for all shards.
   * ``move_eval_cuda``: the full delta[N, T], which the sampled
     (temperature > 0) LocalSearch sweep and the unfused path read.
 
@@ -43,11 +45,15 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape=None) -> None:
 
 
 def tier_stats(capacity, task_limit, util, tier_tasks):
-    """The T-sized tier statistics both sweep kernels read: (f, g, mean_f,
-    mean_g, 1 / capacity, 1 / task_limit)."""
-    f = util / capacity                          # [T, R]
-    g = tier_tasks / task_limit                  # [T]
-    return f, g, torch.mean(f, dim=0), torch.mean(g), 1.0 / capacity, 1.0 / task_limit
+    """The T-sized tier statistics the sweep kernels read: (f, g, mean_f,
+    mean_g, 1 / capacity, 1 / task_limit); with a leading [S] axis, each
+    shard's own.  A shard's means are the same reduction of the same values
+    as on that shard alone (each output sums its T inputs in one order,
+    whatever the number of outputs), so they have the same bits."""
+    f = util / capacity                          # [(S,) T, R]
+    g = tier_tasks / task_limit                  # [(S,) T]
+    return (f, g, torch.mean(f, dim=-2), torch.mean(g, dim=-1), 1.0 / capacity,
+            1.0 / task_limit)
 
 
 def sweep_totals(tasks, criticality) -> torch.Tensor:
@@ -187,3 +193,67 @@ def move_eval_best_cuda(*args, totals=None) -> tuple[torch.Tensor, torch.Tensor]
     (``core.delta.move_best_per_app`` semantics); ``totals`` f32[2] as
     ``sweep_totals`` gives them, computed here when absent."""
     return launch_move_eval_best(best_inputs(*args, totals=totals))
+
+
+def best_inputs_batched(*args, totals, active) -> tuple:
+    """Check the shard-batched sweep's arguments (``best_inputs``' with a
+    leading [S] axis on each, moves_left i32[S], ``totals`` f32[S, 2] and
+    ``active`` bool[S]) and compute every shard's tier table in one set of
+    ops: the inputs of one ``launch_move_eval_best_batched``."""
+    (demand, tasks, crit, assignment, assignment0, capacity, task_limit, ideal_frac,
+     ideal_task_frac, util, tier_tasks, weights, feasible, moves_left) = args
+    S, N, R = demand.shape
+    T = capacity.shape[1]
+    if R > MAX_RESOURCES:
+        raise ValueError(f"at most {MAX_RESOURCES} resources, got {R}")
+    if 4 * ((4 * R + 4) * T + R + 6) > SMEM_LIMIT:
+        raise ValueError(f"{T} tiers exceed the kernel's shared-memory staging")
+    for name, x, dtype, shape in (
+            ("demand", demand, torch.float32, (S, N, R)),
+            ("tasks", tasks, torch.float32, (S, N)),
+            ("criticality", crit, torch.float32, (S, N)),
+            ("assignment", assignment, torch.int32, (S, N)),
+            ("assignment0", assignment0, torch.int32, (S, N)),
+            ("capacity", capacity, torch.float32, (S, T, R)),
+            ("task_limit", task_limit, torch.float32, (S, T)),
+            ("ideal_frac", ideal_frac, torch.float32, (S, T, R)),
+            ("ideal_task_frac", ideal_task_frac, torch.float32, (S, T)),
+            ("util", util, torch.float32, (S, T, R)),
+            ("tier_tasks", tier_tasks, torch.float32, (S, T)),
+            ("weights", weights, torch.float32, (S, 5)),
+            ("feasible", feasible, torch.bool, (S, N, T)),
+            ("moves_left", moves_left, torch.int32, (S,)),
+            ("totals", totals, torch.float32, (S, 2)),
+            ("active", active, torch.bool, (S,))):
+        _check(name, x, dtype, shape)
+    apps = tuple(x.contiguous() for x in (demand, tasks, crit, assignment, assignment0,
+                                          feasible, moves_left, totals))
+    apps += (active.to(torch.int32),)
+    tiers = tuple(x.contiguous() for x in (capacity, task_limit, ideal_frac, ideal_task_frac,
+                                           weights))
+    stats = tuple(x.contiguous() for x in tier_stats(capacity, task_limit, util, tier_tasks))
+    return S, N, T, R, apps + tiers + stats
+
+
+def launch_move_eval_best_batched(inputs) -> tuple[torch.Tensor, torch.Tensor]:
+    """The shard-batched ``move_eval_best`` kernel alone on
+    ``best_inputs_batched``' output: (best_score f32[S, N], best_tier
+    i32[S, N])."""
+    S, N, T, R, tensors = inputs
+    dev = tensors[0].device
+    best_s = torch.empty((S, N), dtype=torch.float32, device=dev)
+    best_t = torch.empty((S, N), dtype=torch.int32, device=dev)
+    lib = load_library("move_eval")
+    code = lib.move_eval_best_batched_launch(
+        S, N, T, R, *(x.data_ptr() for x in tensors), best_s.data_ptr(), best_t.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(lib, code, "move_eval_best_batched")
+    return best_s, best_t
+
+
+def move_eval_best_batched_cuda(*args, totals, active) -> tuple[torch.Tensor, torch.Tensor]:
+    """(best_score f32[S, N], best_tier i32[S, N]) of S stacked problems on
+    the card, one launch: shard s as ``move_eval_best_cuda`` gives it on
+    shard s alone, and (+inf, 0) for a shard that is not ``active``."""
+    return launch_move_eval_best_batched(best_inputs_batched(*args, totals=totals,
+                                                             active=active))

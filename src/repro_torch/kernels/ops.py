@@ -16,7 +16,8 @@ from typing import Optional
 from repro_torch.kernels import ref as _ref
 
 launch_counts = {"move_eval": 0, "move_eval_best": 0, "commit_topk": 0, "pack_ffd_tiers": 0,
-                 "optimal_round": 0, "flash_attention": 0, "flash_decode": 0, "ssd_chunk": 0}
+                 "optimal_round": 0, "flash_attention": 0, "flash_decode": 0, "ssd_chunk": 0,
+                 "move_eval_best_batched": 0, "commit_topk_batched": 0}
 
 
 def reset_launch_counts() -> None:
@@ -64,6 +65,32 @@ def commit_topk(*args, neg_tol: float, batch_quality: float):
         launch_counts["commit_topk"] += 1
         return out
     return _ref.commit_topk_ref(*args, neg_tol=neg_tol, batch_quality=batch_quality)
+
+
+def move_eval_best_batched(*args, totals, active):
+    """``move_eval_best`` on S stacked problems in one launch: the 14
+    arguments with a leading [S] axis (moves_left i32[S]) -> (best_score
+    f32[S, N], best_tier i32[S, N]); a shard that is not ``active``
+    (bool[S]) gets (+inf, 0).  ``totals`` f32[S, 2], each shard's as
+    ``solve_local`` computes them (the plain version computes its own)."""
+    if args[0].is_cuda:
+        from repro_torch.kernels.move_eval import move_eval_best_batched_cuda
+        out = move_eval_best_batched_cuda(*args, totals=totals, active=active)
+        launch_counts["move_eval_best_batched"] += 1
+        return out
+    return _ref.move_eval_best_batched_ref(*args, active=active)
+
+
+def commit_topk_batched(*args, neg_tol: float, batch_quality: float):
+    """``commit_topk`` on S stacked problems in one launch, in place ->
+    status i32[S, 2]; see kernels.ref.commit_topk_batched_ref for the
+    signature."""
+    if args[0].is_cuda:
+        from repro_torch.kernels.commit import commit_topk_batched_cuda
+        out = commit_topk_batched_cuda(*args, neg_tol=neg_tol, batch_quality=batch_quality)
+        launch_counts["commit_topk_batched"] += 1
+        return out
+    return _ref.commit_topk_batched_ref(*args, neg_tol=neg_tol, batch_quality=batch_quality)
 
 
 def optimal_round(*args):

@@ -76,6 +76,42 @@ def commit_topk_ref(cand_n, best_s, best_t, x, util, tier_tasks, demand, tasks,
     return status
 
 
+def move_eval_best_batched_ref(*args, active):
+    """The shard-batched sweep: ``move_eval_best_ref`` on each shard of
+    the 14 stacked arguments (a leading [S] axis on each, moves_left
+    i32[S]); a shard that is not ``active`` (bool[S]) gets (+inf, tier 0).
+    Returns (best_score f32[S, N], best_tier i32[S, N])."""
+    S, N = args[0].shape[:2]
+    dev = args[0].device
+    best_s = torch.full((S, N), float("inf"), dtype=torch.float32, device=dev)
+    best_t = torch.zeros((S, N), dtype=torch.int32, device=dev)
+    for s in range(S):
+        if bool(active[s]):
+            best_s[s], best_t[s] = move_eval_best_ref(*(a[s] for a in args))
+    return best_s, best_t
+
+
+def commit_topk_batched_ref(cand_n, best_s, best_t, x, util, tier_tasks, demand, tasks,
+                            criticality, assignment0, capacity, task_limit, ideal_frac,
+                            ideal_task_frac, weights, totals, moves_left, active, *,
+                            neg_tol: float, batch_quality: float) -> torch.Tensor:
+    """The shard-batched commit: ``commit_topk_ref`` on each active shard
+    (``active`` bool[S]) of the stacked arguments, its candidates
+    ``cand_n[s]`` (i64[S, k]) shard-local app ids.  ``x``, ``util`` and
+    ``tier_tasks`` are updated in place through each shard's view.  Returns
+    status i32[S, 2]; (0, 0) for a shard that is not active."""
+    S = cand_n.shape[0]
+    status = torch.zeros((S, 2), dtype=torch.int32, device=x.device)
+    for s in range(S):
+        if bool(active[s]):
+            status[s] = commit_topk_ref(
+                cand_n[s], best_s[s], best_t[s], x[s], util[s], tier_tasks[s], demand[s],
+                tasks[s], criticality[s], assignment0[s], capacity[s], task_limit[s],
+                ideal_frac[s], ideal_task_frac[s], weights[s], totals[s], moves_left[s],
+                neg_tol=neg_tol, batch_quality=batch_quality)
+    return status
+
+
 def optimal_round_ref(order, target, x, util, tier_tasks, assignment0, demand, tasks,
                       capacity, task_limit, feas, budget) -> torch.Tensor:
     """OptimalSearch's confidence-ordered rounding scan.
@@ -253,3 +289,17 @@ def random_problem_arrays(N: int, T: int, seed: int = 0, device="cpu"):
     w = torch.tensor([1e4, 1e3, 1e2, 1e1, 1e0], dtype=torch.float32, device=device)
     return (demand, tasks, crit, x, x0, cap, klim, ideal, ideal_t,
             util, ttasks, w)
+
+
+def random_shard_batch(S: int, N: int, T: int, seed: int = 0, device="cpu"):
+    """S stacked ``random_problem_arrays`` problems (seeds seed..seed+S-1)
+    with a seeded feasibility mask and budget each: the 14 arguments of a
+    shard-batched sweep, and the S shards' totals f32[S, 2]."""
+    shards = [random_problem_arrays(N, T, seed=seed + s, device=device) for s in range(S)]
+    rng = np.random.default_rng(seed)
+    feas = torch.as_tensor(rng.random((S, N, T)) > 0.2, device=device)
+    moves_left = torch.as_tensor(rng.integers(0, 6, S).astype(np.int32), device=device)
+    args = tuple(torch.stack(a) for a in zip(*shards)) + (feas, moves_left)
+    totals = torch.stack([torch.stack([a[1].sum().clamp(min=1.0), a[2].sum().clamp(min=1.0)])
+                          for a in shards])
+    return args, totals

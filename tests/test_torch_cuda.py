@@ -17,7 +17,11 @@ rounding scan bit-identical.  The flash kernels within 3e-5 in f32 (the
 reference's flash tolerance) and, in bf16, within atol 2e-3 and rtol 2^-7:
 kernel and plain version both compute in f32 and round the output once, so
 they part by at most one bf16 ulp; rounding the probabilities to bf16 would
-part them by more.  The SSD chunk kernel within the reference's 5e-5 (f32
+part them by more.  The shard-batched sweep and commit bit for bit equal
+to the unbatched kernels on each shard (the batched sweep against its
+plain version as the unbatched sweep is held), the batched commit bit for
+bit equal to its plain version, and the batched solve on the card equal to
+``solve_local`` on each shard alone.  The SSD chunk kernel within the reference's 5e-5 (f32
 operands, 3xTF32 tensor-core products), also with x drawn 30 times larger.  A reduced-config serve on the card gives the CPU plain path's
 tokens, and a reduced Zamba2 on the card gives the CPU's logits and caches.
 """
@@ -33,9 +37,11 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import optimal_round as K_round
 from repro_torch.kernels.optimal_round import ROUND_KINDS, round_case, round_edge_cases
 from repro_torch.kernels.pack import pack_edge_cases, pack_ffd, pack_ffd_tiers
-from repro_torch.kernels.ref import (commit_topk_ref, flash_attention_ref, flash_decode_ref,
-                                    optimal_round_ref, pack_ffd_tiers_ref, random_problem_arrays,
-                                    ssd_chunk_ref)
+from repro_torch.kernels.ref import (commit_topk_batched_ref, commit_topk_ref,
+                                    flash_attention_ref, flash_decode_ref,
+                                    move_eval_best_batched_ref, optimal_round_ref,
+                                    pack_ffd_tiers_ref, random_problem_arrays,
+                                    random_shard_batch, ssd_chunk_ref)
 
 from _torch_port import (SHED_TARGET, assert_rel, cuda_device, host,  # noqa: F401
                          overload_demand, run_control)
@@ -850,3 +856,124 @@ def test_control_trajectory_on_the_card_matches_the_cpu(cuda_device):
             assert b[key] == a[key], (b["tick"], key)
         assert abs(b["moved"] - a["moved"]) <= 0.02 * 2000, b["tick"]
         assert_rel(b["d2b_before"], a["d2b_before"], 1e-4, f"tick {b['tick']}")
+
+
+
+def _active(S: int) -> torch.Tensor:
+    """Every shard active but shard 1 (where there is one)."""
+    return torch.tensor([s != 1 for s in range(S)], dtype=torch.bool)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 3, 8])
+@pytest.mark.parametrize("N,T", [(300, 5), (259, 9), (1000, 17)])
+def test_batched_sweep_kernel_matches_unbatched_kernel_and_plain_version(cuda_device, S, N, T):
+    """One launch for S shards, one thread an app (T <= 8) and lane groups
+    (T > 8): each active shard's (score, tier) is the unbatched kernel's on
+    that shard alone bit for bit, and the plain version's as the unbatched
+    kernel is held to it; an inactive shard reports (+inf, 0)."""
+    args, totals = random_shard_batch(S, N, T, seed=N + T + S, device=cuda_device)
+    active = _active(S).to(cuda_device)
+    ops.reset_launch_counts()
+    s_k, t_k = ops.move_eval_best_batched(*args, totals=totals, active=active)
+    assert ops.launch_counts["move_eval_best_batched"] == 1
+    s_p, t_p = move_eval_best_batched_ref(*args, active=active)
+    for s in range(S):
+        if not bool(active[s]):
+            assert bool(torch.isinf(s_k[s]).all()) and not bool(t_k[s].any())
+            assert torch.equal(s_k[s], s_p[s]) and torch.equal(t_k[s], t_p[s])
+            continue
+        shard = tuple(a[s] for a in args)
+        s_1, t_1 = ops.move_eval_best(*shard, totals=totals[s])
+        assert torch.equal(s_k[s], s_1) and torch.equal(t_k[s], t_1), s
+        _assert_best(s_k[s], t_k[s], s_p[s], t_p[s], move_delta_cost(*shard[:12]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 3, 8])
+@pytest.mark.parametrize("T", [3, 5, 9, 17])
+def test_batched_commit_kernel_matches_unbatched_kernel_and_plain_version(cuda_device, S, T):
+    """One one-warp CTA a shard: each active shard commits what the
+    unbatched kernel commits on that shard alone and what the plain version
+    commits, bit for bit (status, assignment, loads); an inactive shard
+    writes nothing and reports (0, 0)."""
+    N = 500
+    args, totals = random_shard_batch(S, N, T, seed=N + T + S, device=cuda_device)
+    args = list(args)
+    args[5], args[6] = args[5] * 4.0, args[6] * 4.0        # room to move
+    active = _active(S).to(cuda_device)
+    best_s, best_t = move_eval_best_batched_ref(*args, active=torch.ones(S, dtype=torch.bool))
+    cand_n = torch.sort(best_s, dim=1, stable=True).indices[:, :16].contiguous()
+    demand, tasks, crit, x, a0, cap, klim, ideal, ideal_t, util, tt, w, _, ml = args
+    knobs = dict(neg_tol=float(np.float32(-1e-7)), batch_quality=0.9)
+    states = [[x.clone(), util.clone(), tt.clone()] for _ in range(3)]
+    ops.reset_launch_counts()
+    status = [fn(cand_n, best_s, best_t, *st, demand, tasks, crit, a0, cap, klim, ideal,
+                 ideal_t, w, totals, ml, active, **knobs)
+              for fn, st in zip((ops.commit_topk_batched, commit_topk_batched_ref), states)]
+    assert ops.launch_counts["commit_topk_batched"] == 1
+    assert torch.equal(status[0], status[1])
+    for a, b in zip(states[0], states[1]):
+        assert torch.equal(a, b)
+    one = states[2]
+    for s in range(S):
+        if not bool(active[s]):
+            assert status[0][s].tolist() == [0, 0]
+            assert torch.equal(states[0][0][s], x[s]) and torch.equal(states[0][1][s], util[s])
+            continue
+        st1 = ops.commit_topk(cand_n[s], best_s[s], best_t[s], one[0][s], one[1][s], one[2][s],
+                              demand[s], tasks[s], crit[s], a0[s], cap[s], klim[s], ideal[s],
+                              ideal_t[s], w[s], totals[s], ml[s], **knobs)
+        assert torch.equal(status[0][s], st1), s
+        for a, b in zip(states[0], one):
+            assert torch.equal(a[s], b[s]), s
+    assert int(status[0][:, 1].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fleet", ["generate_cluster", "synthetic_fleet"])
+def test_batched_solve_on_the_card_equals_each_shard_alone(cuda_device, fleet):
+    """Shard s of the card's batched pass is ``solve_local`` on shard s alone
+    on the card, bit for bit; one launch of each batched kernel a sweep and
+    none of the unbatched ones.  Three tiers a shard (one thread an app) and
+    eleven (lane groups)."""
+    import repro_torch.shard as PS
+
+    if fleet == "generate_cluster":
+        cluster = P.generate_cluster(num_apps=2000, seed=5, device=cuda_device)
+    else:
+        cluster = PS.synthetic_fleet(4000, num_tiers=32, seed=2, device=cuda_device)
+    sharded = PS.partition_problem(cluster.problem, PS.plan_shards(cluster, 3))
+    cfg = PS.ShardSolveConfig(max_iters=256)
+    ops.reset_launch_counts()
+    res = PS.solve_shards(sharded, cfg, device=cuda_device)
+    launches = dict(ops.launch_counts)
+    assert launches["move_eval_best_batched"] == launches["commit_topk_batched"] == res.sweeps
+    assert res.sweeps == int(res.iterations.max()) > 1
+    assert launches["move_eval_best"] == launches["commit_topk"] == 0
+    for s in range(sharded.num_shards):
+        alone = P.solve_local(sharded.shard(s), P.LocalSearchConfig(max_iters=256),
+                              device=cuda_device)
+        assert torch.equal(res.x[s], alone.assignment), s
+        assert (int(res.iterations[s]), int(res.committed[s])) == (
+            alone.iterations, alone.extra["committed_moves"]), s
+        assert float(res.objective[s]) == alone.objective, s
+
+
+@pytest.mark.cuda
+def test_solve_fleet_on_the_card_agrees_with_the_cpu(cuda_device):
+    """The fleet pass at N = 300 on the card and on the CPU's plain path:
+    no strands, the balance bounds (agreement >= 0.98, objective within rel
+    1e-4), and the same delta pass bookkeeping."""
+    import repro_torch.shard as PS
+
+    ct = P.generate_cluster(num_apps=300, seed=3, device="cpu")
+    for dirty in (None, (0,)):
+        cfg = PS.FleetConfig(num_shards=2, timeout_s=4)
+        fc = PS.solve_fleet(ct, cfg, dirty_shards=dirty, device="cpu")
+        fg = PS.solve_fleet(ct, cfg, dirty_shards=dirty, device=cuda_device)
+        assert fg.stranded == fc.stranded == 0
+        assert_rel(fg.objective, fc.objective, 1e-4, f"fleet objective, dirty {dirty}")
+        assert float(np.mean(fg.assignment == fc.assignment)) >= 0.98
+        for key in ("solved_shards", "delta_reverted"):
+            assert fg.timings[key] == fc.timings[key], key
