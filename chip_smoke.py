@@ -94,6 +94,31 @@ Phases (each raises on failure, so the script exits non-zero):
      32 x 65,536 x 3 with some shards inactive, bit for bit, each timed
      beside its plain version, its bound and the unbatched kernel launched
      once a shard.
+     The streaming service (phase 3i): ``ServiceLoop`` over a
+     ``BalanceController`` on the card (``generate_cluster(num_apps=100_000,
+     seed=7)``, ``timeout_s=30``, levels netlat + host, 4 shards) for 16 ticks
+     of ``fleet_service_events`` (4 producer threads at tick 0, an advisory,
+     one shard's demand x 1.3, a fault window, 64 departures from shard 0's
+     least-loaded tier, 64 arrivals with a region pair over the latency budget,
+     a capacity cut), with the netlat plane probing, calibrating after 4 ticks
+     and installed process-wide; the counts zeroed just before tick 0. Checks:
+     NOOP, DELTA and FULL all occur, a DELTA tick runs the sharded route (one
+     launch of each batched kernel a sweep, none unbatched) and an applied one
+     scoped to a strict subset of the shards moves apps (the never-worse guard
+     did not revert it), a FULL tick the unbatched sweep, commit and pack, no
+     event dropped and every app's events applied in order, every applied
+     decision valid, every app outside the dirty shards that moved was a
+     migration the coordinator granted, the bank calibrated and the netlat
+     level on measured budgets on every later FULL tick, both batched kernels
+     bit for bit their plain versions on the inputs of the first sweep of every
+     DELTA tick (captured as the run launched them), a repeat gives the same
+     decisions and digest (the scoped DELTA tick and one FULL tick profiled:
+     the idle share), and the CPU tests' 12-tick stream
+     (tests/_service_stream.py) at N=300 gives the same actions, dirty shards
+     and applied flags on the card as on the CPU's plain path. Printed per
+     tick: action, reason, dirty shards, ``latency_s``, ``solve_s``, moved,
+     kernels launched, the netlat level's counters; then ``stats()`` and the
+     host time of the shadow's ``view`` and of ``plan_shards``.
   4. The dense serving slice: ``flash_attention`` and ``flash_decode`` against
      their plain versions at the serve path's shapes (prefill B=8, S=1024,
      H=16, KV=2, D=128 in bf16 and f32; a window + softcap case at D=256,
@@ -128,9 +153,10 @@ Phases (each raises on failure, so the script exits non-zero):
      teacher-forced check of wave 1 once more with the whole model in f32,
      which must agree within 1e-3 of the largest logit.
   6. A ``{"kernels": [...]}`` line (the flash kernels' launches summed over
-     both serving runs, the scheduling kernels' over the balance pass and
-     the control loop, the shard-batched ones' over the measured fleet
-     pass), then the card line again, then the final
+     both serving runs, the scheduling kernels' over the balance pass, the
+     control loop and the service, the shard-batched ones' over the
+     measured fleet pass and the service), then the card line again, then
+     the final
      ``{"ok": true, "device": {...}}`` line.
 
 ``python3 chip_smoke.py --probe SRC`` runs only the balancing slice of the
@@ -226,6 +252,25 @@ FLEET_REFERENCE_OBJECTIVE = 20.95606803894043
 FLEET_WIDE_SHARDS = 32
 FLEET_INACTIVE = {FLEET_SHARDS: (1, 5), FLEET_WIDE_SHARDS: tuple(range(0, 32, 4))}
 FLEET_DIRTY = (0, 3)
+# The streaming service (phase 3i): benchmarks/sim_scenarios.py::
+# bench_service_ingest at fleet size (generate_cluster(num_apps=100_000,
+# seed=7), ControllerConfig(timeout_s=30), the default ServiceConfig's 4
+# shards), on the measured-latency stack (levels netlat + host) with the
+# netlat plane armed as src/repro/sim/harness.py:344-372 arms it: a
+# LinkSketchBank fed by LinkMeasurementSource(seed=31) every tick,
+# calibrated after 4 ticks.  ``fleet_service_events`` gives each tick's
+# events.  The N=300 stream the card is held to the CPU on is
+# tests/_service_stream.py's.
+SERVICE_FLEET_APPS = 100_000
+SERVICE_FLEET_SEED = 7
+SERVICE_FLEET_TICKS = 16
+SERVICE_FLEET_COOLDOWN = 3
+SERVICE_FLEET_TIMEOUT_S = 30
+SERVICE_FLEET_MOVERS = 64
+SERVICE_PRODUCERS = 4
+SERVICE_PRODUCER_EVENTS = 4
+SERVICE_SOURCE_SEED = 31
+SERVICE_CALIBRATE_TICKS = 4
 
 # The serving slice: full-width qwen2.5-3b, 16 requests in waves of 8 slots,
 # prompts of 128-1024 tokens drawn from the seed, 32 new tokens each; the
@@ -2132,6 +2177,459 @@ def fleet_phase(dev, record) -> dict:
     return {"launches": launches, "sweeps": res.sweeps, "main": main, "wide": wide}
 
 
+def fleet_service_events(tick: int, loop) -> list:
+    """Phase 3i's events for ``tick`` at N=100,000, drawn from the loop's
+    shadow and seeds.  Tick 0: SERVICE_PRODUCERS threads submit telemetry
+    themselves (``produce_telemetry``); 1 an advisory beyond the planning
+    horizon; 3 the demand of the apps homed in shard 0's tiers at 1.3 x;
+    5 a fault window to tick 7; 7 SERVICE_FLEET_MOVERS departures from
+    the least-loaded tier of shard 0 (a membership change confined to one
+    shard, for a DELTA scoped to it that moves apps: shard 0's tiers
+    rebalance among themselves); 10 SERVICE_FLEET_MOVERS arrivals into free rows
+    and one region pair over the latency budget; 13 one tier's capacity at
+    0.8 x (FULL)."""
+    import numpy as np
+    from repro_torch import service as S
+    from repro_torch.core.planner import CAPACITY, Advisory
+    from repro_torch.shard import plan_shards
+
+    sh = loop.shadow
+    live = np.flatnonzero(sh._valid)
+    if tick == 0:
+        produce_telemetry(loop)
+    elif tick == 1:
+        return [S.AdvisoryBatch(advisories=(Advisory(at=40, kind=CAPACITY, tier=0,
+                                                     scale=0.5),))]
+    elif tick in (3, 7):
+        plan = plan_shards(sh.view(), loop.num_shards)
+        ids = live[plan.app_shard[live] == 0]
+        if tick == 3:
+            return [S.TelemetryDelta(app_ids=tuple(int(n) for n in ids),
+                                     demand=sh._demand[ids] * np.float32(1.3),
+                                     tasks=sh._tasks[ids].copy(), collected_at=tick)]
+        tiers = np.asarray(plan.shard_tiers[0])
+        cold = tiers[np.argmin(sh.tier_loads()[tiers])]
+        ids = ids[sh._x0[ids] == cold]
+        return [S.AppDeparture(app_id=int(n)) for n in ids[-SERVICE_FLEET_MOVERS:]]
+    elif tick == 5:
+        return [S.FaultSignal(source="telemetry", until=7, severity=0.4)]
+    elif tick == 10:
+        rng = np.random.default_rng(5)
+        free = np.flatnonzero(~sh._valid)[:SERVICE_FLEET_MOVERS]
+        lat = np.array(sh._region_latency, np.float64)
+        lat[0, 1] = lat[1, 0] = 54.0     # 1.5 x the 36 ms region budget
+        return [S.AppArrival(app_id=int(n), demand=rng.lognormal(1.2, 0.9, 2).astype(np.float32),
+                             tasks=float(rng.integers(1, 8)), slo=int(rng.integers(4)),
+                             criticality=float(rng.random())) for n in free] + [
+            S.LatencyDelta(region_latency=lat, collected_at=tick)]
+    elif tick == 13:
+        cap = sh._capacity.copy()
+        cap[2] *= np.float32(0.8)
+        return [S.CapacityUpdate(capacity=cap)]
+    return []
+
+
+def produce_telemetry(loop) -> None:
+    """Tick 0 of phase 3i: SERVICE_PRODUCERS threads, each submitting
+    SERVICE_PRODUCER_EVENTS telemetry deltas for its quarter of the live
+    apps (skew U(0.9, 1.15), as bench_service_ingest draws it)."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.service import TelemetryDelta
+
+    sh = loop.shadow
+    dem0, tsk0 = sh._demand.copy(), sh._tasks.copy()
+    chunks = np.array_split(np.flatnonzero(sh._valid), SERVICE_PRODUCERS)
+
+    def produce(pid: int, ids) -> None:
+        rng = np.random.default_rng(100 + pid)
+        app_ids = tuple(int(n) for n in ids)
+        for _ in range(SERVICE_PRODUCER_EVENTS):
+            skew = rng.uniform(0.9, 1.15, size=(ids.size, 1)).astype(np.float32)
+            loop.submit(TelemetryDelta(app_ids=app_ids, demand=dem0[ids] * skew,
+                                       tasks=tsk0[ids].copy(), collected_at=0))
+
+    threads = [threading.Thread(target=produce, args=(i, c)) for i, c in enumerate(chunks)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("service: a producer thread did not finish")
+
+
+def clone_args(args) -> list:
+    import torch
+
+    return [a.clone() if torch.is_tensor(a) else a for a in args]
+
+
+def service_trajectory(cluster, device, events, *, ticks: int, cooldown: int, timeout_s: float,
+                       levels=None, capture: bool = False, profile_ticks=()) -> dict:
+    """``ticks`` ticks of ``events(tick, loop)`` through ``ServiceLoop`` on
+    a ``BalanceController`` on ``device``, with the netlat plane when
+    ``levels`` names it; the launch counters zeroed just before the first
+    tick and read after the last.  Per tick: the decision, the step's
+    wall-clock, the balance's ``solve_s``, the kernels it launched, the
+    netlat level's counters, and for a solve the apps that moved outside
+    the dirty shards and how many of those the coordinator did not grant;
+    the shadow's ``view`` calls and the loop's shard scoping (its two
+    ``plan_shards``) timed.  With ``capture``, the first call of each
+    shard-batched kernel in a tick is kept (inputs and outputs, cloned on
+    the card) for ``check_service_kernels``.  ``profile_ticks`` run under
+    ``torch.profiler``."""
+    import numpy as np
+    import torch
+    from repro_torch import netlat as NL
+    from repro_torch import service as S
+    from repro_torch.core import BalanceController, ControllerConfig, CoopConfig
+    from repro_torch.device import host_array
+    from repro_torch.kernels import ops
+    from repro_torch.shard import plan_shards
+    from repro_torch.shard.coordinator import FleetCoordinator
+
+    cuda = torch.device(device).type == "cuda"
+    ctl = BalanceController(cluster, ControllerConfig(
+        timeout_s=timeout_s, cooldown_rounds=cooldown,
+        coop=CoopConfig(levels=levels) if levels else None), device=device)
+    loop = S.ServiceLoop(controller=ctl)
+    sh = loop.shadow
+    netlat = bool(levels) and "netlat" in levels
+    bank = NL.LinkSketchBank(cluster.region_latency.shape[0]) if netlat else None
+    source = NL.LinkMeasurementSource(seed=SERVICE_SOURCE_SEED) if netlat else None
+    truth = np.asarray(cluster.region_latency, np.float64)
+
+    # Timers around the shadow's views and the loop's shard scoping, and a
+    # record of what the controller was handed each solve.
+    spent = {"view_s": 0.0, "views": 0, "scope_s": 0.0}
+
+    def timed(fn, key):
+        def call(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t
+                if key == "view_s":
+                    spent["views"] += 1
+        return call
+
+    sh.view = timed(sh.view, "view_s")
+    loop._dirty_shards = timed(loop._dirty_shards, "scope_s")
+    loop._shard_apps = timed(loop._shard_apps, "scope_s")
+    handed, ctl_step = [], ctl.step
+
+    def recorded_step(inp):
+        handed.append(inp)
+        return ctl_step(inp)
+
+    ctl.step = recorded_step
+
+    # The coordinator's granted (app, tier) migrations, and with ``capture``
+    # the first launch of each batched kernel a tick.
+    granted, captured, now = [], {}, {"tick": None}
+    plan_migrations = FleetCoordinator.plan_migrations
+    sweep_fn, commit_fn = ops.move_eval_best_batched, ops.commit_topk_batched
+
+    def recorded_migrations(self, *args, **kw):
+        moves = plan_migrations(self, *args, **kw)
+        granted.extend((int(a), int(t)) for a, t in moves)
+        return moves
+
+    def sweep_hook(*args, totals, active):
+        out = sweep_fn(*args, totals=totals, active=active)
+        box = captured.setdefault(now["tick"], {})
+        if "sweep" not in box:
+            box["sweep"] = {"args": clone_args(args), "active": active.clone(),
+                            "out": clone_args(out)}
+        return out
+
+    def commit_hook(*args, neg_tol, batch_quality):
+        box = captured.setdefault(now["tick"], {})
+        before = None if "commit" in box else clone_args(args)
+        out = commit_fn(*args, neg_tol=neg_tol, batch_quality=batch_quality)
+        if before is not None:
+            box["commit"] = {"args": before, "out": out.clone(), "state": clone_args(args[3:6]),
+                             "knobs": {"neg_tol": neg_tol, "batch_quality": batch_quality}}
+        return out
+
+    FleetCoordinator.plan_migrations = recorded_migrations
+    if capture:
+        ops.move_eval_best_batched, ops.commit_topk_batched = sweep_hook, commit_hook
+    records, profiles = [], {}
+    if netlat:
+        NL.install_bank(bank, config=NL.NetlatConfig(), now=0)
+    try:
+        if cuda:
+            torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        for tick in range(ticks):
+            for event in events(tick, loop):
+                if event.kind == "latency":
+                    truth = np.asarray(event.region_latency, np.float64)
+                loop.submit(event)
+            if netlat:
+                bank.ingest(source.measure(truth, tick), tick)
+                if not bank.calibrated and tick + 1 >= SERVICE_CALIBRATE_TICKS:
+                    bank.calibrate(tick)
+                NL.set_now(tick)
+                if ctl.monitor is not None:
+                    ctl.monitor.note_signal(bank.signal_health(tick))
+            before = dict(ops.launch_counts)
+            spent0 = dict(spent)
+            n_handed, n_granted = len(handed), len(granted)
+            now["tick"] = tick
+            t = time.perf_counter()
+            if tick in profile_ticks:
+                box = {}
+                profiles[tick] = device_profile(lambda: box.setdefault("out", loop.step(tick)))
+                out = box["out"]
+            else:
+                out = loop.step(tick)
+            if cuda:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            res = out.result
+            d = None if res is None else res.decision
+            coop = None if d is None else d.cooperation
+            rec = {"tick": tick, "action": out.action, "reason": out.reason,
+                   "dirty_shards": out.dirty_shards, "applied": out.applied,
+                   "drained": out.events_drained, "latency_s": out.latency_s, "wall_s": wall,
+                   "delta": None if res is None else res.delta,
+                   "moved": None if res is None else res.moved,
+                   "valid": None if d is None else bool(d.violations.ok),
+                   "solve_s": None if d is None else d.solve.extra["balance_timings"]["solve_s"],
+                   "iterations": None if d is None else d.solve.iterations,
+                   "sharded": None if d is None else d.solve.extra.get("sharded"),
+                   "calibrated": None if bank is None else bank.calibrated,
+                   "netlat": (dict(coop.timings.levels["netlat"])
+                              if netlat and coop is not None else None),
+                   "launched": {k: v - before[k] for k, v in ops.launch_counts.items()
+                                if v != before[k]},
+                   "view_s": spent["view_s"] - spent0["view_s"],
+                   "views": spent["views"] - spent0["views"],
+                   "scope_s": spent["scope_s"] - spent0["scope_s"]}
+            if d is not None and res.delta and len(handed) > n_handed:
+                inp = handed[-1]
+                plan = plan_shards(inp.cluster, loop.num_shards)
+                x0 = host_array(inp.cluster.problem.assignment0)
+                x1 = host_array(ctl.cluster.problem.assignment0)
+                outside = np.flatnonzero((x0 != x1) & ~np.isin(plan.app_shard,
+                                                               np.asarray(out.dirty_shards)))
+                moves = set(granted[n_granted:])
+                rec["moved_outside"] = int(outside.size)
+                rec["outside_not_granted"] = sum((int(a), int(x1[a])) not in moves
+                                                 for a in outside)
+            records.append(rec)
+        if cuda:
+            torch.cuda.synchronize()
+        launches = dict(ops.launch_counts)
+    finally:
+        FleetCoordinator.plan_migrations = plan_migrations
+        ops.move_eval_best_batched, ops.commit_topk_batched = sweep_fn, commit_fn
+        if netlat:
+            NL.install_bank(None)
+    return {"ticks": records, "launches": launches, "stats": loop.stats(),
+            "dropped": loop.dropped_events,
+            "ordered": all(seqs == sorted(seqs) for seqs in sh.applied_seq.values()),
+            "events": loop.applied_events,
+            "digest": assignment_digest(ctl.cluster.problem.assignment0),
+            "calibrated": None if bank is None else bank.calibrated,
+            "health": None if bank is None else bank.signal_health(ticks - 1),
+            "captured": captured, "profiles": profiles, "loop": loop}
+
+
+def check_service_kernels(captured: dict, record) -> list:
+    """Both shard-batched kernels as phase 3i launched them: the first
+    launch of each in every tick that solved sharded, its captured inputs
+    run through the plain versions on the card and the outputs compared
+    bit for bit (the commit's status, assignment and tier loads).  Returns
+    one row a tick: (S, app bucket, tier bucket), active shards, errors."""
+    import torch
+    from repro_torch.kernels.ref import commit_topk_batched_ref, move_eval_best_batched_ref
+
+    rows = []
+    for tick, box in sorted(captured.items()):
+        sw, cm = box["sweep"], box["commit"]
+        s_k, t_k = sw["out"]
+        s_p, t_p = move_eval_best_batched_ref(*sw["args"], active=sw["active"])
+        finite = torch.isfinite(s_p)
+        err_s = float((s_k[finite] - s_p[finite]).abs().max()) if bool(finite.any()) else 0.0
+        exact_s = torch.equal(s_k, s_p) and torch.equal(t_k, t_p)
+        args = clone_args(cm["args"])
+        st_p = commit_topk_batched_ref(*args, **cm["knobs"])
+        exact_c = (torch.equal(cm["out"], st_p)
+                   and all(torch.equal(a, b) for a, b in zip(cm["state"], args[3:6])))
+        err_c = max(float((a - b).abs().max()) for a, b in zip(cm["state"][1:], args[4:6]))
+        S, N, _ = sw["args"][0].shape
+        T = sw["args"][5].shape[1]
+        row = {"tick": tick, "shape": (S, N, T), "active": int(sw["active"].sum()),
+               "accepted": cm["out"][:, 1].tolist(), "sweep_err": err_s, "commit_err": err_c,
+               "exact": exact_s and exact_c}
+        print(f"service tick {tick}: move_eval_best_batched and commit_topk_batched at (S, app "
+              f"bucket, tier bucket) = {row['shape']}, {row['active']} active, first sweep as "
+              f"the main path launched it: sweep equal to its plain version {exact_s} (max abs "
+              f"err {err_s:.3e}), commit (status, assignment, tier loads) equal {exact_c} (max "
+              f"abs err {err_c:.3e}), accepted {row['accepted']}", flush=True)
+        if not row["exact"]:
+            raise AssertionError(f"service tick {tick}: a batched kernel disagrees with its "
+                                 f"plain version at {row['shape']}")
+        record["move_eval_best_batched"]["max_abs_err"] = max(
+            record["move_eval_best_batched"]["max_abs_err"], err_s)
+        record["commit_topk_batched"]["max_abs_err"] = max(
+            record["commit_topk_batched"]["max_abs_err"], err_c)
+        rows.append(row)
+    return rows
+
+
+SERVICE_FIELDS = ("action", "dirty_shards", "applied")
+
+
+def service_phase(dev, record) -> dict:
+    """Phase 3i: the streaming service at N=100,000 on the card
+    (``fleet_service_events``), its checks, both batched kernels held to
+    their plain versions on the inputs the run gave them, a repeat with the
+    scoped DELTA tick and one FULL tick profiled, the host time of the
+    shadow's view and the loop's ``plan_shards``, and the N=300 stream of
+    tests/_service_stream.py on the card against the CPU's plain path."""
+    import numpy as np
+    import torch
+    import repro_torch.core.planner as planner
+    from repro_torch import service as S
+    from repro_torch.core import generate_cluster
+    from repro_torch.shard import plan_shards
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _service_stream as small
+
+    fleet = {"ticks": SERVICE_FLEET_TICKS, "cooldown": SERVICE_FLEET_COOLDOWN,
+             "timeout_s": SERVICE_FLEET_TIMEOUT_S, "levels": ("netlat", "host")}
+    cluster = generate_cluster(num_apps=SERVICE_FLEET_APPS, seed=SERVICE_FLEET_SEED, device=dev)
+    run = service_trajectory(cluster, dev, fleet_service_events, capture=True, **fleet)
+    ticks, launches, stats = run["ticks"], run["launches"], run["stats"]
+    shards = run["loop"].num_shards
+    for r in ticks:
+        sharded = r["sharded"] or {}
+        print(f"service N={SERVICE_FLEET_APPS} tick {r['tick']}: {r['action']} (dirty shards "
+              f"{r['dirty_shards']}), applied {r['applied']}, drained {r['drained']}, latency_s "
+              f"{r['latency_s']:.4f} (wall {r['wall_s']:.4f}), solve_s {r['solve_s']}, moved "
+              f"{r['moved']} (outside the dirty shards {r.get('moved_outside')}, of them not "
+              f"granted by the coordinator {r.get('outside_not_granted')}; migrations "
+              f"{sharded.get('migrations')}, delta_reverted {sharded.get('delta_reverted')}), "
+              f"sweeps {r['iterations']}, valid {r['valid']}, launched {r['launched']}, bank "
+              f"calibrated {r['calibrated']}, netlat level {r['netlat']}, views {r['views']} in "
+              f"{r['view_s']:.4f} s, shard scoping {r['scope_s']:.4f} s; {r['reason'][:90]}",
+              flush=True)
+    keys = ("events_per_s", "resolve_p50_ms", "resolve_p99_ms", "noop_p50_ms", "delta_fraction")
+    print(f"service: stats {stats}; {', '.join(f'{k} {stats[k]}' for k in keys)}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }, dropped {run['dropped']}, per-app "
+          f"order kept {run['ordered']}, bank calibrated {run['calibrated']}, link health "
+          f"{run['health']} (printed: the controller runs without the fault plane, so it has "
+          f"no monitor to publish it to), final digest {run['digest']}", flush=True)
+
+    actions = {r["action"] for r in ticks}
+    if actions != {"noop", "delta", "full"}:
+        raise AssertionError(f"service: actions {sorted(actions)}, not all of noop/delta/full")
+    delta_ticks = [r for r in ticks if r["action"] == "delta" and r["delta"] and r["iterations"]
+              and r["launched"].get("move_eval_best_batched") == r["iterations"]
+              == r["launched"].get("commit_topk_batched")
+              and not r["launched"].get("move_eval_best") and not r["launched"].get("commit_topk")]
+    if not delta_ticks:
+        raise AssertionError("service: no DELTA tick ran the sharded route with one launch of "
+                             "each batched kernel a sweep")
+    scoped = [r for r in delta_ticks if r["applied"] and 0 < len(r["dirty_shards"]) < shards
+              and r["moved"] and not r["sharded"]["delta_reverted"]]
+    print(f"service: DELTA ticks on the sharded route {[r['tick'] for r in delta_ticks]}, of "
+          f"them applied, scoped to a strict subset of the {shards} shards and moving apps "
+          f"(not reverted) {[(r['tick'], r['dirty_shards'], r['moved']) for r in scoped]}",
+          flush=True)
+    if not scoped:
+        raise AssertionError("service: no applied DELTA tick scoped to a strict subset of the "
+                             "shards moved an app")
+    full_ticks = [
+        r for r in ticks if r["action"] == "full" and all(
+            r["launched"].get(k, 0) > 0 for k in ("move_eval_best", "commit_topk",
+                                                  "pack_ffd_tiers"))
+        and not r["launched"].get("move_eval_best_batched")]
+    if not full_ticks:
+        raise AssertionError("service: no FULL tick ran the unbatched path (sweep, commit, pack)")
+    if run["dropped"] != 0 or not run["ordered"] or run["events"] != stats["events_submitted"]:
+        raise AssertionError(f"service: dropped {run['dropped']}, ordered {run['ordered']}, "
+                             f"applied {run['events']} of {stats['events_submitted']}")
+    if any(r["applied"] and not r["valid"] for r in ticks):
+        raise AssertionError("service: an applied decision is not valid")
+    for r in ticks:
+        if r.get("outside_not_granted"):
+            raise AssertionError(f"service tick {r['tick']}: {r['outside_not_granted']} apps "
+                                 f"outside the dirty shards {r['dirty_shards']} moved with no "
+                                 "coordinator migration")
+    if not run["calibrated"]:
+        raise AssertionError("service: the netlat bank never calibrated")
+    vetted = [r for r in full_ticks if r["calibrated"]]
+    if not vetted or any((r["netlat"] or {}).get("measured") != 1 for r in vetted):
+        raise AssertionError(f"service: the netlat level did not run on measured budgets on "
+                             f"the FULL ticks after calibration "
+                             f"{[(r['tick'], r['netlat']) for r in vetted]}")
+    kernel_rows = check_service_kernels(run["captured"], record)
+    if sorted(row["tick"] for row in kernel_rows) != [r["tick"] for r in delta_ticks]:
+        raise AssertionError("service: the batched kernels were not held to their plain "
+                             "versions on every DELTA tick")
+
+    profile_ticks = (scoped[0]["tick"], full_ticks[-1]["tick"])
+    again = service_trajectory(cluster, dev, fleet_service_events, profile_ticks=profile_ticks,
+                               **fleet)
+    same = (again["digest"] == run["digest"]
+            and [[r[k] for k in SERVICE_FIELDS] for r in again["ticks"]]
+            == [[r[k] for k in SERVICE_FIELDS] for r in ticks])
+    print(f"service repeat: digest {again['digest']}, the same actions, dirty shards, applied "
+          f"flags and digest {same}; stats {again['stats']}", flush=True)
+    if not same:
+        raise AssertionError("service: a repeat of the phase gave other decisions")
+    for tick in profile_ticks:
+        print(solve_profile_line(f"profile: service tick {tick} "
+                                 f"({again['ticks'][tick]['action']}, dirty shards "
+                                 f"{again['ticks'][tick]['dirty_shards']})",
+                                 again["profiles"][tick]), flush=True)
+
+    # The host time of the shadow's view and of one plan_shards at N=100,000.
+    loop = run["loop"]
+    view_s, plan_s = [], []
+    for _ in range(5):
+        t = time.perf_counter()
+        view = loop.shadow.view()
+        torch.cuda.synchronize()
+        view_s.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        plan_shards(view, loop.num_shards)
+        plan_s.append(time.perf_counter() - t)
+    steps = len(ticks)
+    print(f"service: the shadow's view {np.median(view_s) * 1e3:.4f} ms and plan_shards "
+          f"{np.median(plan_s) * 1e3:.4f} ms at N={SERVICE_FLEET_APPS} (median of 5); a step "
+          f"made {sum(r['views'] for r in ticks) / steps:.2f} views ("
+          f"{sum(r['view_s'] for r in ticks) / steps * 1e3:.4f} ms) and spent "
+          f"{sum(r['scope_s'] for r in ticks) / steps * 1e3:.4f} ms in its shard scoping "
+          f"(the two plan_shards), mean over {steps} steps", flush=True)
+
+    def small_events(tick, loop):
+        return small.service_events(tick, loop, S, planner, plan_shards)
+
+    script = {"ticks": small.SERVICE_TICKS, "cooldown": small.SERVICE_COOLDOWN,
+              "timeout_s": small.SERVICE_TIMEOUT_S}
+    few = generate_cluster(num_apps=small.SERVICE_APPS, seed=small.SERVICE_SEED, device="cpu")
+    on_card = service_trajectory(few, dev, small_events, **script)["ticks"]
+    on_cpu = service_trajectory(few, "cpu", small_events, **script)["ticks"]
+    agree = all(a[k] == b[k] for a, b in zip(on_card, on_cpu) for k in SERVICE_FIELDS)
+    print(f"service N={small.SERVICE_APPS}: card "
+          f"{[[r[k] for k in SERVICE_FIELDS] for r in on_card]}, plain path agrees {agree}; "
+          f"moved card/cpu {[(a['moved'], b['moved']) for a, b in zip(on_card, on_cpu)]}",
+          flush=True)
+    if not agree:
+        raise AssertionError("service: the card's N=300 stream disagrees with the plain path")
+    return {"run": run, "again": again, "kernels": kernel_rows}
+
+
 def host_gumbel(sweep: int, size: int, device):
     """Gumbel noise drawn on the host with numpy (one seed a sweep), for the
     sampled solve's ``gumbel_fn``."""
@@ -2544,6 +3042,11 @@ def main() -> int:
     fleet = fleet_phase(dev, record)
     torch.cuda.empty_cache()
 
+    # -- 3i. the streaming service at N=100k: ServiceLoop ticks --------------------
+    service = service_phase(dev, record)
+    service_launches = service["run"]["launches"]
+    torch.cuda.empty_cache()
+
     # -- 4. the serving slice: qwen2.5-3b at full width --------------------------
     serving = serving_phase(dev, record)
     fa, fd = serving["times"]["prefill_main"], serving["times"]["decode_main"]
@@ -2559,9 +3062,11 @@ def main() -> int:
     kernels = [
         {"name": "move_eval_best", "route": "cuda", "source": MOVE_EVAL_SRC,
          "replaces": "src/repro/kernels/move_eval.py:275",
-         "launches": launches["move_eval_best"] + control_launches["move_eval_best"],
+         "launches": (launches["move_eval_best"] + control_launches["move_eval_best"]
+                      + service_launches["move_eval_best"]),
          "launches_by_path": {"balance": launches["move_eval_best"],
-                              "control": control_launches["move_eval_best"]},
+                              "control": control_launches["move_eval_best"],
+                              "service": service_launches["move_eval_best"]},
          "max_abs_err": record["move_eval_best"]["max_abs_err"],
          "ms": main_sweep["move_eval_best"]["ms"],
          "plain_ms": main_sweep["move_eval_best"]["plain_ms"],
@@ -2580,18 +3085,22 @@ def main() -> int:
          "bound_by": main_sweep["move_eval"]["bound_by"], "library_ms": None},
         {"name": "commit_topk", "route": "cuda", "source": COMMIT_SRC,
          "replaces": "src/repro/core/solver_local.py:219",
-         "launches": launches["commit_topk"] + control_launches["commit_topk"],
+         "launches": (launches["commit_topk"] + control_launches["commit_topk"]
+                      + service_launches["commit_topk"]),
          "launches_by_path": {"balance": launches["commit_topk"],
-                              "control": control_launches["commit_topk"]},
+                              "control": control_launches["commit_topk"],
+                              "service": service_launches["commit_topk"]},
          "max_abs_err": record["commit_topk"]["max_abs_err"],
          "ms": main_commit["ms"], "plain_ms": main_commit["plain_ms"],
          "bound_ms": main_commit["bound_ms"], "bound_by": main_commit["bound_by"],
          "library_ms": None},
         {"name": "pack_ffd_tiers", "route": "cuda", "source": PACK_SRC,
          "replaces": "src/repro/kernels/pack.py:116",
-         "launches": launches["pack_ffd_tiers"] + control_launches["pack_ffd_tiers"],
+         "launches": (launches["pack_ffd_tiers"] + control_launches["pack_ffd_tiers"]
+                      + service_launches["pack_ffd_tiers"]),
          "launches_by_path": {"balance": launches["pack_ffd_tiers"],
-                              "control": control_launches["pack_ffd_tiers"]},
+                              "control": control_launches["pack_ffd_tiers"],
+                              "service": service_launches["pack_ffd_tiers"]},
          "max_abs_err": record["pack_ffd_tiers"]["max_abs_err"],
          "ms": pack_main["ms"], "plain_ms": pack_main["plain_ms"],
          "bound_ms": pack_main["bound_ms"], "bound_by": pack_main["bound_by"],
@@ -2638,7 +3147,9 @@ def main() -> int:
             "source": MOVE_EVAL_SRC if part == "sweep" else COMMIT_SRC,
             "replaces": ("src/repro/kernels/move_eval.py:275" if part == "sweep"
                          else "src/repro/core/solver_local.py:219"),
-            "launches": fleet["launches"][name], "launches_by_path": {"fleet": fleet["launches"][name]},
+            "launches": fleet["launches"][name] + service_launches[name],
+            "launches_by_path": {"fleet": fleet["launches"][name],
+                                 "service": service_launches[name]},
             "max_abs_err": record[name]["max_abs_err"], "shape": fleet["main"]["shape"],
             "ms": t["ms"], "unbatched_ms": t["unbatched_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,

@@ -55,11 +55,10 @@ Public surface (this is the redesigned API):
     rounds (advisory schedules, fault windows, telemetry/capacity/
     membership deltas).
 
-The sharded fleet solver is ported (``repro_torch.shard``), but the
-controller's route to it is not wired yet (ROADMAP Queue 1 item 5, with
-the service that sends such ticks): a tick that would route to it
-(``ControllerConfig.shards``, or ``TickInput.dirty_shards`` with
-``num_shards``) raises ``NotImplementedError`` at the routing point.
+Sharded route: a standing ``ControllerConfig.shards``, or a tick that
+brings ``TickInput.dirty_shards`` with ``num_shards`` (the service loop's
+delta solve), balances through ``repro_torch.shard.balance_fleet`` on the
+controller's device instead of the global ``Sptlb`` engine.
 """
 from __future__ import annotations
 
@@ -183,9 +182,8 @@ class ControllerConfig:
     shed: Optional[ShedConfig] = None
     # Sharded fleet solver: partition the fleet into this many region-affine
     # shards and solve them as one batched pass with coordinator-granted
-    # boundary migrations, instead of the global Sptlb engine.  None
-    # (default) keeps the global path.  Not ported yet (ROADMAP Queue 1
-    # item 4): a tick that routes there raises NotImplementedError.
+    # boundary migrations (``repro_torch.shard.balance_fleet``), instead of
+    # the global Sptlb engine.  None (default) keeps the global path.
     shards: Optional[int] = None
 
     def __post_init__(self):
@@ -372,6 +370,31 @@ class BalanceController:
         self._advisory_log = [
             {"advisory": a, "acted": False, "expired": False}
             for a in self.planner.advisories]
+
+    # -- admission gate (requires an attached streams.admission controller) --
+    def _admit(self, *, demand, tasks, slo, criticality, key,
+               app_id: Optional[int] = None):
+        """Price one arriving app in the current operating mode.
+
+        Delegates to the attached ``AdmissionController`` (``admission``):
+        CONSERVATIVE tightens the headroom margin and disables degraded
+        admissions, SAFE rejects non-critical arrivals outright.  When the
+        arrival occupies a known pool row (``app_id``) and the decision is
+        admit-degraded, its delivery cap is registered with the shedder so
+        it lifts through the same hysteretic re-admission.
+        """
+        if self.admission is None:
+            raise RuntimeError("no AdmissionController attached "
+                               "(set controller.admission)")
+        decision = self.admission.decide(
+            self.cluster.problem, demand=demand, tasks=tasks, slo=slo,
+            criticality=criticality, key=key, mode=self.mode.value,
+            now=self.now)
+        if (app_id is not None and self.shedder is not None
+                and decision.state.value == "admit_degraded"):
+            self.shedder._ensure(self.cluster.problem.num_apps)
+            self.shedder.set_cap(app_id, decision.cap)
+        return decision
 
     # -- event ingestion ------------------------------------------------------
     def ingest(self, event) -> None:
@@ -780,14 +803,22 @@ class BalanceController:
             delta = dirty is not None
             shards = self.config.shards or (inp.num_shards if delta else None)
             if shards:
-                # The route to the sharded fleet path (repro_torch.shard:
-                # partitioned batched solve + the coordinator's priced
-                # boundary migrations; the delta solve when only dirty
-                # shards are given) is not wired into the controller yet.
-                raise NotImplementedError(
-                    f"the controller's route to the sharded fleet solver ({shards} shards, "
-                    f"dirty shards {dirty}) is not wired yet: ROADMAP Queue 1 item 5, "
-                    "with service/")
+                # Sharded fleet path: partitioned batched solve + the
+                # FleetCoordinator's priced boundary migrations, under the
+                # same BalanceDecision contract (plan steering, shed caps,
+                # and the movement budget all ride coop_cfg).  A dirty-region
+                # scope from the service loop turns this into a delta solve;
+                # without a standing config.shards, *only* delta solves route
+                # here and full passes keep the global engine.  It solves on
+                # the controller's device, like the global engine.
+                from repro_torch.shard import FleetConfig, balance_fleet
+                decision = balance_fleet(
+                    balance_cluster,
+                    fleet=FleetConfig(num_shards=shards,
+                                      timeout_s=self.config.timeout_s),
+                    coop=coop_cfg,
+                    dirty_shards=dirty,
+                    device=self.device)
             else:
                 self._sptlb.cluster = balance_cluster
                 decision = self._sptlb.balance(

@@ -126,14 +126,18 @@ def level_factory(name: str) -> Callable:
     if name not in _REGISTRY:
         # The built-in region/host levels live in core.hierarchy, which
         # registers them on import; resolve lazily so `import levels` alone
-        # still finds them.  (The measured-latency level belongs to a slice
-        # of the port that is not built yet.)
+        # still finds them.
         import repro_torch.core.hierarchy  # noqa: F401  (registration side effect)
 
     if name not in _REGISTRY:
         # The cross-shard fleet coordinator registers from the shard
         # subsystem — same lazy-registration contract as the builtins.
         import repro_torch.shard  # noqa: F401  (registration side effect)
+
+    if name not in _REGISTRY:
+        # The measured-latency level ("netlat") registers from the netlat
+        # subsystem — same lazy-registration contract.
+        import repro_torch.netlat  # noqa: F401  (registration side effect)
 
     if name not in _REGISTRY:
         raise KeyError(f"unknown scheduler level {name!r}; have {sorted(_REGISTRY)}")

@@ -12,6 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+# The service loop's scripted stream, shared with chip_smoke.py.
+from _service_stream import (SERVICE_APPS, SERVICE_COOLDOWN, SERVICE_MOVERS,  # noqa: F401
+                             SERVICE_SEED, SERVICE_TICKS, SERVICE_TIMEOUT_S, service_events)
+
 GOAL_NAMES = ("under_ideal", "resource_balance", "task_balance",
               "movement_cost", "criticality")
 
@@ -121,3 +125,4 @@ def run_control(pkg, ctl, base, as_array, ticks: int = CONTROL_TICKS) -> list:
             "d2b_before": r.d2b_before, "d2b_after": r.d2b_after,
             "admissions": {s: states.count(s) for s in sorted(set(states))}})
     return records
+

@@ -130,14 +130,31 @@ def test_healthy_breaker_board_changes_nothing(clusters):
 
 
 def test_unported_shedding_is_refused(clusters):
-    """Shedding is ported (``tests/test_torch_control.py``); the controller
-    path still refused is the sharded fleet solver: a standing
-    ``ControllerConfig.shards`` raises at its routing point when a
-    dirty-shard request pre-triggers the tick."""
-    _, ct = clusters
-    ctl = P.BalanceController(ct, P.ControllerConfig(shards=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ctl.step(P.TickInput(now=0, dirty_shards=(0,)))
+    """The controller's sharded route (the path this test once pinned as
+    refused): with a standing ``ControllerConfig.shards``, a dirty-shard
+    tick balances through ``balance_fleet`` on the controller's device.  The
+    decision equals ``balance_fleet(..., dirty_shards=(0,))`` called with
+    the controller's arguments, and the reference controller's step."""
+    import repro_torch.shard as PS
+
+    cj, ct = clusters
+    tick = dict(now=0, dirty_shards=(0,))
+    rj = R.BalanceController(cj, R.ControllerConfig(shards=2)).step(R.TickInput(**tick))
+    rt = P.BalanceController(ct, P.ControllerConfig(shards=2), device="cpu").step(
+        P.TickInput(**tick))
+    direct = PS.balance_fleet(
+        ct, fleet=PS.FleetConfig(num_shards=2, timeout_s=30),
+        coop=P.CoopConfig(move_cost=move_costs(ct.problem), cost_budget=float("inf")),
+        dirty_shards=(0,), device="cpu")
+    assert rt.triggered and rt.applied == rj.applied is True
+    assert torch.equal(rt.decision.assignment, direct.assignment)
+    assert np.array_equal(host(rt.decision.assignment), np.asarray(rj.decision.assignment))
+    assert rt.moved == rj.moved == direct.projected.num_moved
+    assert rt.d2b_after == direct.difference_to_balance
+    assert_rel(rt.d2b_after, rj.d2b_after, 1e-6, "d2b_after")
+    for d in (direct, rj.decision):
+        assert rt.decision.solve.extra["sharded"]["solved_shards"] == d.solve.extra[
+            "sharded"]["solved_shards"] == 1
 
 
 @pytest.mark.parametrize("mode", ["reject_all", "raise"])

@@ -21,7 +21,9 @@ part them by more.  The shard-batched sweep and commit bit for bit equal
 to the unbatched kernels on each shard (the batched sweep against its
 plain version as the unbatched sweep is held), the batched commit bit for
 bit equal to its plain version, and the batched solve on the card equal to
-``solve_local`` on each shard alone.  The SSD chunk kernel within the reference's 5e-5 (f32
+``solve_local`` on each shard alone; the service loop's scripted stream
+with the CPU's actions and routes, and the controller's sharded route equal
+to ``balance_fleet`` on the card.  The SSD chunk kernel within the reference's 5e-5 (f32
 operands, 3xTF32 tensor-core products), also with x drawn 30 times larger.  A reduced-config serve on the card gives the CPU plain path's
 tokens, and a reduced Zamba2 on the card gives the CPU's logits and caches.
 """
@@ -43,8 +45,9 @@ from repro_torch.kernels.ref import (commit_topk_batched_ref, commit_topk_ref,
                                     pack_ffd_tiers_ref, random_problem_arrays,
                                     random_shard_batch, ssd_chunk_ref)
 
-from _torch_port import (SHED_TARGET, assert_rel, cuda_device, host,  # noqa: F401
-                         overload_demand, run_control)
+from _torch_port import (SERVICE_APPS, SERVICE_COOLDOWN, SERVICE_SEED,  # noqa: F401
+                         SERVICE_TICKS, SERVICE_TIMEOUT_S, SHED_TARGET, assert_rel, cuda_device,
+                         host, overload_demand, run_control, service_events)
 
 torch.set_num_threads(1)
 
@@ -977,3 +980,71 @@ def test_solve_fleet_on_the_card_agrees_with_the_cpu(cuda_device):
         assert float(np.mean(fg.assignment == fc.assignment)) >= 0.98
         for key in ("solved_shards", "delta_reverted"):
             assert fg.timings[key] == fc.timings[key], key
+
+
+def _service_run(device) -> tuple:
+    """The scripted 12-tick stream (``_service_stream.service_events``)
+    through a ``ServiceLoop`` on ``device``; one record a tick."""
+    import repro_torch.core.planner as PP
+    import repro_torch.service as PSV
+    from repro_torch.shard import plan_shards
+
+    ct = P.generate_cluster(num_apps=SERVICE_APPS, seed=SERVICE_SEED, device=device)
+    loop = PSV.ServiceLoop(controller=P.BalanceController(ct, P.ControllerConfig(
+        timeout_s=SERVICE_TIMEOUT_S, cooldown_rounds=SERVICE_COOLDOWN), device=device))
+    records = []
+    for tick in range(SERVICE_TICKS):
+        for event in service_events(tick, loop, PSV, PP, plan_shards):
+            loop.submit(event)
+        out = loop.step(tick)
+        records.append((out.action, out.dirty_shards, out.applied,
+                        None if out.result is None else out.result.delta))
+    return loop, records
+
+
+@pytest.mark.cuda
+def test_service_loop_on_the_card_matches_the_cpu(cuda_device):
+    """The scripted stream at N = 300: the same actions, dirty shards,
+    applied flags and routes on the card as on the CPU's plain path."""
+    loop_g, on_card = _service_run(cuda_device)
+    loop_c, on_cpu = _service_run("cpu")
+    assert on_card == on_cpu
+    assert {r[0] for r in on_card} == {"noop", "delta", "full"}
+    assert loop_g.dropped_events == loop_c.dropped_events == 0
+    assert loop_g.controller.cluster.problem.assignment0.is_cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("standing", [False, True])
+def test_sharded_route_on_the_card_equals_balance_fleet(cuda_device, standing):
+    """A dirty-shard tick on a card controller (a standing shard count, or
+    one the tick brings): the decision equals ``balance_fleet`` on the card
+    with the controller's arguments; one launch of each batched kernel a
+    sweep (the sweeps of ``solve_fleet`` on the same arguments) and none of
+    the unbatched ones; apps outside the dirty shard keep their tier."""
+    import repro_torch.core.planner as PP
+    import repro_torch.shard as PS
+
+    ct = P.generate_cluster(num_apps=2000, seed=5, device=cuda_device)
+    ctl = P.BalanceController(ct, P.ControllerConfig(shards=2 if standing else None),
+                              device=cuda_device)
+    tick = P.TickInput(now=0, dirty_shards=(1,), num_shards=None if standing else 2)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    res = ctl.step(tick)
+    torch.cuda.synchronize()
+    launches = dict(ops.launch_counts)
+    move_cost = PP.move_costs(ct.problem)
+    fleet = PS.FleetConfig(num_shards=2, timeout_s=30)
+    direct = PS.balance_fleet(ct, fleet=fleet, dirty_shards=(1,), device=cuda_device,
+                              coop=P.CoopConfig(move_cost=move_cost, cost_budget=float("inf")))
+    fd = PS.solve_fleet(ct, fleet, move_cost=move_cost, migration_budget=float("inf"),
+                        dirty_shards=(1,), device=cuda_device)
+    assert res.delta and res.applied
+    assert torch.equal(res.decision.assignment, direct.assignment)
+    assert res.d2b_after == direct.difference_to_balance
+    assert launches["move_eval_best_batched"] == launches["commit_topk_batched"] == fd.solve.sweeps > 0
+    assert launches["move_eval_best"] == launches["commit_topk"] == 0
+    outside = PS.plan_shards(ct, 2).app_shard != 1
+    x0, x = host(ct.problem.assignment0), host(ctl.cluster.problem.assignment0)
+    assert np.array_equal(x[outside], x0[outside])

@@ -77,13 +77,22 @@ def test_unfused_sweep_path_agrees_with_the_fused_one(clusters):
 
 
 def test_unported_paths_raise(clusters):
-    """The delta solve over dirty shards routes to the sharded fleet solver,
-    which is not ported: a controller without a standing shard count raises
-    when a tick brings ``dirty_shards`` with ``num_shards``."""
+    """The delta solve over dirty shards (the path this test once pinned as
+    raising): a controller without a standing shard count, handed a tick
+    with ``dirty_shards`` and ``num_shards``, solves through the sharded
+    route, reports ``delta``, and keeps every app outside the dirty shard
+    on its tier."""
+    from repro_torch.shard import plan_shards
+
     _, ct = clusters
     ctl = P.BalanceController(ct, P.ControllerConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ctl.step(P.TickInput(now=0, dirty_shards=(0,), num_shards=2))
+    res = ctl.step(P.TickInput(now=0, dirty_shards=(0,), num_shards=2))
+    assert res.delta and res.triggered and res.applied
+    assert res.decision.solve.extra["sharded"]["solved_shards"] == 1
+    x0, x = host(ct.problem.assignment0), host(ctl.cluster.problem.assignment0)
+    outside = plan_shards(ct, 2).app_shard != 0
+    assert outside.any() and np.array_equal(x[outside], x0[outside])
+    assert res.moved == int((x != x0).sum()) > 0
 
 
 def test_commit_scan_keeps_loads_consistent_and_stops_when_converged(clusters):
