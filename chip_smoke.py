@@ -119,6 +119,21 @@ Phases (each raises on failure, so the script exits non-zero):
      tick: action, reason, dirty shards, ``latency_s``, ``solve_s``, moved,
      kernels launched, the netlat level's counters; then ``stats()`` and the
      host time of the shadow's ``view`` and of ``plan_shards``.
+     The fleet simulator (phase 3j): ``run_pair(get_scenario(name,
+     num_apps=100_000, ticks=32))`` on the card for ``tier_drain`` (the
+     global path, with its declared advisories and movement budget) and
+     ``fleet_scale`` (the sharded route, S=2), each with the counts zeroed
+     just before.  Checks: the controller triggers and applies, the static
+     baseline launches nothing, no unsafe move, every applied mapping valid,
+     tier_drain launches the sweep, commit and pack kernels and keeps within
+     its movement budget, every solved tick of fleet_scale launches both
+     batched kernels and none of the unbatched sweep kernels, a repeat of
+     tier_drain gives the same per-tick records and assignment digests (its
+     first triggered tick profiled: the idle share), and tier_drain at
+     N=300 on the card and on the CPU's plain path (the same host draws)
+     gives the same per-tick decisions.  Printed per tick: the wall-clock
+     split into the world, the controller and the accounting, the decision,
+     the kernels launched; then each pair's ``compare()``.
   4. The dense serving slice: ``flash_attention`` and ``flash_decode`` against
      their plain versions at the serve path's shapes (prefill B=8, S=1024,
      H=16, KV=2, D=128 in bf16 and f32; a window + softcap case at D=256,
@@ -154,8 +169,9 @@ Phases (each raises on failure, so the script exits non-zero):
      which must agree within 1e-3 of the largest logit.
   6. A ``{"kernels": [...]}`` line (the flash kernels' launches summed over
      both serving runs, the scheduling kernels' over the balance pass, the
-     control loop and the service, the shard-batched ones' over the
-     measured fleet pass and the service), then the card line again, then
+     control loop, the service and the simulator's two pairs, the
+     shard-batched ones' over the measured fleet pass, the service and the
+     simulator), then the card line again, then
      the final
      ``{"ok": true, "device": {...}}`` line.
 
@@ -271,6 +287,20 @@ SERVICE_PRODUCERS = 4
 SERVICE_PRODUCER_EVENTS = 4
 SERVICE_SOURCE_SEED = 31
 SERVICE_CALIBRATE_TICKS = 4
+# The fleet simulator (phase 3j): two scenarios of the registry
+# (src/repro_torch/sim/scenario.py) at the balancing slice's fleet size,
+# seed 0, each for two diurnal periods (the registry's period is
+# max(16, ticks // 2)); the reference's default horizon is 160 ticks.
+# tier_drain runs the global path with declared advisories and a movement
+# budget, fleet_scale the sharded route (S=2).  The card is held to the CPU
+# on tier_drain at N=300, both stepping the workload with the same host
+# draws (tests/_sim_world.py::host_draws).
+SIM_APPS = 100_000
+SIM_TICKS = 32
+SIM_SCENARIOS = ("tier_drain", "fleet_scale")
+SIM_SMALL_N = 300
+SIM_SMALL_TICKS = 24
+SIM_DRAW_SEED = 0
 
 # The serving slice: full-width qwen2.5-3b, 16 requests in waves of 8 slots,
 # prompts of 128-1024 tokens drawn from the seed, 32 new tokens each; the
@@ -2331,33 +2361,14 @@ def service_trajectory(cluster, device, events, *, ticks: int, cooldown: int, ti
     # the first launch of each batched kernel a tick.
     granted, captured, now = [], {}, {"tick": None}
     plan_migrations = FleetCoordinator.plan_migrations
-    sweep_fn, commit_fn = ops.move_eval_best_batched, ops.commit_topk_batched
 
     def recorded_migrations(self, *args, **kw):
         moves = plan_migrations(self, *args, **kw)
         granted.extend((int(a), int(t)) for a, t in moves)
         return moves
 
-    def sweep_hook(*args, totals, active):
-        out = sweep_fn(*args, totals=totals, active=active)
-        box = captured.setdefault(now["tick"], {})
-        if "sweep" not in box:
-            box["sweep"] = {"args": clone_args(args), "active": active.clone(),
-                            "out": clone_args(out)}
-        return out
-
-    def commit_hook(*args, neg_tol, batch_quality):
-        box = captured.setdefault(now["tick"], {})
-        before = None if "commit" in box else clone_args(args)
-        out = commit_fn(*args, neg_tol=neg_tol, batch_quality=batch_quality)
-        if before is not None:
-            box["commit"] = {"args": before, "out": out.clone(), "state": clone_args(args[3:6]),
-                             "knobs": {"neg_tol": neg_tol, "batch_quality": batch_quality}}
-        return out
-
     FleetCoordinator.plan_migrations = recorded_migrations
-    if capture:
-        ops.move_eval_best_batched, ops.commit_topk_batched = sweep_hook, commit_hook
+    uncapture = capture_batched(captured, now) if capture else (lambda: None)
     records, profiles = [], {}
     if netlat:
         NL.install_bank(bank, config=NL.NetlatConfig(), now=0)
@@ -2428,7 +2439,7 @@ def service_trajectory(cluster, device, events, *, ticks: int, cooldown: int, ti
         launches = dict(ops.launch_counts)
     finally:
         FleetCoordinator.plan_migrations = plan_migrations
-        ops.move_eval_best_batched, ops.commit_topk_batched = sweep_fn, commit_fn
+        uncapture()
         if netlat:
             NL.install_bank(None)
     return {"ticks": records, "launches": launches, "stats": loop.stats(),
@@ -2441,12 +2452,46 @@ def service_trajectory(cluster, device, events, *, ticks: int, cooldown: int, ti
             "captured": captured, "profiles": profiles, "loop": loop}
 
 
-def check_service_kernels(captured: dict, record) -> list:
-    """Both shard-batched kernels as phase 3i launched them: the first
+def capture_batched(captured: dict, now: dict):
+    """Hook the two shard-batched kernels' wrappers in ``ops`` so that the
+    first call of each in every tick (``now["tick"]``) is kept in
+    ``captured[tick]``: its inputs and outputs, cloned on the card, for
+    ``check_batched_kernels``.  Returns the function that unhooks them."""
+    from repro_torch.kernels import ops
+
+    sweep_fn, commit_fn = ops.move_eval_best_batched, ops.commit_topk_batched
+
+    def sweep_hook(*args, totals, active):
+        out = sweep_fn(*args, totals=totals, active=active)
+        box = captured.setdefault(now["tick"], {})
+        if "sweep" not in box:
+            box["sweep"] = {"args": clone_args(args), "active": active.clone(),
+                            "out": clone_args(out)}
+        return out
+
+    def commit_hook(*args, neg_tol, batch_quality):
+        box = captured.setdefault(now["tick"], {})
+        before = None if "commit" in box else clone_args(args)
+        out = commit_fn(*args, neg_tol=neg_tol, batch_quality=batch_quality)
+        if before is not None:
+            box["commit"] = {"args": before, "out": out.clone(), "state": clone_args(args[3:6]),
+                             "knobs": {"neg_tol": neg_tol, "batch_quality": batch_quality}}
+        return out
+
+    ops.move_eval_best_batched, ops.commit_topk_batched = sweep_hook, commit_hook
+
+    def unhook():
+        ops.move_eval_best_batched, ops.commit_topk_batched = sweep_fn, commit_fn
+
+    return unhook
+
+
+def check_batched_kernels(label: str, captured: dict, record) -> list:
+    """Hold the first ``move_eval_best_batched`` and ``commit_topk_batched``
     launch of each in every tick that solved sharded, its captured inputs
-    run through the plain versions on the card and the outputs compared
-    bit for bit (the commit's status, assignment and tier loads).  Returns
-    one row a tick: (S, app bucket, tier bucket), active shards, errors."""
+    as the main path gave them, to the plain versions bit for bit; fold the
+    errors into ``record``.  One row a tick: (S, app bucket, tier bucket),
+    active shards, errors."""
     import torch
     from repro_torch.kernels.ref import commit_topk_batched_ref, move_eval_best_batched_ref
 
@@ -2468,13 +2513,13 @@ def check_service_kernels(captured: dict, record) -> list:
         row = {"tick": tick, "shape": (S, N, T), "active": int(sw["active"].sum()),
                "accepted": cm["out"][:, 1].tolist(), "sweep_err": err_s, "commit_err": err_c,
                "exact": exact_s and exact_c}
-        print(f"service tick {tick}: move_eval_best_batched and commit_topk_batched at (S, app "
+        print(f"{label} tick {tick}: move_eval_best_batched and commit_topk_batched at (S, app "
               f"bucket, tier bucket) = {row['shape']}, {row['active']} active, first sweep as "
               f"the main path launched it: sweep equal to its plain version {exact_s} (max abs "
               f"err {err_s:.3e}), commit (status, assignment, tier loads) equal {exact_c} (max "
               f"abs err {err_c:.3e}), accepted {row['accepted']}", flush=True)
         if not row["exact"]:
-            raise AssertionError(f"service tick {tick}: a batched kernel disagrees with its "
+            raise AssertionError(f"{label} tick {tick}: a batched kernel disagrees with its "
                                  f"plain version at {row['shape']}")
         record["move_eval_best_batched"]["max_abs_err"] = max(
             record["move_eval_best_batched"]["max_abs_err"], err_s)
@@ -2572,7 +2617,7 @@ def service_phase(dev, record) -> dict:
         raise AssertionError(f"service: the netlat level did not run on measured budgets on "
                              f"the FULL ticks after calibration "
                              f"{[(r['tick'], r['netlat']) for r in vetted]}")
-    kernel_rows = check_service_kernels(run["captured"], record)
+    kernel_rows = check_batched_kernels("service", run["captured"], record)
     if sorted(row["tick"] for row in kernel_rows) != [r["tick"] for r in delta_ticks]:
         raise AssertionError("service: the batched kernels were not held to their plain "
                              "versions on every DELTA tick")
@@ -2628,6 +2673,242 @@ def service_phase(dev, record) -> dict:
     if not agree:
         raise AssertionError("service: the card's N=300 stream disagrees with the plain path")
     return {"run": run, "again": again, "kernels": kernel_rows}
+
+
+def sim_trajectory(sc, device, *, profile_tick=None, workload_fn=None,
+                   capture: bool = False) -> dict:
+    """``run_pair(sc)`` on ``device`` with the launch counters zeroed just
+    before, every tick timed and read: its wall-clock split into the world
+    (workload step, events, arrivals), the controller's ``step`` and the
+    accountant's ``observe`` (each between synchronisations), the kernels it
+    launched, whether its applied decision was valid, the digest of the
+    assignment it scored and its ``TickStats`` without the wall clock.  One
+    record a run (the static baseline, then the controller); the balanced
+    run's ``profile_tick`` steps under ``torch.profiler``.  With
+    ``capture``, the first call of each shard-batched kernel in a tick is
+    kept (``capture_batched``, keyed by the tick's index in its run)."""
+    import dataclasses
+
+    import torch
+    import repro_torch.sim.harness as H
+    from repro_torch.core.controller import BalanceController
+    from repro_torch.kernels import ops
+    from repro_torch.sim import slo
+
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    runs, now, captured = [], {"tick": None}, {}
+    build, step, observe = H.build_fleet, BalanceController.step, slo.SloAccountant.observe
+
+    def timed_build(sc, **kw):
+        sync()
+        t = time.perf_counter()
+        fleet = build(sc, **kw)
+        sync()
+        runs.append({"build_s": time.perf_counter() - t, "ticks": []})
+        now.update(mark=time.perf_counter(), ctl_s=0.0, result=None,
+                   launches=dict(ops.launch_counts))
+        return fleet
+
+    def timed_step(ctl, inp=None):
+        sync()
+        now["tick"] = len(runs[-1]["ticks"])
+        t = time.perf_counter()
+        if now["tick"] == profile_tick:
+            box = {}
+            runs[-1]["profile"] = device_profile(lambda: box.setdefault("r", step(ctl, inp)))
+            r = box["r"]
+        else:
+            r = step(ctl, inp)
+        sync()
+        now["ctl_s"] += time.perf_counter() - t
+        now["result"] = r
+        return r
+
+    def timed_observe(acct, cluster, **kw):
+        sync()
+        t = time.perf_counter()
+        stat = observe(acct, cluster, **kw)
+        sync()
+        end = time.perf_counter()
+        r, counts = now["result"], dict(ops.launch_counts)
+        runs[-1]["ticks"].append({
+            "tick": stat.tick, "wall_s": end - now["mark"], "controller_s": now["ctl_s"],
+            "accounting_s": end - t, "world_s": t - now["mark"] - now["ctl_s"],
+            "launched": {k: v - now["launches"].get(k, 0) for k, v in counts.items()
+                         if v != now["launches"].get(k, 0)},
+            "valid": (None if r is None or r.decision is None
+                      else bool(r.decision.violations.ok)),
+            "digest": assignment_digest(cluster.problem.assignment0),
+            "record": {k: v for k, v in dataclasses.asdict(stat).items() if k != "solve_s"}})
+        runs[-1]["cluster"] = cluster
+        now.update(mark=time.perf_counter(), ctl_s=0.0, result=None, launches=counts)
+        return stat
+
+    H.build_fleet, BalanceController.step = timed_build, timed_step
+    slo.SloAccountant.observe = timed_observe
+    uncapture = capture_batched(captured, now) if capture else (lambda: None)
+    sync()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    try:
+        out = H.run_pair(sc, device=device, workload_fn=workload_fn)
+        sync()
+    finally:
+        H.build_fleet, BalanceController.step = build, step
+        slo.SloAccountant.observe = observe
+        uncapture()
+    return {"out": out, "runs": runs, "total_s": time.perf_counter() - t,
+            "launches": dict(ops.launch_counts), "captured": captured}
+
+
+def accounting_parts(cluster) -> dict:
+    """Host seconds (median of 5, between synchronisations) of each part of
+    the accountant's ``observe`` on ``cluster``, each on a fresh copy, so
+    that the memoized matrices are rebuilt as every tick rebuilds them."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core import metrics as M
+    from repro_torch.core.hierarchy import RegionScheduler
+    from repro_torch.core.telemetry import shard_affinity_of
+    from repro_torch.sim.slo import score_cluster
+
+    parts = {"score_cluster": lambda c: score_cluster(c.problem),
+             "region worst latency [G, T]": RegionScheduler,
+             "shard affinity [N, T]": shard_affinity_of,
+             "placement_p99_ms": M.placement_p99_ms}
+    out = {}
+    for name, fn in parts.items():
+        times = []
+        for _ in range(5):
+            c = dataclasses.replace(cluster)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(c)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        out[name] = float(np.median(times))
+    return out
+
+
+def sim_phase(dev, record) -> dict:
+    """Phase 3j: ``run_pair`` of each of ``SIM_SCENARIOS`` at N=100,000 on
+    the card for ``SIM_TICKS`` ticks, its checks, fleet_scale's batched
+    kernels held to their plain versions on the inputs its run gave them, a
+    repeat of tier_drain with its first triggered tick profiled, and
+    tier_drain at N=300 on the card against the CPU's plain path (the same
+    host draws): the same decisions and assignment every tick."""
+    import numpy as np
+    from repro_torch.sim import get_scenario
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _sim_world
+
+    t_phase = time.perf_counter()
+    unbatched = ("move_eval_best", "commit_topk", "move_eval")
+    results = {}
+    for name in SIM_SCENARIOS:
+        sc = get_scenario(name, num_apps=SIM_APPS, ticks=SIM_TICKS)
+        run = sim_trajectory(sc, dev, capture=name == "fleet_scale")
+        out, (static, balanced) = run["out"], run["runs"]
+        for policy, r in (("static", static), ("balanced", balanced)):
+            print(f"sim {name} N={SIM_APPS} {policy}: fleet built in {r['build_s']:.4f} s",
+                  flush=True)
+            for t in r["ticks"]:
+                rec = t["record"]
+                print(f"sim {name} {policy} tick {t['tick']}: wall {t['wall_s']:.4f} s = world "
+                      f"{t['world_s']:.4f} + controller {t['controller_s']:.4f} + accounting "
+                      f"{t['accounting_s']:.4f}; triggered {rec['triggered']}, applied "
+                      f"{rec['applied']}, moved {rec['moved']}, valid {t['valid']}, mode "
+                      f"{rec['mode']}, d2b {rec['d2b']:.4f}, slo {rec['slo_violating_apps']}, "
+                      f"over ideal {rec['over_ideal_tiers']}, cost {rec['movement_cost']:.2f}, "
+                      f"launched {t['launched']}", flush=True)
+        ticks = balanced["ticks"]
+        parts = {k: float(np.sum([t[k] for t in ticks])) for k in
+                 ("wall_s", "world_s", "controller_s", "accounting_s")}
+        summary = out["balanced"].summary()
+        print(f"sim {name}: run_pair {run['total_s']:.4f} s; the balanced run's ticks "
+              f"{ {k: round(v, 4) for k, v in parts.items()} }, static ticks "
+              f"{sum(t['wall_s'] for t in static['ticks']):.4f} s; launches {run['launches']}; "
+              f"rebalances {summary['rebalances']}, triggers {summary['triggers']}, unsafe moves "
+              f"{summary['unsafe_moves']}, mode ticks {summary['mode_ticks']}", flush=True)
+        print(f"sim {name}: compare {json.dumps(out['compare'])}", flush=True)
+        acct = accounting_parts(balanced["cluster"])
+        print(f"sim {name}: the accountant's parts on the last tick's cluster (s, median of 5) "
+              f"{ {k: round(v, 6) for k, v in acct.items()} }", flush=True)
+
+        if summary["rebalances"] < 1 or summary["triggers"] < 1:
+            raise AssertionError(f"sim {name}: the controller never triggered and applied")
+        if any(t["launched"] for t in static["ticks"]):
+            raise AssertionError(f"sim {name}: the static baseline launched a kernel")
+        if summary["unsafe_moves"] != 0:
+            raise AssertionError(f"sim {name}: {summary['unsafe_moves']} unsafe moves")
+        if any(t["record"]["applied"] and not t["valid"] for t in ticks):
+            raise AssertionError(f"sim {name}: an applied mapping is not valid")
+        solved = [t for t in ticks if t["valid"] is not None]
+        if name == "fleet_scale":
+            for t in solved:
+                launched = t["launched"]
+                if not (launched.get("move_eval_best_batched", 0) > 0
+                        and launched.get("commit_topk_batched", 0) > 0
+                        and not any(launched.get(k, 0) for k in unbatched)):
+                    raise AssertionError(f"sim fleet_scale tick {t['tick']}: the sharded tick "
+                                         f"launched {launched}")
+            rows = check_batched_kernels(f"sim {name}", run["captured"], record)
+            launched = [t["tick"] for t in ticks if t["launched"].get("move_eval_best_batched")]
+            if not launched or [row["tick"] for row in rows] != launched:
+                raise AssertionError(f"sim {name}: the batched kernels were not held to their "
+                                     f"plain versions on every tick that launched them "
+                                     f"{launched}")
+            run["captured"].clear()
+        else:
+            for k in ("move_eval_best", "commit_topk", "pack_ffd_tiers"):
+                if run["launches"][k] <= 0:
+                    raise AssertionError(f"sim {name}: the global path launched {k} no time")
+            if not out["compare"]["movement"]["within_budget"]:
+                raise AssertionError(f"sim {name}: movement {out['compare']['movement']}")
+        results[name] = {"run": run, "first_triggered": solved[0]["tick"]}
+
+    name = SIM_SCENARIOS[0]
+    first = results[name]
+    sc = get_scenario(name, num_apps=SIM_APPS, ticks=SIM_TICKS)
+    again = sim_trajectory(sc, dev, profile_tick=first["first_triggered"])
+    keys = ("record", "digest")
+    same = ([[t[k] for k in keys] for t in again["runs"][1]["ticks"]]
+            == [[t[k] for k in keys] for t in first["run"]["runs"][1]["ticks"]])
+    print(f"sim {name} repeat: run_pair {again['total_s']:.4f} s, final digest "
+          f"{again['runs'][1]['ticks'][-1]['digest']} (first run "
+          f"{first['run']['runs'][1]['ticks'][-1]['digest']}), the same per-tick records and "
+          f"digests {same}", flush=True)
+    if not same:
+        raise AssertionError(f"sim {name}: a repeat of the balanced run gave other records")
+    print(solve_profile_line(f"profile: sim {name} tick {first['first_triggered']} (the "
+                             f"controller's step, triggered) at N={SIM_APPS}",
+                             again["runs"][1]["profile"]), flush=True)
+
+    small = get_scenario(name, num_apps=SIM_SMALL_N, ticks=SIM_SMALL_TICKS)
+    pairs = {d: sim_trajectory(small, d, workload_fn=_sim_world.host_draws(SIM_DRAW_SEED))
+             for d in (dev, "cpu")}
+    small_s = {str(d): round(r["total_s"], 4) for d, r in pairs.items()}
+    card, cpu = ([[[t["record"][k] for k in _sim_world.SIM_DECISIONS] + [t["digest"]]
+                   for t in run["ticks"]] for run in pairs[d]["runs"]] for d in (dev, "cpu"))
+    agree = card == cpu
+    print(f"sim {name} N={SIM_SMALL_N}: card (static, then balanced; per tick "
+          f"{_sim_world.SIM_DECISIONS} and the assignment digest) {card}; plain path agrees "
+          f"{agree}", flush=True)
+    if not agree:
+        print(f"sim {name} N={SIM_SMALL_N}: plain path {cpu}", flush=True)
+        raise AssertionError(f"sim: the card's N={SIM_SMALL_N} {name} disagrees with the plain "
+                             "path")
+    print(f"sim: phase 3j took {time.perf_counter() - t_phase:.4f} s (the N={SIM_SMALL_N} "
+          f"run_pair {small_s} s)", flush=True)
+    return {name: r["run"] for name, r in results.items()} | {"again": again}
 
 
 def host_gumbel(sweep: int, size: int, device):
@@ -3047,6 +3328,12 @@ def main() -> int:
     service_launches = service["run"]["launches"]
     torch.cuda.empty_cache()
 
+    # -- 3j. the fleet simulator at N=100k: scenario trajectories -------------------
+    sim = sim_phase(dev, record)
+    sim_launches = {k: sim["tier_drain"]["launches"][k] + sim["fleet_scale"]["launches"][k]
+                    for k in sim["tier_drain"]["launches"]}
+    torch.cuda.empty_cache()
+
     # -- 4. the serving slice: qwen2.5-3b at full width --------------------------
     serving = serving_phase(dev, record)
     fa, fd = serving["times"]["prefill_main"], serving["times"]["decode_main"]
@@ -3063,10 +3350,11 @@ def main() -> int:
         {"name": "move_eval_best", "route": "cuda", "source": MOVE_EVAL_SRC,
          "replaces": "src/repro/kernels/move_eval.py:275",
          "launches": (launches["move_eval_best"] + control_launches["move_eval_best"]
-                      + service_launches["move_eval_best"]),
+                      + service_launches["move_eval_best"] + sim_launches["move_eval_best"]),
          "launches_by_path": {"balance": launches["move_eval_best"],
                               "control": control_launches["move_eval_best"],
-                              "service": service_launches["move_eval_best"]},
+                              "service": service_launches["move_eval_best"],
+                              "sim": sim_launches["move_eval_best"]},
          "max_abs_err": record["move_eval_best"]["max_abs_err"],
          "ms": main_sweep["move_eval_best"]["ms"],
          "plain_ms": main_sweep["move_eval_best"]["plain_ms"],
@@ -3086,10 +3374,11 @@ def main() -> int:
         {"name": "commit_topk", "route": "cuda", "source": COMMIT_SRC,
          "replaces": "src/repro/core/solver_local.py:219",
          "launches": (launches["commit_topk"] + control_launches["commit_topk"]
-                      + service_launches["commit_topk"]),
+                      + service_launches["commit_topk"] + sim_launches["commit_topk"]),
          "launches_by_path": {"balance": launches["commit_topk"],
                               "control": control_launches["commit_topk"],
-                              "service": service_launches["commit_topk"]},
+                              "service": service_launches["commit_topk"],
+                              "sim": sim_launches["commit_topk"]},
          "max_abs_err": record["commit_topk"]["max_abs_err"],
          "ms": main_commit["ms"], "plain_ms": main_commit["plain_ms"],
          "bound_ms": main_commit["bound_ms"], "bound_by": main_commit["bound_by"],
@@ -3097,10 +3386,11 @@ def main() -> int:
         {"name": "pack_ffd_tiers", "route": "cuda", "source": PACK_SRC,
          "replaces": "src/repro/kernels/pack.py:116",
          "launches": (launches["pack_ffd_tiers"] + control_launches["pack_ffd_tiers"]
-                      + service_launches["pack_ffd_tiers"]),
+                      + service_launches["pack_ffd_tiers"] + sim_launches["pack_ffd_tiers"]),
          "launches_by_path": {"balance": launches["pack_ffd_tiers"],
                               "control": control_launches["pack_ffd_tiers"],
-                              "service": service_launches["pack_ffd_tiers"]},
+                              "service": service_launches["pack_ffd_tiers"],
+                              "sim": sim_launches["pack_ffd_tiers"]},
          "max_abs_err": record["pack_ffd_tiers"]["max_abs_err"],
          "ms": pack_main["ms"], "plain_ms": pack_main["plain_ms"],
          "bound_ms": pack_main["bound_ms"], "bound_by": pack_main["bound_by"],
@@ -3147,9 +3437,10 @@ def main() -> int:
             "source": MOVE_EVAL_SRC if part == "sweep" else COMMIT_SRC,
             "replaces": ("src/repro/kernels/move_eval.py:275" if part == "sweep"
                          else "src/repro/core/solver_local.py:219"),
-            "launches": fleet["launches"][name] + service_launches[name],
+            "launches": fleet["launches"][name] + service_launches[name] + sim_launches[name],
             "launches_by_path": {"fleet": fleet["launches"][name],
-                                 "service": service_launches[name]},
+                                 "service": service_launches[name],
+                                 "sim": sim_launches[name]},
             "max_abs_err": record[name]["max_abs_err"], "shape": fleet["main"]["shape"],
             "ms": t["ms"], "unbatched_ms": t["unbatched_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,

@@ -7,7 +7,9 @@ The PyTorch port's copy of the reference's ``core/metrics.py``:
     distance of final tier utilization from the evenly-balanced state,
   * network p99 latency (Fig. 4): per moved app, sample the source->dest
     region latency table proportionally to apps moved per tier transition,
-    build the CDF, report the 99th percentile.
+    build the CDF, report the 99th percentile,
+  * the standing placement's p99 latency (the fleet simulator's per-tick
+    network score) and one move's best-case latency.
 """
 from __future__ import annotations
 
@@ -108,3 +110,50 @@ def network_p99_ms(cluster: ClusterState, assignment, *,
                for opts, probs in per_app]
     pooled = np.concatenate(samples)
     return float(np.round(np.percentile(pooled, 99)))
+
+
+def placement_p99_ms(cluster: ClusterState, assignment=None) -> float:
+    """p99-aware network score of the *standing placement*: the fleet mean
+    of each live app's p99 experienced latency (ms).
+
+    ``network_p99_ms`` scores the moves of one decision; trajectories need
+    the state analogue.  Each app's latency distribution under the current
+    assignment uses the same geometric spill model (its tier's closest
+    region with P = 1 - q, the next with P = q(1 - q), ...); the app's p99
+    is the exact discrete quantile of that distribution — typically the
+    latency of its tier's second- or third-closest region, which is
+    precisely the tail a placement behind a degraded link fattens.  The
+    fleet mean of per-app p99s moves with *every* placement decision
+    (a pooled fleet percentile is pinned by apps that never move), and is
+    computed exactly — no sampling, so the scorecard is deterministic.
+    """
+    p = cluster.problem
+    x = host_array(p.assignment0 if assignment is None else assignment)
+    valid = np.asarray(host_array(p.valid), bool)
+    if not valid.any():
+        return 0.0
+    spill = 0.15
+    lat = cluster.region_latency
+    total = 0.0
+    n_live = int(valid.sum())
+    for t in range(p.num_tiers):
+        apps = np.where(valid & (x == t))[0]
+        if apps.size == 0:
+            continue
+        regions = np.where(cluster.tier_regions[t])[0]
+        if regions.size == 0:
+            return float(np.inf)
+        opts = np.sort(lat[cluster.app_region[apps]][:, regions], axis=1)
+        probs = spill ** np.arange(regions.size) * (1.0 - spill)
+        probs[-1] += 1.0 - probs.sum()
+        # Exact discrete p99: same option index for every app in the tier
+        # (it depends only on the tier's region count).
+        idx = int(np.searchsorted(np.cumsum(probs), 0.99))
+        total += float(opts[:, min(idx, regions.size - 1)].sum())
+    return float(np.round(total / n_live, 3))
+
+
+def app_move_latency_ms(cluster: ClusterState, app: int, dst_tier: int) -> float:
+    """Best-case latency from the app's data-source region to the tier."""
+    dst_regions = np.where(cluster.tier_regions[dst_tier])[0]
+    return float(cluster.region_latency[cluster.app_region[app], dst_regions].min())

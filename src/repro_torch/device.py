@@ -36,3 +36,11 @@ def host_array(x) -> np.ndarray:
     device (a CPU tensor's array shares its memory), anything else goes
     through ``np.asarray``."""
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def device_copy(array, device, dtype=None) -> torch.Tensor:
+    """A copy of ``array``'s values (host or device) as a tensor on
+    ``device``, cast to the numpy ``dtype`` where given.  A CPU
+    ``torch.as_tensor`` of a numpy array shares its memory, so a later
+    write to the one would show in the other; this never shares."""
+    return torch.as_tensor(np.array(host_array(array), dtype), device=device)

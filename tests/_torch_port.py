@@ -15,6 +15,8 @@ import torch
 # The service loop's scripted stream, shared with chip_smoke.py.
 from _service_stream import (SERVICE_APPS, SERVICE_COOLDOWN, SERVICE_MOVERS,  # noqa: F401
                              SERVICE_SEED, SERVICE_TICKS, SERVICE_TIMEOUT_S, service_events)
+# The simulator's per-tick decision fields, shared with chip_smoke.py.
+from _sim_world import SIM_DECISIONS
 
 GOAL_NAMES = ("under_ideal", "resource_balance", "task_balance",
               "movement_cost", "criticality")
@@ -126,3 +128,89 @@ def run_control(pkg, ctl, base, as_array, ticks: int = CONTROL_TICKS) -> list:
             "admissions": {s: states.count(s) for s in sorted(set(states))}})
     return records
 
+
+
+# --- the fleet simulator's trajectories (test_torch_sim*.py) ----------------
+
+# Wall-clock fields (the service loop's rates and latency percentiles too),
+# and the reference's jit retrace counts (the port traces nothing and
+# reports 0).
+SIM_UNTIMED = ("solve_s", "solver_time_s", "solver_retraces", "workload_retraces",
+               "events_per_s", "resolve_p50_ms", "resolve_p99_ms", "noop_p50_ms")
+
+
+def track_assignments(monkeypatch, accountant_cls) -> list:
+    """Record the assignment every ``SloAccountant.observe`` of a package
+    scores, in call order (one a tick of every run)."""
+    seen = []
+    observe = accountant_cls.observe
+
+    def tracking(self, cluster, **kw):
+        seen.append(host(cluster.problem.assignment0).copy())
+        return observe(self, cluster, **kw)
+
+    monkeypatch.setattr(accountant_cls, "observe", tracking)
+    return seen
+
+
+def record_mismatches(got, want, rel: float, path: str = "") -> list:
+    """Paths where ``got`` differs from ``want``: floats beyond ``rel``
+    (relative), anything else unequal; ``SIM_UNTIMED`` keys skipped."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            return [f"{path}: keys {sorted(set(got) ^ set(want))}"]
+        return [m for k in want if k not in SIM_UNTIMED
+                for m in record_mismatches(got[k], want[k], rel, f"{path}.{k}")]
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            return [f"{path}: length {len(got)} != {len(want)}"]
+        return [m for i, (g, w) in enumerate(zip(got, want))
+                for m in record_mismatches(g, w, rel, f"{path}[{i}]")]
+    if isinstance(want, float) and not isinstance(want, bool) and isinstance(got, float):
+        if got == want or abs(got - want) <= rel * max(abs(want), 1e-30):
+            return []
+        return [f"{path}: {got!r} != {want!r}"]
+    return [] if got == want else [f"{path}: {got!r} != {want!r}"]
+
+
+def assert_trajectories_match(ref_out: dict, port_out: dict, ref_x: list, port_x: list, *,
+                              static=(), split=None, may_differ=(), rel: float = 1e-5) -> None:
+    """Hold a port ``run_*`` result to the reference's on the same world.
+
+    Every run (the dict's reports, in the order they ran) tick by tick:
+    the assignment equal, integer, flag and mode fields equal, float fields
+    within ``rel``; the runs named in ``static`` exactly (every field but
+    the wall clock).  ``split`` maps a run to the tick at which its solve
+    splits from the reference's (f32 rounding, ROADMAP Queue 3): from that
+    tick on only ``SIM_DECISIONS`` are held.  The scorecards (summaries and
+    the compare records) within ``rel``, but for the paths in
+    ``may_differ``, which the split run's later assignment decides."""
+    split = split or {}
+    assert len(port_x) == len(ref_x)
+    offset = 0
+    for key, ref_rep in ref_out.items():
+        if not hasattr(ref_rep, "ticks"):
+            continue
+        port_rep = port_out[key]
+        assert (port_rep.scenario, port_rep.policy) == (ref_rep.scenario, ref_rep.policy)
+        assert len(port_rep.ticks) == len(ref_rep.ticks), key
+        at = split.get(key, len(ref_rep.ticks))
+        for i, (a, b) in enumerate(zip(ref_rep.ticks, port_rep.ticks)):
+            da, db = dataclasses.asdict(a), dataclasses.asdict(b)
+            if i >= at:
+                assert [db[k] for k in SIM_DECISIONS] == [da[k] for k in SIM_DECISIONS], (key, i)
+                continue
+            np.testing.assert_array_equal(port_x[offset + i], ref_x[offset + i],
+                                          err_msg=f"{key} tick {i}")
+            if key in static:
+                da.pop("solve_s"), db.pop("solve_s")
+                assert db == da, (key, i)
+            else:
+                assert record_mismatches(db, da, rel) == [], (key, i)
+        offset += len(ref_rep.ticks)
+        if key not in split:
+            assert record_mismatches(port_rep.summary(), ref_rep.summary(), rel) == [], key
+    mismatches = [m for key, rec in ref_out.items() if not hasattr(rec, "ticks")
+                  for m in record_mismatches(port_out[key], rec, rel, key)]
+    assert sorted(mismatches) == sorted(m for m in mismatches
+                                        if m.split(":")[0] in may_differ), mismatches

@@ -1048,3 +1048,83 @@ def test_sharded_route_on_the_card_equals_balance_fleet(cuda_device, standing):
     outside = PS.plan_shards(ct, 2).app_shard != 1
     x0, x = host(ct.problem.assignment0), host(ctl.cluster.problem.assignment0)
     assert np.array_equal(x[outside], x0[outside])
+
+
+@pytest.mark.cuda
+def test_sim_workload_step_on_the_card_matches_the_cpu(cuda_device):
+    """The simulator's workload step with the same injected draws on the
+    card and on the CPU: ``valid`` equal, demand, tasks and the flash state
+    within rtol 2e-6 (``sin`` and ``exp`` on the card and on the CPU may part
+    in the last bit), also after a flash crowd with repeated ids and a churn
+    re-rate; the card's own generator repeats for a seed."""
+    from repro_torch.sim import (WorkloadConfig, inject_flash_crowd, make_workload_state,
+                                 set_churn_rates, workload_step)
+    from repro_torch.sim.workload import WorkloadDraws
+
+    cfg = WorkloadConfig(period=16, diurnal_amp=0.25, burst_sigma=0.12, flash_prob=0.05,
+                         flash_mag=5.0, flash_decay=0.88)
+    n = 4096
+    c = P.generate_cluster(num_apps=n, seed=2, device="cpu")
+    demand, tasks, valid = host(c.problem.demand), host(c.problem.tasks), np.arange(n) < 3000
+    devices = (torch.device("cpu"), cuda_device)
+    states = [make_workload_state(demand, tasks, valid, seed=9, arrival_rate=6.0,
+                                  retire_rate=0.05, device=d) for d in devices]
+    rng = np.random.default_rng(3)
+    for tick in range(8):
+        if tick == 3:
+            ids = np.array([5, 5, 17, 3500, 17, 2])
+            states = [inject_flash_crowd(s, ids, 7.0) for s in states]
+        if tick == 5:
+            states = [set_churn_rates(s, arrival_rate=12.0, retire_rate=0.02) for s in states]
+        arrays = (rng.standard_normal(n), rng.random(n), rng.standard_normal(n), rng.random(n),
+                  rng.random(n))
+        outs = [workload_step(cfg, s, WorkloadDraws(*(torch.as_tensor(a.astype(np.float32),
+                                                                        device=d)
+                                                       for a in arrays)))
+                for s, d in zip(states, devices)]
+        (sc, dc, tc, vc), (sg, dg, tg, vg) = outs
+        assert dg.is_cuda and sg.flash.is_cuda
+        np.testing.assert_array_equal(host(vg), host(vc), f"valid at tick {tick}")
+        assert_rel(dg, dc, 2e-6, f"demand at tick {tick}")
+        assert_rel(tg, tc, 2e-6, f"tasks at tick {tick}")
+        assert_rel(sg.flash, sc.flash, 2e-6, f"flash at tick {tick}")
+        states = [sc, sg]
+    a, b = (make_workload_state(demand, tasks, valid, seed=4, device=cuda_device)
+            for _ in range(2))
+    for _ in range(3):
+        a, da, _, va = workload_step(cfg, a)
+        b, db, _, vb = workload_step(cfg, b)
+        assert torch.equal(da, db) and torch.equal(va, vb)
+
+
+@pytest.mark.cuda
+def test_sim_tier_drain_pair_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
+    """``run_pair`` of tier_drain at N=128 x 24 ticks on the card and on the
+    CPU, both stepping the workload with the same host draws: the same
+    decisions and the same scored assignment tick by tick, the controller
+    within its movement budget, and the global path's kernels launched on
+    the card."""
+    from repro_torch.sim import get_scenario, run_pair
+    from repro_torch.sim.slo import SloAccountant
+
+    from _sim_world import SIM_DECISIONS, host_draws
+    from _torch_port import track_assignments
+
+    sc = get_scenario("tier_drain", num_apps=128, ticks=24)
+    seen = track_assignments(monkeypatch, SloAccountant)
+    ops.reset_launch_counts()
+    card = run_pair(sc, device=cuda_device, workload_fn=host_draws(0))
+    launched = dict(ops.launch_counts)
+    card_x = list(seen)
+    seen.clear()
+    cpu = run_pair(sc, device="cpu", workload_fn=host_draws(0))
+    assert len(card_x) == len(seen) == 48
+    for i, (a, b) in enumerate(zip(card_x, seen)):
+        np.testing.assert_array_equal(a, b, err_msg=f"assignment scored at call {i}")
+    for policy in ("baseline", "balanced"):
+        for a, b in zip(card[policy].ticks, cpu[policy].ticks):
+            decisions = [(getattr(a, k), getattr(b, k)) for k in SIM_DECISIONS]
+            assert all(x == y for x, y in decisions), (policy, a.tick, decisions)
+    assert card["compare"]["rebalances"] > 0 and card["compare"]["movement"]["within_budget"]
+    assert card["balanced"].summary()["unsafe_moves"] == 0
+    assert all(launched[k] > 0 for k in ("move_eval_best", "commit_topk", "pack_ffd_tiers"))
