@@ -26,13 +26,20 @@ Phases (each raises on failure, so the script exits non-zero):
      last proposal, each with its tiers' non-zero item counts; median
      CUDA-event time per launch of each kernel and of its plain version
      (both sweeps as the whole call from the solver's arguments, and as the
-     kernel alone), the pack kernel also beside its chain floor; and the
-     kernels one whole call of each sweep launches (profiler).
+     kernel alone), the pack kernel also beside its chain floor; the tier
+     table kernel (``tier_stats``, the sweeps' means as
+     ``core.means.tier_mean`` takes them) bit for bit against its plain
+     version at each sweep shape, for one problem and a stack of three, and
+     timed at the main path's; the objective's mean kernel (``tier_mean``)
+     bit for bit against ``core.means.tier_mean``, value and gradient, and
+     timed beside it and ``torch.mean``; and the kernels one whole call of
+     each sweep launches (profiler; at most ``SWEEP_CALL_MAX_LAUNCHES``).
   3. The slice: ``generate_cluster(num_apps=100_000, seed=1)`` and one
      manual_cnst ``Sptlb(cluster).balance("local", timeout_s=30,
      config=CoopConfig())`` with the launch counters zeroed just before and
-     read just after (``move_eval_best``, ``commit_topk`` and
-     ``pack_ffd_tiers`` must each have launched); then the unfused LocalSearch path
+     read just after (``move_eval_best``, ``commit_topk``,
+     ``pack_ffd_tiers``, ``tier_stats`` and ``tier_mean`` must each have
+     launched); then the unfused LocalSearch path
      (``solve_local(move_eval_fn=ops.move_eval)``, the ``move_eval``
      kernel's path) with its own zeroed counts; one short solve under
      ``torch.profiler`` (device busy share, kernel time by name); the
@@ -134,6 +141,20 @@ Phases (each raises on failure, so the script exits non-zero):
      gives the same per-tick decisions.  Printed per tick: the wall-clock
      split into the world, the controller and the accounting, the decision,
      the kernels launched; then each pair's ``compare()``.
+     The stream router and the fault path (phase 3k):
+     ``tests/_stream_fleet.py::stream_script`` at N=100,000 (``demo_apps``
+     onto the five ``default_slices``, each slice's compute, memory and task
+     slots grown by N / 48): ``build_cluster`` on the card, ``route`` with
+     the counts zeroed just before and read just after (valid, no worse than
+     the start, every app in one slice's partitions, the sweep, commit, pack
+     and tier table kernels launched; a profiled repeat with the same
+     digest: the idle share), four ``admit`` calls, the service records,
+     ``rebalance`` after ``FaultInjector(5, seed=3, ...).schedule(30)`` with
+     its own zeroed counts (valid, within the movement budget, the same
+     kernels launched), a region outage and restore, one controller tick on
+     the faulted fleet that ``sync`` adopts; each part timed; then the
+     script at N=300 on the card and on the CPU's plain path, which must
+     agree as phase 3e does.
   4. The dense serving slice: ``flash_attention`` and ``flash_decode`` against
      their plain versions at the serve path's shapes (prefill B=8, S=1024,
      H=16, KV=2, D=128 in bf16 and f32; a window + softcap case at D=256,
@@ -169,9 +190,10 @@ Phases (each raises on failure, so the script exits non-zero):
      which must agree within 1e-3 of the largest logit.
   6. A ``{"kernels": [...]}`` line (the flash kernels' launches summed over
      both serving runs, the scheduling kernels' over the balance pass, the
-     control loop, the service and the simulator's two pairs, the
-     shard-batched ones' over the measured fleet pass, the service and the
-     simulator), then the card line again, then
+     control loop, the service, the simulator's two pairs and the stream
+     router's path, the shard-batched ones' over the measured fleet pass,
+     the service and the simulator, the tier table's over every path that
+     sweeps), then the card line again, then
      the final
      ``{"ok": true, "device": {...}}`` line.
 
@@ -295,6 +317,14 @@ SERVICE_CALIBRATE_TICKS = 4
 # budget, fleet_scale the sharded route (S=2).  The card is held to the CPU
 # on tier_drain at N=300, both stepping the workload with the same host
 # draws (tests/_sim_world.py::host_draws).
+# The stream router and the fault path (phase 3k): tests/_stream_fleet.py's
+# script (demo_apps onto the five default slices, each grown by N / 48) at
+# the balancing slice's fleet size, and at N=300 on the card and the CPU.
+STREAM_APPS = 100_000
+STREAM_SMALL_N = 300
+# A sweep's whole call launches the tier table kernel and the sweep kernel;
+# the tier table's torch ops took 8 launches before it was a kernel.
+SWEEP_CALL_MAX_LAUNCHES = 9
 SIM_APPS = 100_000
 SIM_TICKS = 32
 SIM_SCENARIOS = ("tier_drain", "fleet_scale")
@@ -412,6 +442,67 @@ def random_sweep(N: int, T: int, device, scale_capacity: bool):
     return tuple(args), feas
 
 
+def tier_stats_work(T: int, R: int, S: int = 1) -> tuple[float, float]:
+    """Bytes and f32 operations of the sweeps' tier table for S problems:
+    capacity, loads, task limits and task loads read once; f, g, their R + 1
+    means and the two inverses written once; a division and a reciprocal a
+    (tier, resource) and a tier, T additions and a multiply a mean."""
+    nbytes = S * 4 * ((2 * T * R + 2 * T) + (2 * T * R + 2 * T + R + 1))
+    nops = S * (2 * T * R + 2 * T + (T + 1) * (R + 1))
+    return float(nbytes), float(nops)
+
+
+def check_tier_stats(label, args, record) -> None:
+    """The tier table kernel against ``tier_stats_ref`` on the card, bit for
+    bit: for the sweep's problem and for a stack of it, its tiers reversed
+    (another summing order) and it again."""
+    import torch
+    from repro_torch.kernels import move_eval as K
+    from repro_torch.kernels.ref import tier_stats_ref
+
+    one = tuple(args[i] for i in (5, 6, 9, 10))
+    stacked = tuple(torch.stack([x, x.flip(0), x]) for x in one)
+    err = 0.0
+    for ins in (one, stacked):
+        got, want = K.tier_stats_cuda(*ins), tier_stats_ref(*ins)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            err = max(err, float((g - w).abs().max()))
+            if not (g.shape == w.shape and torch.equal(g, w)):
+                raise AssertionError(f"tier_stats {label}: max abs err {err:.3e} (must be 0)")
+    record["tier_stats"]["max_abs_err"] = max(record["tier_stats"]["max_abs_err"], err)
+    print(f"tier_stats     {label:>16}: one problem and a stack of 3, max abs err {err:.1e}",
+          flush=True)
+
+
+def check_tier_mean(label, args, record) -> None:
+    """The objective's mean kernel against ``core.means.tier_mean`` on the
+    card, value and gradient bit for bit: the sweep's load fractions f[T, R]
+    (keepdim, as the objective takes them), the task fractions g[T] and a
+    stack [3, T, R] of f."""
+    import torch
+    from repro_torch.core.means import tier_mean
+    from repro_torch.kernels import move_eval as K
+
+    f, g = args[9] / args[5], args[10] / args[6]
+    err = 0.0
+    for x, dim, keepdim in ((f, 0, True), (g, 0, False),
+                            (torch.stack([f, f.flip(0), f]), -2, False)):
+        xs = [x.clone().requires_grad_(True) for _ in range(2)]
+        got, want = K.tier_mean_cuda(xs[0], dim, keepdim), tier_mean(xs[1], dim, keepdim)
+        up = torch.linspace(-1.0, 1.0, want.numel(), device=x.device).reshape(want.shape)
+        grads = [torch.autograd.grad(y, xi, up)[0] for y, xi in zip((got, want), xs)]
+        torch.cuda.synchronize()
+        err = max(err, float((got - want).detach().abs().max()),
+                  float((grads[0] - grads[1]).abs().max()))
+        if not (got.shape == want.shape and torch.equal(got, want)
+                and torch.equal(grads[0], grads[1])):
+            raise AssertionError(f"tier_mean {label}: max abs err {err:.3e} (must be 0)")
+    record["tier_mean"]["max_abs_err"] = max(record["tier_mean"]["max_abs_err"], err)
+    print(f"tier_mean      {label:>16}: f, g and a stack of 3, value and gradient, max abs err "
+          f"{err:.1e}", flush=True)
+
+
 def check_sweep(label, args, feas, moves_left_values, record, dev):
     """Hold both move_eval kernels against core.delta on the card; the best
     kernel also with the caller's totals against the wrapper's own."""
@@ -420,6 +511,8 @@ def check_sweep(label, args, feas, moves_left_values, record, dev):
     from repro_torch.kernels import move_eval as K
 
     N = args[0].shape[0]
+    check_tier_stats(label, args, record)
+    check_tier_mean(label, args, record)
     totals = K.sweep_totals(args[1], args[2])
     inputs = K.eval_inputs(*args, totals=totals)
     d_kernel = K.launch_move_eval(inputs)
@@ -475,13 +568,15 @@ def scalar_division_check(args) -> tuple[int, int, int]:
     Returns, at these inputs, the quotients (resources and tasks) that differ
     between the two, all quotients, and the sums mean + d_mean that differ."""
     import torch
+    from repro_torch.core.means import tier_mean
 
     demand, tasks, cap, klim, util, tier_tasks = (args[i] for i in (0, 1, 5, 6, 9, 10))
     T = cap.shape[0]
     src = args[3].long()
     f, g = util / cap, tier_tasks / klim
-    pairs = ((demand[:, None, :] / cap[None] - (demand / cap[src])[:, None, :], f.mean(0)),
-             (tasks[:, None] / klim[None] - (tasks / klim[src])[:, None], g.mean()))
+    pairs = ((demand[:, None, :] / cap[None] - (demand / cap[src])[:, None, :],
+              tier_mean(f, 0)),
+             (tasks[:, None] / klim[None] - (tasks / klim[src])[:, None], tier_mean(g, 0)))
     differ = total = sums = 0
     for diff, mean in pairs:
         by_host = diff / T
@@ -499,7 +594,9 @@ def time_sweep(args, feas, inputs, dev) -> dict:
     for ``move_eval``); each beside its plain version and its bound."""
     import torch
     from repro_torch.core.delta import move_best_per_app, move_delta_cost
+    from repro_torch.core.means import tier_mean
     from repro_torch.kernels import move_eval as K
+    from repro_torch.kernels.ref import tier_stats_ref
 
     N, R = args[0].shape
     T = args[5].shape[0]
@@ -520,6 +617,17 @@ def time_sweep(args, feas, inputs, dev) -> dict:
         "kernel_ms": time_ms(lambda: K.launch_move_eval_best(best_in)),
         "plain_ms": time_ms(lambda: move_best_per_app(*args, feas, ml)),
         "bound_ms": b, "bound_by": by}
+    tier_in = tuple(args[i] for i in (5, 6, 9, 10))
+    b, by = bound_ms(*tier_stats_work(T, R))
+    out["tier_stats"] = {"ms": time_ms(lambda: K.tier_stats_cuda(*tier_in)),
+                         "plain_ms": time_ms(lambda: tier_stats_ref(*tier_in)),
+                         "bound_ms": b, "bound_by": by}
+    f = args[9] / args[5]                 # the objective's load fractions [T, R]
+    b, by = bound_ms(4.0 * (T * R + R), float(T * R + R))
+    out["tier_mean"] = {"ms": time_ms(lambda: K.tier_mean_cuda(f, 0, True)),
+                        "plain_ms": time_ms(lambda: tier_mean(f, 0, True)),
+                        "library_ms": time_ms(lambda: torch.mean(f, dim=0, keepdim=True)),
+                        "bound_ms": b, "bound_by": by}
     return out
 
 
@@ -532,6 +640,13 @@ def print_sweep_times(where: str, times: dict) -> None:
     print(f"  time move_eval_best {where}: whole call {t['ms']:.4f} ms (totals given; "
           f"{t['absent_ms']:.4f} ms without), kernel alone {t['kernel_ms']:.4f} ms, plain "
           f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
+    t = times["tier_stats"]
+    print(f"  time     tier_stats {where}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+          f"bound {t['bound_ms']:.6f} ms ({t['bound_by']})", flush=True)
+    t = times["tier_mean"]
+    print(f"  time      tier_mean {where} (f[T, R]): {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+          f"ms, torch.mean {t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+          f"({t['bound_by']})", flush=True)
 
 
 def commit_inputs(args, feas, moves_left, dev):
@@ -2911,6 +3026,121 @@ def sim_phase(dev, record) -> dict:
     return {name: r["run"] for name, r in results.items()} | {"again": again}
 
 
+def stream_phase(dev, record) -> dict:
+    """Phase 3k: the stream router and the fault path at ``STREAM_APPS``
+    (``tests/_stream_fleet.py::stream_script`` on the card, each step timed
+    between synchronisations with the launch counters zeroed just before
+    it): ``build_cluster``, ``route`` (valid, no worse than the start, every
+    app in one slice's partitions, ``move_eval_best``, ``commit_topk``,
+    ``pack_ffd_tiers`` and ``tier_stats`` launched; a repeat under the
+    profiler gives the same digest), four arrivals through ``admit`` (an
+    admitted app ends ``assignment0`` in its priced tier), the service
+    records, ``rebalance`` after the injector's schedule (valid, within the
+    budget, the same kernels launched), a region outage and its restore
+    (the as-built capacity back), one controller tick on the faulted fleet
+    that ``sync`` adopts; then the script at ``STREAM_SMALL_N`` on the card
+    and on the CPU's plain path, which must agree."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.streams import StreamRouter
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _stream_fleet as SF
+
+    t_phase = time.perf_counter()
+    times, counts = {}, {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[label] = time.perf_counter() - t
+        counts[label] = {k: v for k, v in ops.launch_counts.items() if v}
+        return out
+
+    run = SF.stream_script(STREAM_APPS, dev, timed=timed)
+    route, rb, router = run["route"], run["rebalance"], run["router"]
+    scheduling = ("move_eval_best", "commit_topk", "pack_ffd_tiers", "tier_stats")
+    print(f"stream N={STREAM_APPS}: build_cluster {times['build_cluster']:.4f} s; route "
+          f"{times['route']:.4f} s, objective {run['start_objective']:.6f} -> "
+          f"{route['objective']:.6f}, valid {route['ok']}, rounds {route['rounds']}, moved "
+          f"{route['moved']}/{route['budget']}, sweeps {counts['route'].get('move_eval_best', 0)}"
+          f", digest {SF.digest(route['assignment'])}, launches {counts['route']}", flush=True)
+    names = [name for part in run["partitions"] for name in part]
+    if not (route["ok"] and route["objective"] <= run["start_objective"]):
+        raise AssertionError(f"stream route: valid {route['ok']}, objective "
+                             f"{route['objective']} from {run['start_objective']}")
+    if len(names) != STREAM_APPS or len(set(names)) != STREAM_APPS:
+        raise AssertionError(f"stream route: the slices' partitions list {len(names)} apps "
+                             f"({len(set(names))} distinct) of {STREAM_APPS}")
+    for label in ("route", "rebalance"):
+        missing = [k for k in scheduling if counts[label].get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"stream {label} launched {missing} no time")
+
+    again = []
+    prof = device_profile(lambda: again.append(StreamRouter(run["cluster"]).route()))
+    same = SF.digest(again[0].assignment) == SF.digest(route["assignment"])
+    print(solve_profile_line(f"profile: stream route repeat at N={STREAM_APPS} (the same "
+                             f"digest {same})", prof), flush=True)
+    if not same:
+        raise AssertionError("stream route: a repeat gave another assignment")
+
+    n = STREAM_APPS
+    for i, (state, tier, cap, admitted, num_apps, last) in enumerate(run["admit"]):
+        print(f"stream admit {i} ({SF.ARRIVAL_MODES[i]}): {state}, tier {tier}, cap {cap:.4f}, "
+              f"{times[f'admit {i}']:.4f} s, cluster of {num_apps} apps", flush=True)
+        if admitted:
+            n += 1
+            if (num_apps, last) != (n, tier):
+                raise AssertionError(f"stream admit {i}: the grown cluster ({num_apps} apps) "
+                                     f"ends assignment0 in tier {last}, priced {tier}")
+        elif num_apps != n:
+            raise AssertionError(f"stream admit {i}: a {state} arrival grew the cluster")
+    state, tier, cap, ev = run["arrival_event"]
+    if ev is None or ev[1] != tier or ev[2] != run["arrival_demand"]:
+        raise AssertionError(f"stream arrival_event: decision {(state, tier, cap)}, record "
+                             f"{ev}, capped demand {run['arrival_demand']}")
+    if run["departure_event"] != 3:
+        raise AssertionError(f"stream departure_event: app {run['departure_event']}")
+
+    print(f"stream rebalance after {len(run['schedule'][0])} injector events "
+          f"({run['schedule'][1]} advisories): {times['rebalance']:.4f} s, valid {rb['ok']}, "
+          f"moved {rb['moved']}/{rb['budget']}, rounds {rb['rounds']}, objective "
+          f"{rb['objective']:.6f}, launches {counts['rebalance']}", flush=True)
+    if not (rb["ok"] and rb["moved"] <= rb["budget"]):
+        raise AssertionError(f"stream rebalance: valid {rb['ok']}, moved {rb['moved']} of "
+                             f"{rb['budget']}")
+    if not (np.array_equal(run["restored_capacity"], run["built_capacity"])
+            and not np.array_equal(run["outage_capacity"], run["built_capacity"])):
+        raise AssertionError("stream degrade: the outage and restore did not give the as-built "
+                             "capacity back")
+    applied, tick = run["tick"]
+    print(f"stream controller step on the faulted fleet: {times['controller step']:.4f} s, "
+          f"applied {applied}, synced digest {run['synced_digest']}, launches "
+          f"{counts['controller step']}", flush=True)
+    if not (applied and run["synced_digest"] == SF.digest(tick["assignment"])):
+        raise AssertionError("stream sync: the router did not adopt the applied tick")
+
+    small = {str(d): SF.stream_script(STREAM_SMALL_N, d) for d in (dev, "cpu")}
+    card, cpu = small[str(dev)], small["cpu"]
+    mismatches = SF.script_mismatches(card, cpu)
+    print(f"stream N={STREAM_SMALL_N}: card route objective {card['route']['objective']:.6f}, "
+          f"plain path {cpu['route']['objective']:.6f}, rebalance "
+          f"{card['rebalance']['objective']:.6f} / {cpu['rebalance']['objective']:.6f}, "
+          f"admissions {[g[0] for g in card['admit']]}; mismatches {mismatches}", flush=True)
+    if mismatches:
+        raise AssertionError(f"stream: the card's N={STREAM_SMALL_N} script disagrees with the "
+                             f"plain path: {mismatches}")
+    launches = {k: sum(c.get(k, 0) for c in counts.values()) for k in ops.launch_counts}
+    print(f"stream: phase 3k took {time.perf_counter() - t_phase:.4f} s; seconds by part "
+          f"{ {k: round(v, 4) for k, v in times.items()} }", flush=True)
+    return {"times": times, "launches": launches, "profile": prof}
+
+
 def host_gumbel(sweep: int, size: int, device):
     """Gumbel noise drawn on the host with numpy (one seed a sweep), for the
     sampled solve's ``gumbel_fn``."""
@@ -3015,14 +3245,21 @@ def probe(src: str) -> int:
 def probe_round(pp, dev) -> dict:
     """``--probe``'s rounding times: the kernel's wrapper on fresh copies of
     x and the loads, at the main path's P and at every kind of
-    ``round_case`` at (131,072, 5, 2), with each status."""
+    ``round_case`` at (131,072, 5, 2), with each status; and the host ms a
+    step of the ``_optimize`` that made P (after a synchronisation)."""
+    import torch
     from repro_torch.core import OptimalSearchConfig
     from repro_torch.core.solver_optimal import _optimize, round_inputs, start_noise
     from repro_torch.kernels.optimal_round import ROUND_KINDS, optimal_round_cuda, round_case
 
     cfg = OptimalSearchConfig(steps=OPTIMAL_STEPS, seed=0)
-    probs = _optimize(pp, start_noise(pp, cfg.seed), steps=cfg.steps, lr=cfg.lr,
-                      penalty=cfg.penalty, entropy=cfg.entropy)
+    noise = start_noise(pp, cfg.seed)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    probs = _optimize(pp, noise, steps=cfg.steps, lr=cfg.lr, penalty=cfg.penalty,
+                      entropy=cfg.entropy)
+    torch.cuda.synchronize()
+    optimize_ms = (time.perf_counter() - t) / cfg.steps * 1e3
     cases = {"main": round_inputs(pp, probs)}
     N, T, R = ROUND_SHAPES[0]
     for kind in ROUND_KINDS:
@@ -3033,6 +3270,7 @@ def probe_round(pp, dev) -> dict:
         status = optimal_round_cuda(*args[:2], *pool.pop(), *args[5:]).tolist()
         ms = time_ms(lambda: optimal_round_cuda(*args[:2], *pool.pop(), *args[5:]))
         out[name] = {"ms": ms, "status": status}
+    out["optimize_ms_a_step"] = optimize_ms
     return out
 
 
@@ -3076,7 +3314,9 @@ def main() -> int:
               "ssd_chunk": {"max_abs_err": 0.0},
               "optimal_round": {"max_abs_err": 0.0},
               "move_eval_best_batched": {"max_abs_err": 0.0},
-              "commit_topk_batched": {"max_abs_err": 0.0}}
+              "commit_topk_batched": {"max_abs_err": 0.0},
+              "tier_stats": {"max_abs_err": 0.0},
+              "tier_mean": {"max_abs_err": 0.0}}
 
     # -- 2a. sweep kernels at the stated shapes --------------------------------
     for N, T in ((300, 5), (500, 17), (100_000, 5), (100_000, 128)):
@@ -3122,6 +3362,9 @@ def main() -> int:
           f"card: {names}", flush=True)
     if any("cat" in n.lower() or "stack" in n.lower() for n in call["counts"]):
         raise AssertionError(f"the fused sweep launched a cat or stack: {names}")
+    if sum(call["counts"].values()) > SWEEP_CALL_MAX_LAUNCHES:
+        raise AssertionError(f"the fused sweep's whole call launched more than "
+                             f"{SWEEP_CALL_MAX_LAUNCHES} kernels: {names}")
     # The same for the full sweep, as the sampled solve makes it.
     call = device_profile(lambda: K.move_eval_cuda(*main_args, totals=totals_main))
     names = {kernel_label(n, 60): c for n, c in call["counts"].items()}
@@ -3129,6 +3372,9 @@ def main() -> int:
           f"card: {names}", flush=True)
     if any("cat" in n.lower() or "stack" in n.lower() for n in call["counts"]):
         raise AssertionError(f"the full sweep launched a cat or stack: {names}")
+    if sum(call["counts"].values()) > SWEEP_CALL_MAX_LAUNCHES:
+        raise AssertionError(f"the full sweep's whole call launched more than "
+                             f"{SWEEP_CALL_MAX_LAUNCHES} kernels: {names}")
 
     # -- 2c. pack on random demand and at the kernel's edges --------------------
     clock = sm_clock_mhz()
@@ -3167,7 +3413,7 @@ def main() -> int:
     obj = decision.solve.objective
     if not (np.isfinite(obj) and obj <= obj0):
         raise AssertionError(f"objective {obj} is not <= the starting {obj0}")
-    for name in ("move_eval_best", "commit_topk", "pack_ffd_tiers"):
+    for name in ("move_eval_best", "commit_topk", "pack_ffd_tiers", "tier_stats", "tier_mean"):
         if launches[name] <= 0:
             raise AssertionError(f"the balance pass launched {name} no time")
     tm = decision.cooperation.timings
@@ -3334,6 +3580,11 @@ def main() -> int:
                     for k in sim["tier_drain"]["launches"]}
     torch.cuda.empty_cache()
 
+    # -- 3k. the stream router and the fault path at N=100k ------------------------
+    stream = stream_phase(dev, record)
+    stream_launches = stream["launches"]
+    torch.cuda.empty_cache()
+
     # -- 4. the serving slice: qwen2.5-3b at full width --------------------------
     serving = serving_phase(dev, record)
     fa, fd = serving["times"]["prefill_main"], serving["times"]["decode_main"]
@@ -3350,11 +3601,13 @@ def main() -> int:
         {"name": "move_eval_best", "route": "cuda", "source": MOVE_EVAL_SRC,
          "replaces": "src/repro/kernels/move_eval.py:275",
          "launches": (launches["move_eval_best"] + control_launches["move_eval_best"]
-                      + service_launches["move_eval_best"] + sim_launches["move_eval_best"]),
+                      + service_launches["move_eval_best"] + sim_launches["move_eval_best"]
+                      + stream_launches["move_eval_best"]),
          "launches_by_path": {"balance": launches["move_eval_best"],
                               "control": control_launches["move_eval_best"],
                               "service": service_launches["move_eval_best"],
-                              "sim": sim_launches["move_eval_best"]},
+                              "sim": sim_launches["move_eval_best"],
+                              "stream": stream_launches["move_eval_best"]},
          "max_abs_err": record["move_eval_best"]["max_abs_err"],
          "ms": main_sweep["move_eval_best"]["ms"],
          "plain_ms": main_sweep["move_eval_best"]["plain_ms"],
@@ -3374,11 +3627,13 @@ def main() -> int:
         {"name": "commit_topk", "route": "cuda", "source": COMMIT_SRC,
          "replaces": "src/repro/core/solver_local.py:219",
          "launches": (launches["commit_topk"] + control_launches["commit_topk"]
-                      + service_launches["commit_topk"] + sim_launches["commit_topk"]),
+                      + service_launches["commit_topk"] + sim_launches["commit_topk"]
+                      + stream_launches["commit_topk"]),
          "launches_by_path": {"balance": launches["commit_topk"],
                               "control": control_launches["commit_topk"],
                               "service": service_launches["commit_topk"],
-                              "sim": sim_launches["commit_topk"]},
+                              "sim": sim_launches["commit_topk"],
+                              "stream": stream_launches["commit_topk"]},
          "max_abs_err": record["commit_topk"]["max_abs_err"],
          "ms": main_commit["ms"], "plain_ms": main_commit["plain_ms"],
          "bound_ms": main_commit["bound_ms"], "bound_by": main_commit["bound_by"],
@@ -3386,11 +3641,13 @@ def main() -> int:
         {"name": "pack_ffd_tiers", "route": "cuda", "source": PACK_SRC,
          "replaces": "src/repro/kernels/pack.py:116",
          "launches": (launches["pack_ffd_tiers"] + control_launches["pack_ffd_tiers"]
-                      + service_launches["pack_ffd_tiers"] + sim_launches["pack_ffd_tiers"]),
+                      + service_launches["pack_ffd_tiers"] + sim_launches["pack_ffd_tiers"]
+                      + stream_launches["pack_ffd_tiers"]),
          "launches_by_path": {"balance": launches["pack_ffd_tiers"],
                               "control": control_launches["pack_ffd_tiers"],
                               "service": service_launches["pack_ffd_tiers"],
-                              "sim": sim_launches["pack_ffd_tiers"]},
+                              "sim": sim_launches["pack_ffd_tiers"],
+                              "stream": stream_launches["pack_ffd_tiers"]},
          "max_abs_err": record["pack_ffd_tiers"]["max_abs_err"],
          "ms": pack_main["ms"], "plain_ms": pack_main["plain_ms"],
          "bound_ms": pack_main["bound_ms"], "bound_by": pack_main["bound_by"],
@@ -3445,6 +3702,21 @@ def main() -> int:
             "ms": t["ms"], "unbatched_ms": t["unbatched_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "wide": {"shape": fleet["wide"]["shape"], **fleet["wide"][part]}})
+    tier_paths = {"balance": launches, "unfused": unfused_launches,
+                  "sampled": sampled_launches, "control": control_launches,
+                  "fleet": fleet["launches"], "service": service_launches,
+                  "sim": sim_launches, "stream": stream_launches}
+    tier_paths.update({f"optimal {v}": r["launches"] for v, r in optimal["runs"].items()})
+    for name, replaces in (("tier_stats", "src/repro/kernels/move_eval.py:169"),
+                           ("tier_mean", "src/repro/core/goals.py:55")):
+        t = main_sweep[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": MOVE_EVAL_SRC, "replaces": replaces,
+            "launches": sum(c[name] for c in tier_paths.values()),
+            "launches_by_path": {k: c[name] for k, c in tier_paths.items()},
+            "max_abs_err": record[name]["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t.get("library_ms")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.constraints import destination_fits
+from repro_torch.core.means import tier_mean
 
 
 def _h2(x, ideal):
@@ -48,8 +49,8 @@ def move_delta_cost(
     T = capacity.shape[0]
     f = util / capacity                          # [T, R]
     g = tier_tasks / task_limit                  # [T]
-    mean_f = torch.mean(f, dim=0)                # [R]
-    mean_g = torch.mean(g)
+    mean_f = tier_mean(f, 0)                     # [R]
+    mean_g = tier_mean(g, 0)
 
     src = assignment.long()
     C_src = capacity[src]                        # [N, R]
@@ -139,8 +140,8 @@ def single_move_delta(
     T = capacity.shape[0]
     f = util / capacity
     g = tier_tasks / task_limit
-    mean_f = torch.mean(f, dim=0)
-    mean_g = torch.mean(g)
+    mean_f = tier_mean(f, 0)
+    mean_g = tier_mean(g, 0)
 
     d = demand[n]
     dC_src = d / capacity[src]

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.core.problem import Problem, tier_loads
 from repro_torch.core.utility import tier_delivery_factor, utility_of
+from repro_torch.kernels.ops import tier_mean
 
 # Fleet-utility goal weight: between goal 5 (1e4) and goal 6 (1e3).
 FLEET_UTILITY_WEIGHT = 5e3
@@ -38,11 +39,11 @@ def goal_terms(problem: Problem, assignment: torch.Tensor) -> dict[str, torch.Te
     under_ideal = torch.sum(over * over) + torch.sum(over_t * over_t)
 
     # Goal 6: resource usage balanced across tiers, relative to capacity.
-    mean_frac = torch.mean(util_frac, dim=0, keepdim=True)
+    mean_frac = tier_mean(util_frac, 0, keepdim=True)
     resource_balance = torch.sum((util_frac - mean_frac) ** 2)
 
     # Goal 7: task count balanced across tiers.
-    task_balance = torch.sum((task_frac - torch.mean(task_frac)) ** 2)
+    task_balance = torch.sum((task_frac - tier_mean(task_frac, 0)) ** 2)
 
     moved = (assignment != problem.assignment0).to(torch.float32)
 
@@ -99,9 +100,9 @@ def soft_objective(problem: Problem, probs: torch.Tensor) -> torch.Tensor:
     over_t = torch.maximum(task_frac - problem.ideal_task_frac, zero)
     under_ideal = torch.sum(over * over) + torch.sum(over_t * over_t)
 
-    mean_frac = torch.mean(util_frac, dim=0, keepdim=True)
+    mean_frac = tier_mean(util_frac, 0, keepdim=True)
     resource_balance = torch.sum((util_frac - mean_frac) ** 2)
-    task_balance = torch.sum((task_frac - torch.mean(task_frac)) ** 2)
+    task_balance = torch.sum((task_frac - tier_mean(task_frac, 0)) ** 2)
 
     # P(move) = 1 - P[n, x0_n]
     stay = torch.gather(probs, 1, problem.assignment0.long()[:, None])[:, 0]

@@ -374,6 +374,9 @@ class CoopTimings:
     def items(self):
         return [(k, self[k]) for k in self.keys()]
 
+    def as_dict(self) -> dict:
+        return {k: self[k] for k in self.keys()}
+
 
 # -- the proof-of-extensibility third level ----------------------------------
 

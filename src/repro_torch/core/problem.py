@@ -55,6 +55,15 @@ class GoalWeights:
         dev = resolve_device(device)
         return GoalWeights(*(_f32(v, dev) for v in (1e4, 1e3, 1e2, 1e1, 1e0)))
 
+    @staticmethod
+    def from_priority(order: tuple[str, ...], device=DEFAULT_DEVICE) -> "GoalWeights":
+        """Build weights from a priority permutation (highest first): the
+        i-th name of ``order`` weighs 10^(5 - i)."""
+        assert sorted(order) == sorted(GOAL_NAMES), f"bad priority order {order}"
+        dev = resolve_device(device)
+        vals = {name: _f32(10.0 ** (len(order) - i), dev) for i, name in enumerate(order)}
+        return GoalWeights(**vals)
+
     def vector(self) -> torch.Tensor:
         """f32[5] in ``GOAL_NAMES`` order (the kernels' weight input)."""
         return torch.stack([getattr(self, n) for n in GOAL_NAMES])

@@ -43,6 +43,8 @@ SIGNATURES = {
         "move_eval_best_launch": [_I, _I, _I] + [_P] * 22,
         "move_eval_launch": [_I, _I, _I] + [_P] * 19,
         "move_eval_best_batched_launch": [_I] * 4 + [_P] * 23,
+        "tier_stats_launch": [_I] * 3 + [_P] * 11,
+        "tier_mean_launch": [_I] * 3 + [_P] * 3,
     },
     "commit": {
         "commit_topk_launch": [_I, _I, _I] + [_P] * 17 + [_F, _F, _P, _P],

@@ -32,9 +32,9 @@
 //    fractions util / capacity and tier_tasks / task_limit.
 // 2. Scan.  The sequential decisions read and write shared memory only.
 //    Every lane walks the same candidates with the same (uniform) decisions.
-//    The tier means are sums over the cached fractions (lane j sums tiers j,
-//    j+32, ..., then an xor-shuffle sum, which gives every lane the same
-//    bits), recomputed only after a commit has changed two tiers.  A commit
+//    The tier means are sequential sums over the cached fractions (lane r
+//    one column, then a shuffle gives every lane the same bits), recomputed
+//    only after a commit has changed two tiers.  A commit
 //    updates the loads and the two tiers' fractions (lane r resource r, lane
 //    0 the task counts) and the gathered assignment of every copy of that
 //    app among the candidates, between two __syncwarp barriers.  A candidate
@@ -55,12 +55,13 @@
 // like move_eval.cu): caching a quotient or a mean moves an operation
 // earlier, never changes it, and the load updates are the same f32
 // additions in the same order, so x and the tier loads stay bit-identical
-// to the plain version's.  On a card torch.mean multiplies the sum by the
-// float 1/T and `x / T` by a host scalar multiplies by its float
-// reciprocal, so the kernel multiplies by 1.0f / T where a division would
-// part from them at the last bit (a third of quotients at T = 3), and a
-// decision on the cancelling f'^2 - f^2 could then flip; for the same
-// reason the means sum the tiers in torch's order (tier_means).
+// to the plain version's.  On a card `x / T` by a host scalar multiplies
+// by its float reciprocal, and the tier means (core/means.py) multiply
+// their sequential sum by the float 1/T, so the kernel multiplies by
+// 1.0f / T where a division would part from them at the last bit (a third
+// of quotients at T = 3), and a decision on the cancelling f'^2 - f^2 could
+// then flip; for the same reason the means sum the tiers in the plain
+// version's order (tier_means).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -132,46 +133,24 @@ __device__ void cand_parts(int i, int src, int T, const Tiers& s, const Cands& c
   c.csrc[i] = src;
 }
 
-// The tier means of the fractions as torch.mean computes them on a card,
-// bit for bit: the sum in its order, times the float 1/T.  mean[r] for the
-// resources reduces f[T, R] over its tiers one output a thread: four
-// accumulators take tiers t = 0, 1, 2, 3 (mod 4) in turn and are then added
-// in order (every lane computes it).  mean[R] for the task counts reduces
-// g[T] over the lanes: lane j sums tiers j, j + 32, ..., then a tree with
-// halving offsets (the xor tree gives every lane those bits); so does a
-// single resource, whose [T, 1] reduces as a vector.  (From 128 tiers on,
-// torch reads a vector in 16-byte pieces and sums g in another order.)
+// The tier means of the fractions as core/means.py::tier_mean takes them,
+// bit for bit: a sequential sum over t = 0, ..., T - 1 from 0, times the
+// float 1/T (the reference's XLA order for T <= 16, kept past it).  Lane r
+// sums column r of f[T, R], lane R sums g; a shuffle gives every lane the
+// R + 1 means.  Called with the warp converged.
 template <int R>
 __device__ __forceinline__ void tier_means(int T, const Tiers& s, float (&mean)[R + 1]) {
-  const float inv_T = 1.0f / (float)T;     // torch.mean's factor on a card
-  constexpr int kTree = (R == 1) ? 2 : 1;  // reductions that take the lane tree
-  float part[2] = {0.0f, 0.0f};
+  const float inv_T = 1.0f / (float)T;     // tier_mean's factor
+  const int lane = threadIdx.x & 31;
+  const int c = (lane < R) ? lane : R;     // lanes past R repeat the task column
+  const float* col = (c < R) ? s.frac + c : s.gfrac;
+  const int step = (c < R) ? R : 1;
+  float acc = 0.0f;
 #pragma unroll 1
-  for (int tt = threadIdx.x; tt < T; tt += 32) {
-    if (R == 1) part[1] += s.frac[tt];
-    part[0] += s.gfrac[tt];
-  }
+  for (int t = 0; t < T; ++t) acc += col[t * step];
+  const float m = acc * inv_T;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-    for (int q = 0; q < kTree; ++q) part[q] += __shfl_xor_sync(0xffffffffu, part[q], off);
-  mean[R] = part[0] * inv_T;
-  if (R == 1) {
-    mean[0] = part[1] * inv_T;
-    return;
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-#pragma unroll 1
-    for (int tt = 0; tt < T; tt += 4) {
-      a0 += s.frac[tt * R + r];
-      if (tt + 1 < T) a1 += s.frac[(tt + 1) * R + r];
-      if (tt + 2 < T) a2 += s.frac[(tt + 2) * R + r];
-      if (tt + 3 < T) a3 += s.frac[(tt + 3) * R + r];
-    }
-    mean[r] = (((a0 + a1) + a2) + a3) * inv_T;
-  }
+  for (int r = 0; r <= R; ++r) mean[r] = __shfl_sync(0xffffffffu, m, r);
 }
 
 // core/delta.py::single_move_delta for candidate i: src -> t against the

@@ -6,7 +6,11 @@
 //   move_eval_best_batched_kernel <- the same best kernel under the
 //     reference's vmap over a shard stack (src/repro/shard/solve.py)
 // All share pair_delta(), the counterpart of the Pallas _block_delta; the
-// two best kernels share best_body().
+// two best kernels share best_body().  tier_stats_kernel computes the tier
+// table they read (core/means.py's means; not a TPU kernel: the reference
+// computes it in the Pallas wrapper's XLA prologue,
+// src/repro/kernels/move_eval.py:169-172, and in core/delta.py:61-64), and
+// tier_mean_kernel the objective's means (src/repro/core/goals.py:55, 59).
 //
 // What it computes: for app n and tier t, the exact change of the scalarized
 // objective if n moved to t (core/delta.py closed form), plus the destination
@@ -430,6 +434,91 @@ extern "C" int move_eval_launch(int N, int T, int R, const void* demand, const v
   size_t smem = sizeof(float) * ((size_t)tier_table_floats(T, R) + (G == 1 ? kThreads * T : 0));
   move_eval_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(N, T, R, G, apps, tiers,
                                                                      (float*)delta);
+  return (int)cudaGetLastError();
+}
+
+// The sweeps' tier table for S stacked problems, one CTA a problem
+// (kernels/ref.py::tier_stats_ref bit for bit): f = util / cap, g = tasks /
+// klim, 1 / cap and 1 / klim, each an IEEE division as torch's elementwise
+// ops on a card; then the means of f's R columns and of g, one thread each,
+// as core/means.py::tier_mean takes them: a sequential sum over t = 0, ...,
+// T - 1 from 0, times the float 1/T (the reference's order for T <= 16).
+// A problem's quotients are staged in shared memory (T * (R + 1) floats).
+__global__ void tier_stats_kernel(int T, int R, const float* __restrict__ cap,
+                                  const float* __restrict__ klim,
+                                  const float* __restrict__ util,
+                                  const float* __restrict__ tier_tasks, float* __restrict__ f,
+                                  float* __restrict__ g, float* __restrict__ mean_f,
+                                  float* __restrict__ mean_g, float* __restrict__ inv_cap,
+                                  float* __restrict__ inv_klim) {
+  extern __shared__ float sm_q[];          // [T, R] f, then [T] g
+  const size_t s = blockIdx.x;
+  const size_t TR = (size_t)T * R;
+  cap += s * TR; util += s * TR; f += s * TR; inv_cap += s * TR;
+  klim += s * T; tier_tasks += s * T; g += s * T; inv_klim += s * T;
+  for (int i = threadIdx.x; i < T * R; i += blockDim.x) {
+    const float q = util[i] / cap[i];
+    sm_q[i] = q;
+    f[i] = q;
+    inv_cap[i] = 1.0f / cap[i];
+  }
+  for (int t = threadIdx.x; t < T; t += blockDim.x) {
+    const float q = tier_tasks[t] / klim[t];
+    sm_q[TR + t] = q;
+    g[t] = q;
+    inv_klim[t] = 1.0f / klim[t];
+  }
+  __syncthreads();
+  const int c = threadIdx.x;
+  if (c > R) return;
+  const float inv_T = 1.0f / (float)T;
+  const float* col = (c < R) ? sm_q + c : sm_q + TR;
+  const int step = (c < R) ? R : 1;
+  float acc = 0.0f;
+#pragma unroll 4
+  for (int t = 0; t < T; ++t) acc += col[(size_t)t * step];
+  if (c < R) mean_f[s * R + c] = acc * inv_T;
+  else mean_g[s] = acc * inv_T;
+}
+
+// core/means.py::tier_mean over the tier axis of x [rows, T, C] (contiguous),
+// one thread an output column: out[l, c] = (sum over t of x[l, t, c], in
+// order from 0) * (1.0f / T).  The objective's means on a card.
+__global__ void tier_mean_kernel(int rows, int T, int C, const float* __restrict__ x,
+                                 float* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)rows * C) return;
+  const long long l = i / C;
+  const float* col = x + l * T * C + (i - l * C);
+  float acc = 0.0f;
+#pragma unroll 4
+  for (int t = 0; t < T; ++t) acc += col[(size_t)t * C];
+  out[i] = acc * (1.0f / (float)T);
+}
+
+extern "C" int tier_mean_launch(int rows, int T, int C, const void* x, void* out,
+                                void* stream) {
+  const long long n = (long long)rows * C;
+  if (n == 0) return 0;
+  const int threads = 128;
+  tier_mean_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
+                     (cudaStream_t)stream>>>(rows, T, C, (const float*)x, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// The tier table of S problems of T tiers and R resources, every array with
+// a leading [S] axis (S = 1 for one problem).
+extern "C" int tier_stats_launch(int S, int T, int R, const void* capacity,
+                                 const void* task_limit, const void* util,
+                                 const void* tier_tasks, void* f, void* g, void* mean_f,
+                                 void* mean_g, void* inv_cap, void* inv_klim, void* stream) {
+  if (S == 0 || T == 0) return 0;
+  size_t smem = sizeof(float) * (size_t)T * (R + 1);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  tier_stats_kernel<<<S, 128, smem, (cudaStream_t)stream>>>(
+      T, R, (const float*)capacity, (const float*)task_limit, (const float*)util,
+      (const float*)tier_tasks, (float*)f, (float*)g, (float*)mean_f, (float*)mean_g,
+      (float*)inv_cap, (float*)inv_klim);
   return (int)cudaGetLastError();
 }
 

@@ -4,8 +4,9 @@ Replaces the Pallas TPU kernels ``move_eval_pallas`` and
 ``move_eval_best_pallas`` of ``repro/kernels/move_eval.py``.
 
 Both wrappers hand their kernel the function's own inputs and a T-sized
-tier table (``tier_stats``: six small torch ops); the kernel gathers each
-app's source-side quantities itself.  The two N-sized totals come from the
+tier table (``tier_stats``: one launch of ``tier_stats_kernel``, whose
+means round as the reference's); the kernel gathers each app's source-side
+quantities itself.  The two N-sized totals come from the
 caller (``totals=``, as ``solve_local`` computes them once a solve) or,
 when absent, from ``sweep_totals``.
 
@@ -24,8 +25,12 @@ the plain versions in ``core.delta``.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch.core.means import inv_tiers
+from repro_torch.kernels import ops
 from repro_torch.kernels.build import check_launch, load_library
 
 MAX_RESOURCES = 4
@@ -47,13 +52,73 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape=None) -> None:
 def tier_stats(capacity, task_limit, util, tier_tasks):
     """The T-sized tier statistics the sweep kernels read: (f, g, mean_f,
     mean_g, 1 / capacity, 1 / task_limit); with a leading [S] axis, each
-    shard's own.  A shard's means are the same reduction of the same values
-    as on that shard alone (each output sums its T inputs in one order,
-    whatever the number of outputs), so they have the same bits."""
-    f = util / capacity                          # [(S,) T, R]
-    g = tier_tasks / task_limit                  # [(S,) T]
-    return (f, g, torch.mean(f, dim=-2), torch.mean(g, dim=-1), 1.0 / capacity,
-            1.0 / task_limit)
+    shard's own.  On a card one launch of ``tier_stats_kernel``, on the CPU
+    ``kernels.ref.tier_stats_ref`` (``ops.tier_stats`` routes and counts)."""
+    return ops.tier_stats(capacity, task_limit, util, tier_tasks)
+
+
+def tier_stats_cuda(capacity, task_limit, util, tier_tasks) -> tuple:
+    """``tier_stats`` on the card, one launch for all shards: capacity
+    f32[(S,) T, R], task_limit f32[(S,) T], util f32[(S,) T, R], tier_tasks
+    f32[(S,) T]; bit for bit ``kernels.ref.tier_stats_ref`` on the card."""
+    lead = tuple(capacity.shape[:-2])
+    T, R = capacity.shape[-2:]
+    if 4 * T * (R + 1) > SMEM_LIMIT:
+        raise ValueError(f"{T} tiers exceed the tier table kernel's shared-memory staging")
+    for name, x, shape in (("capacity", capacity, lead + (T, R)),
+                           ("task_limit", task_limit, lead + (T,)),
+                           ("util", util, lead + (T, R)),
+                           ("tier_tasks", tier_tasks, lead + (T,))):
+        _check(name, x, torch.float32, shape)
+    S = math.prod(lead)
+    dev = capacity.device
+    f, inv_cap = (torch.empty(lead + (T, R), dtype=torch.float32, device=dev) for _ in range(2))
+    g, inv_klim = (torch.empty(lead + (T,), dtype=torch.float32, device=dev) for _ in range(2))
+    mean_f = torch.empty(lead + (R,), dtype=torch.float32, device=dev)
+    mean_g = torch.empty(lead, dtype=torch.float32, device=dev)
+    ins = tuple(x.contiguous() for x in (capacity, task_limit, util, tier_tasks))
+    lib = load_library("move_eval")
+    code = lib.tier_stats_launch(S, T, R, *(x.data_ptr() for x in ins),
+                                 *(x.data_ptr() for x in (f, g, mean_f, mean_g, inv_cap,
+                                                          inv_klim)),
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(lib, code, "tier_stats")
+    return f, g, mean_f, mean_g, inv_cap, inv_klim
+
+
+class _TierMean(torch.autograd.Function):
+    """``core.means.tier_mean`` in one launch of ``tier_mean_kernel``; the
+    gradient of every tier is the incoming one times the f32 1/T, which is
+    what autograd gives through the plain version."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, keepdim: bool):
+        _check("x", x, torch.float32)
+        dim %= x.dim()
+        T = x.shape[dim]
+        lead, rest = tuple(x.shape[:dim]), tuple(x.shape[dim + 1:])
+        rows, C = math.prod(lead), math.prod(rest)
+        xc = x.contiguous()
+        out = torch.empty(lead + rest, dtype=torch.float32, device=x.device)
+        lib = load_library("move_eval")
+        code = lib.tier_mean_launch(rows, T, C, xc.data_ptr(), out.data_ptr(),
+                                    torch.cuda.current_stream(x.device).cuda_stream)
+        check_launch(lib, code, "tier_mean")
+        ctx.dim, ctx.keepdim, ctx.shape = dim, keepdim, x.shape
+        return out.unsqueeze(dim) if keepdim else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.keepdim:
+            grad = grad.unsqueeze(ctx.dim)
+        return (grad * inv_tiers(ctx.shape[ctx.dim])).expand(ctx.shape), None, None
+
+
+def tier_mean_cuda(x: torch.Tensor, dim: int, keepdim: bool = False) -> torch.Tensor:
+    """``core.means.tier_mean`` of a CUDA f32 tensor over axis ``dim`` in one
+    launch, differentiable (the objective's means; OptimalSearch
+    differentiates them)."""
+    return _TierMean.apply(x, dim, keepdim)
 
 
 def sweep_totals(tasks, criticality) -> torch.Tensor:

@@ -17,7 +17,8 @@ from repro_torch.kernels import ref as _ref
 
 launch_counts = {"move_eval": 0, "move_eval_best": 0, "commit_topk": 0, "pack_ffd_tiers": 0,
                  "optimal_round": 0, "flash_attention": 0, "flash_decode": 0, "ssd_chunk": 0,
-                 "move_eval_best_batched": 0, "commit_topk_batched": 0}
+                 "move_eval_best_batched": 0, "commit_topk_batched": 0, "tier_stats": 0,
+                 "tier_mean": 0}
 
 
 def reset_launch_counts() -> None:
@@ -28,6 +29,29 @@ def reset_launch_counts() -> None:
     for counts in (launch_counts, flash_attention.body_launches, optimal_round.body_launches):
         for name in counts:
             counts[name] = 0
+
+
+def tier_stats(capacity, task_limit, util, tier_tasks):
+    """The sweeps' tier table (f, g, mean_f, mean_g, 1 / capacity,
+    1 / task_limit), one launch for every shard of a leading [S] axis; see
+    kernels.ref.tier_stats_ref.  Each sweep wrapper calls it for its inputs."""
+    if capacity.is_cuda:
+        from repro_torch.kernels.move_eval import tier_stats_cuda
+        out = tier_stats_cuda(capacity, task_limit, util, tier_tasks)
+        launch_counts["tier_stats"] += 1
+        return out
+    return _ref.tier_stats_ref(capacity, task_limit, util, tier_tasks)
+
+
+def tier_mean(x, dim: int, keepdim: bool = False):
+    """The mean of ``x`` over its tier axis ``dim`` as the reference rounds
+    it (see core.means.tier_mean), differentiable; one launch on a card."""
+    if x.is_cuda:
+        from repro_torch.kernels.move_eval import tier_mean_cuda
+        out = tier_mean_cuda(x, dim, keepdim)
+        launch_counts["tier_mean"] += 1
+        return out
+    return _ref.tier_mean(x, dim, keepdim)
 
 
 def move_eval(*args, totals=None):

@@ -16,6 +16,18 @@ from repro_torch.core.constraints import FEAS_TOL
 from repro_torch.core.delta import move_best_per_app as move_eval_best_ref  # noqa: F401
 from repro_torch.core.delta import move_delta_cost as move_eval_ref  # noqa: F401
 from repro_torch.core.delta import single_move_delta
+# tier_mean plain version == core.means (the objective's means; one source of truth).
+from repro_torch.core.means import tier_mean
+
+
+def tier_stats_ref(capacity, task_limit, util, tier_tasks):
+    """The sweeps' T-sized tier table: (f, g, mean_f, mean_g, 1 / capacity,
+    1 / task_limit) with f = util / capacity and g = tier_tasks / task_limit;
+    with a leading [S] axis on each input, each shard's own.  The means are
+    ``core.means.tier_mean``'s: a shard's are those of the shard alone."""
+    f = util / capacity                          # [(S,) T, R]
+    g = tier_tasks / task_limit                  # [(S,) T]
+    return (f, g, tier_mean(f, -2), tier_mean(g, -1), 1.0 / capacity, 1.0 / task_limit)
 
 
 def commit_topk_ref(cand_n, best_s, best_t, x, util, tier_tasks, demand, tasks,

@@ -1,1 +1,2 @@
-"""Drivers of the port (serving so far)."""
+"""Drivers of the port: serving, and the training driver's cluster layout
+(``train.default_slices``)."""

@@ -214,3 +214,34 @@ def assert_trajectories_match(ref_out: dict, port_out: dict, ref_x: list, port_x
                   for m in record_mismatches(port_out[key], rec, rel, key)]
     assert sorted(mismatches) == sorted(m for m in mismatches
                                         if m.split(":")[0] in may_differ), mismatches
+
+
+def assert_same_cluster(ct, cj) -> None:
+    """A port cluster equal to the reference's bit for bit: every problem
+    field and every host-side array."""
+    pa = reference_problem_arrays(cj.problem)
+    for name, want in pa.items():
+        got = getattr(ct.problem, name)
+        if name == "weights":
+            for w in want:
+                assert np.float32(host(getattr(got, w))) == want[w], w
+            continue
+        got = host(got)
+        assert got.dtype == want.dtype and np.array_equal(got, want), name
+    for name in ("app_region", "tier_regions", "region_latency", "hosts_per_tier",
+                 "host_capacity"):
+        got, want = getattr(ct, name), np.asarray(getattr(cj, name))
+        assert got.dtype == want.dtype and np.array_equal(got, want), name
+    assert (ct.app_names, ct.tier_names) == (cj.app_names, cj.tier_names)
+
+
+def assert_same_route(dt, dj, what: str) -> None:
+    """The assignment equal, the decision within test_torch_balance.py's
+    bounds (objective and d2b within rel 1e-4, the same verdict, moves and
+    rounds)."""
+    np.testing.assert_array_equal(host(dt.assignment), np.asarray(dj.assignment))
+    assert dt.violations.ok == dj.violations.ok
+    assert dt.violations.num_moved == dj.violations.num_moved
+    assert dt.cooperation.timings["rounds"] == dj.cooperation.timings["rounds"]
+    assert_rel(dt.solve.objective, dj.solve.objective, 1e-4, f"{what} objective")
+    assert_rel(dt.difference_to_balance, dj.difference_to_balance, 1e-4, f"{what} d2b")

@@ -35,6 +35,7 @@ import torch
 
 import repro_torch.core as P
 from repro_torch.core.delta import move_best_per_app, move_delta_cost
+from repro_torch.core.means import tier_mean
 from repro_torch.kernels import ops
 from repro_torch.kernels import optimal_round as K_round
 from repro_torch.kernels.optimal_round import ROUND_KINDS, round_case, round_edge_cases
@@ -43,7 +44,7 @@ from repro_torch.kernels.ref import (commit_topk_batched_ref, commit_topk_ref,
                                     flash_attention_ref, flash_decode_ref,
                                     move_eval_best_batched_ref, optimal_round_ref,
                                     pack_ffd_tiers_ref, random_problem_arrays,
-                                    random_shard_batch, ssd_chunk_ref)
+                                    random_shard_batch, ssd_chunk_ref, tier_stats_ref)
 
 from _torch_port import (SERVICE_APPS, SERVICE_COOLDOWN, SERVICE_SEED,  # noqa: F401
                          SERVICE_TICKS, SERVICE_TIMEOUT_S, SHED_TARGET, assert_rel, cuda_device,
@@ -1128,3 +1129,128 @@ def test_sim_tier_drain_pair_on_the_card_matches_the_cpu(cuda_device, monkeypatc
     assert card["compare"]["rebalances"] > 0 and card["compare"]["movement"]["within_budget"]
     assert card["balanced"].summary()["unsafe_moves"] == 0
     assert all(launched[k] > 0 for k in ("move_eval_best", "commit_topk", "pack_ffd_tiers"))
+
+
+# Tier counts the tier means are held at on the card: the reference's
+# sequential order holds to 16 tiers (core/means.py); 17, 64 and 128 run
+# the port's same order past it.
+MEAN_TIERS = [2, 3, 5, 9, 16, 17, 64, 128]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", MEAN_TIERS)
+def test_tier_stats_kernel_matches_plain_version(cuda_device, T):
+    """The sweeps' tier table in one launch, for one problem and for three
+    stacked ones, bit for bit equal to ``tier_stats_ref`` on the card."""
+    args = random_problem_arrays(1000, T, seed=T, device=cuda_device)
+    batch, _ = random_shard_batch(3, 300, T, seed=T, device=cuda_device)
+    ops.reset_launch_counts()
+    for a in (args, batch):
+        got = ops.tier_stats(a[5], a[6], a[9], a[10])
+        want = tier_stats_ref(a[5], a[6], a[9], a[10])
+        for x, y in zip(got, want):
+            assert x.shape == y.shape and torch.equal(x, y)
+    assert ops.launch_counts["tier_stats"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", MEAN_TIERS)
+def test_tier_mean_kernel_matches_plain_version(cuda_device, T):
+    """The objective's means in one launch: f32[T], f32[T, R] and
+    f32[S, T, R] over their tier axis, with and without keepdim, bit for bit
+    equal to ``core.means.tier_mean`` on the card, and so are the gradients
+    autograd gives through each."""
+    rng = np.random.default_rng(T)
+    cases = [((T,), 0, False), ((T, 3), 0, True), ((4, T, 2), -2, False), ((4, T), -1, True)]
+    ops.reset_launch_counts()
+    for shape, dim, keepdim in cases:
+        x = torch.as_tensor((rng.random(shape) * 10.0 ** rng.integers(-3, 4)).astype(np.float32),
+                            device=cuda_device)
+        xs = [x.clone().requires_grad_(True) for _ in range(2)]
+        got = ops.tier_mean(xs[0], dim, keepdim)
+        want = tier_mean(xs[1], dim, keepdim)
+        assert got.shape == want.shape and torch.equal(got, want), (shape, dim)
+        up = torch.as_tensor(rng.standard_normal(tuple(want.shape)).astype(np.float32),
+                             device=cuda_device)
+        (g0,), (g1,) = (torch.autograd.grad(y, xi, up) for y, xi in ((got, xs[0]), (want, xs[1])))
+        assert torch.equal(g0, g1), (shape, dim)
+    assert ops.launch_counts["tier_mean"] == len(cases)
+
+
+def _stack_best_cases(device, S, N, T, ml):
+    """S shards of ``_best_case`` inputs stacked with a leading [S] axis,
+    each shard's totals and moves left."""
+    cases = [_best_case(device, N, T, seed=T + 7 * s) for s in range(S)]
+    args = [torch.stack([c[0][i] for c in cases]) for i in range(12)]
+    feas = torch.stack([c[1] for c in cases])
+    moves_left = torch.full((S,), ml, dtype=torch.int32, device=device)
+    totals = torch.stack([torch.stack([a[1].sum().clamp(min=1.0), a[2].sum().clamp(min=1.0)])
+                          for a in (c[0] for c in cases)])
+    return args + [feas, moves_left], totals
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", MEAN_TIERS)
+def test_sweep_and_commit_kernels_take_the_plain_means(cuda_device, T):
+    """At each tier count: ``move_eval_best`` and ``commit_topk`` and their
+    shard-batched entries bit for bit equal to their plain versions, whose
+    means are ``core.means.tier_mean``'s."""
+    N, ml = 1000, 5
+    args, feas = _best_case(cuda_device, N, T, seed=T)
+    moves_left = torch.tensor(ml, dtype=torch.int32, device=cuda_device)
+    ops.reset_launch_counts()
+    s_k, t_k = ops.move_eval_best(*args, feas, moves_left)
+    s_p, t_p = move_best_per_app(*args, feas, moves_left)
+    assert torch.equal(s_k, s_p) and torch.equal(t_k, t_p)
+    cand_n = torch.sort(s_p, stable=True).indices[:16]
+    totals = torch.stack([args[1].sum().clamp(min=1.0), args[2].sum().clamp(min=1.0)])
+    demand, tasks, crit, x, a0, cap, klim, ideal, ideal_t, util, tt, w = args
+    knobs = dict(neg_tol=float(np.float32(-1e-7)), batch_quality=0.9)
+    states = [(x.clone(), util.clone(), tt.clone()) for _ in range(2)]
+    status = [fn(cand_n, s_p, t_p, *st, demand, tasks, crit, a0, cap, klim, ideal, ideal_t, w,
+                 totals, moves_left, **knobs)
+              for fn, st in zip((ops.commit_topk, commit_topk_ref), states)]
+    assert torch.equal(status[0], status[1])
+    for a, b in zip(*states):
+        assert torch.equal(a, b)
+
+    S = 3
+    bargs, btotals = _stack_best_cases(cuda_device, S, 500, T, ml)
+    active = _active(S).to(cuda_device)
+    sb_k, tb_k = ops.move_eval_best_batched(*bargs, totals=btotals, active=active)
+    sb_p, tb_p = move_eval_best_batched_ref(*bargs, active=active)
+    assert torch.equal(sb_k, sb_p) and torch.equal(tb_k, tb_p)
+    bcand = torch.sort(sb_p, dim=1, stable=True).indices[:, :16].contiguous()
+    demand, tasks, crit, x, a0, cap, klim, ideal, ideal_t, util, tt, w, _, bml = bargs
+    bstates = [[x.clone(), util.clone(), tt.clone()] for _ in range(2)]
+    bstatus = [fn(bcand, sb_p, tb_p, *st, demand, tasks, crit, a0, cap, klim, ideal, ideal_t, w,
+                  btotals, bml, active, **knobs)
+               for fn, st in zip((ops.commit_topk_batched, commit_topk_batched_ref), bstates)]
+    assert torch.equal(bstatus[0], bstatus[1])
+    for a, b in zip(*bstates):
+        assert torch.equal(a, b)
+    counts = dict(ops.launch_counts)
+    assert (counts["move_eval_best"], counts["commit_topk"], counts["move_eval_best_batched"],
+            counts["commit_topk_batched"], counts["tier_stats"]) == (1, 1, 1, 1, 2)
+
+
+@pytest.mark.cuda
+def test_router_and_fault_path_on_the_card_match_the_cpu(cuda_device):
+    """The stream router and the fault path at N=300 (``_stream_fleet.
+    stream_script``: build, route, four arrivals, the service records, a
+    rebalance after the injector's schedule, a region outage and restore,
+    one controller tick and ``sync``) on the card and on the CPU: the same
+    decisions, the balances agreeing as phase 3's N=300 pass asks, and the
+    scheduling kernels launched on the card."""
+    from _stream_fleet import script_mismatches, stream_script
+
+    ops.reset_launch_counts()
+    card = stream_script(300, cuda_device)
+    launched = dict(ops.launch_counts)
+    cpu = stream_script(300, "cpu")
+    assert script_mismatches(card, cpu) == []
+    assert card["route"]["ok"] and card["rebalance"]["ok"] and card["tick"][0]
+    assert card["rebalance"]["moved"] <= card["rebalance"]["budget"]
+    assert all(launched[k] > 0 for k in ("move_eval_best", "commit_topk", "pack_ffd_tiers",
+                                         "tier_stats"))
+    assert card["router"].cluster.problem.device == cuda_device

@@ -15,14 +15,13 @@ tick), the sharded route (``fleet_scale``, S=2) and the service pair
 and modes equal, floats within rel 1e-5, the static runs exactly, and every
 scorecard within rel 1e-5.
 
-One run splits from the reference: ``telemetry_blackout``'s degraded run at
-tick 21.  Its balance there gets the reference's inputs; the LocalSearch's
-fifth sweep finds app 88's move to tier 2 at delta -1.24e-05 in the
-reference's jitted sweep and at +2.2e-05 in the port's, as in the
-reference's own sweep run op by op (the f'^2 - f^2 cancellation of ROADMAP
-Queue 3).  Up to tick 21 the run is held as the others; from tick 21 its
-decisions (triggered, applied, mode, moved) and every scorecard but the
-movement cost that the split tick's other moves price.
+The overload pair runs once more on ``overload_flash`` at N=400 x 32 ticks,
+where the port split from the reference (the utility run at tick 17) while
+its tier means rounded as ``torch.mean`` does (``core/means.py``).
+
+No run splits from the reference.  ``telemetry_blackout``'s degraded run
+split at tick 21 while the port's tier means rounded as ``torch.mean``
+does; with the reference's order it is held in full, as the others.
 
 The netlat bank is process-wide in both packages; ``no_bank`` clears it.
 """
@@ -56,9 +55,9 @@ def no_bank():
 # entry point, scenario, the runs that are static, the split (run -> tick),
 # the scorecard paths the split decides.
 CASES = {
-    "chaos": ("run_chaos_pair", "telemetry_blackout", ("baseline",), {"degraded": 21},
-              ("compare.movement.cost",)),
+    "chaos": ("run_chaos_pair", "telemetry_blackout", ("baseline",), {}, ()),
     "overload": ("run_overload_pair", "overload_surge", (), {}, ()),
+    "overload_flash": ("run_overload_pair", "overload_flash", (), {}, ()),
     "netlat": ("run_netlat_pair", "network_degraded_slow_links", (), {}, ()),
     "netlat_jitter": ("run_netlat_pair", "network_degraded_jitter", (), {}, ()),
     "sharded": ("run_pair", "fleet_scale", ("baseline",), {}, ()),
@@ -66,16 +65,21 @@ CASES = {
 }
 
 
+# (apps, ticks) of a case; the others run at N=128 x 24.
+SIZES = {"overload_flash": (400, 32)}
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_paired_trajectories_match_reference(monkeypatch, no_bank, case):
     entry, name, static, split, may_differ = CASES[case]
+    num_apps, ticks = SIZES.get(case, (128, 24))
     ref_x = track_assignments(monkeypatch, RS.SloAccountant)
     port_x = track_assignments(monkeypatch, PS.SloAccountant)
     ref, worlds = record(monkeypatch, RH, getattr(R, entry),
-                         R.get_scenario(name, num_apps=128, ticks=24))
+                         R.get_scenario(name, num_apps=num_apps, ticks=ticks))
     ops.reset_launch_counts()
-    port = getattr(P, entry)(P.get_scenario(name, num_apps=128, ticks=24), device="cpu",
-                             workload_fn=replay(worlds))
+    port = getattr(P, entry)(P.get_scenario(name, num_apps=num_apps, ticks=ticks),
+                             device="cpu", workload_fn=replay(worlds))
     for key, value in port.items():
         if not hasattr(value, "ticks"):
             print(case, key, value)
@@ -87,8 +91,7 @@ def test_paired_trajectories_match_reference(monkeypatch, no_bank, case):
     if case == "chaos":
         chaos = port["chaos"]
         assert chaos["unsafe_moves"] == 0 and chaos["degraded_ticks"] > 0
-        ticks = port["degraded"].ticks
-        assert ticks[split["degraded"]].applied
+        assert port["degraded"].ticks[21].applied
     if case == "overload":
         assert port["overload"]["infeasible_admissions"] == 0
         assert port["overload"]["admission"]["decisions"] > 0
