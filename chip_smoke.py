@@ -188,14 +188,38 @@ Phases (each raises on failure, so the script exits non-zero):
      prefill) and ``flash_decode`` (9 a step), zeroed just before; then the
      teacher-forced check of wave 1 once more with the whole model in f32,
      which must agree within 1e-3 of the largest logit.
-  6. A ``{"kernels": [...]}`` line (the flash kernels' launches summed over
+  6. The training feeders at full-width ``smollm-360m`` (bf16, random
+     weights drawn on the card): the three compression kernels
+     (``compress_int8``, ``compress_bf16``, ``decompress_int8``) bit for bit
+     against their plain versions (NaN as NaN) on g in bf16 and f32 at the
+     shared edge cases (``kernels.compress.compress_edge_cases``: 1, 127,
+     128, 129 and 960 elements, an all-zero block, ties at .5, NaN and inf,
+     g 1e4 larger) and on the largest leaf (embed 49,152 x 960), timed there
+     beside the plain versions, the bytes bound and, for bf16,
+     ``.to(torch.bfloat16)`` alone; ``GradCompressor`` in bf16 and int8 mode,
+     three steps of error feedback over the whole gradient tree, the launch
+     counts zeroed just before each step and read just after (one compress
+     launch a leaf, one int8 decompress a leaf), every leaf held bit for bit
+     to the plain versions, ``wire_bytes`` the formula; ``CheckpointManager``
+     on a ~5 GB train state (bf16 params, f32 moments and residuals): a
+     blocking save from the card, a non-blocking save while the compressor
+     runs, a restore onto the card leaf for leaf equal, keep=3 after four
+     saves beside a torn ``.tmp`` directory, the disk's free space checked
+     first; ``Recovery`` with a one-device mesh; the token pipeline
+     (``Prefetcher`` at 64 x 2,048 and the reference launcher's 8 x 128, 32
+     steps each copied to the card pinned, steps 0-3 equal to the CPU's
+     batches; a slow consumer's stalls; a wedged one's
+     ``BackpressureError``); ``attn_batch_shard`` on one forward of B=2,
+     S=1024, bit for bit the logits without the flag with as many
+     ``flash_attention`` launches.
+  7. A ``{"kernels": [...]}`` line (the flash kernels' launches summed over
      both serving runs, the scheduling kernels' over the balance pass, the
      control loop, the service, the simulator's two pairs and the stream
      router's path, the shard-batched ones' over the measured fleet pass,
      the service and the simulator, the tier table's over every path that
-     sweeps), then the card line again, then
-     the final
-     ``{"ok": true, "device": {...}}`` line.
+     sweeps, the compression kernels' over phase 6's six compressor steps),
+     then the card line again, then the final ``{"ok": true, "device":
+     {...}}`` line.
 
 ``python3 chip_smoke.py --probe SRC`` runs only the balancing slice of the
 ``repro_torch`` package under SRC, with the rounding kernel on the main
@@ -370,6 +394,25 @@ TEACHER_F32_TOL = 1e-3
 # and cum): the reference's kernel tolerance, on its test's input draws
 # (dt uniform in [1e-3, 0.1], A in [-2, -0.5]).
 SSD_TOL = 5e-5
+# The training feeders (phase 6): smollm-360m at its published widths (the
+# reference launcher's default --arch), bf16 weights drawn on the card from
+# FEEDER_SEED; three compression steps of error feedback a mode; a
+# train-state checkpoint kept 3 deep; the token pipeline at SmolLM's 2,048
+# context (64 x 2,048 a batch) and at the reference launcher's defaults
+# (8 x 128), 32 steps each; attn_batch_shard on one forward of B=2, S=1024.
+FEEDER_ARCH = "smollm-360m"
+FEEDER_SEED = 32
+COMPRESS_STEPS = 3
+CKPT_KEEP = 3
+STREAM_CASES = ({"vocab_size": 49_152, "seq_len": 2048, "global_batch": 64,
+                 "num_partitions": 16, "prefetch": 2},
+                {"vocab_size": 49_152, "seq_len": 128, "global_batch": 8})
+STREAM_STEPS = 32
+ATTN_SHARD_SHAPE = (2, 1024)
+COMPRESS_SRC = "src/repro_torch/kernels/csrc/compress.cu"
+COMPRESS_REPLACES = {"compress_int8": "src/repro/distributed/compress.py:57",
+                     "compress_bf16": "src/repro/distributed/compress.py:53",
+                     "decompress_int8": "src/repro/distributed/compress.py:85"}
 
 
 def card_line() -> str:
@@ -3141,6 +3184,465 @@ def stream_phase(dev, record) -> dict:
     return {"times": times, "launches": launches, "profile": prof}
 
 
+def compress_work(n: int, g_bytes: int) -> dict:
+    """(bytes, f32 operations) each compression kernel needs for a leaf of
+    n elements: inputs read once, outputs written once (the int8 payload
+    padded to whole blocks of 128)."""
+    nb = -(-n // 128)
+    return {"compress_int8": (n * (g_bytes + 4) + nb * 128 + nb * 4 + n * 4, 9 * n),
+            "compress_bf16": (n * (g_bytes + 4) + n * 2 + n * 4, 3 * n),
+            "decompress_int8": (nb * 128 + nb * 4 + n * 4, n)}
+
+
+def check_compress(label, g, e, record, *, timed=False) -> dict:
+    """The three compression kernels against their plain versions on the
+    card inputs (g, e), bit for bit, NaN as NaN (the compare launches are
+    not counted); with ``timed``, each beside its plain version, its bytes
+    bound and a library call: for compress_bf16 ``.to(torch.bfloat16)`` of
+    gf alone, for decompress_int8 ``torch.mul(q, scale)`` (cut to n)."""
+    import torch
+    from repro_torch.kernels import compress as K
+    from repro_torch.kernels import ref as R
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _bits import same_bits
+
+    shape = tuple(g.shape)
+    q, scale, err = K.compress_int8_cuda(g, e)
+    runs = {"compress_int8": ((q, scale, err), R.compress_int8_ref(g, e)),
+            "compress_bf16": (K.compress_bf16_cuda(g, e), R.compress_bf16_ref(g, e)),
+            "decompress_int8": ((K.decompress_int8_cuda(q, scale, shape),),
+                                (R.decompress_int8_ref(q, scale, shape),))}
+    torch.cuda.synchronize()
+    errs = {}
+    for name, (got, want) in runs.items():
+        errs[name] = 0.0
+        for a, b in zip(got, want):
+            same, diff = same_bits(a, b)
+            errs[name] = max(errs[name], diff)
+            if not same:
+                raise AssertionError(f"{name} {label}: not bit for bit its plain version "
+                                     f"(max abs err {diff:.3e})")
+        record[name]["max_abs_err"] = max(record[name]["max_abs_err"], errs[name])
+    nan = int(torch.isnan(err).sum())
+    print(f"compress       {label:>24}: n={g.numel()} {str(g.dtype)[6:]}, all three kernels bit "
+          f"for bit their plain versions (NaN residuals {nan}), max abs err "
+          f"{max(errs.values()):.1e}", flush=True)
+    if not timed:
+        return {}
+    gf = g.float() + e
+    n = g.numel()
+
+    def mul():                      # the whole function in one library launch
+        return torch.mul(q, scale).view(-1)[:n].view(shape)
+
+    same, _ = same_bits(mul(), K.decompress_int8_cuda(q, scale, shape))
+    fns = {"compress_int8": (lambda: K.compress_int8_cuda(g, e),
+                             lambda: R.compress_int8_ref(g, e), None),
+           "compress_bf16": (lambda: K.compress_bf16_cuda(g, e),
+                             lambda: R.compress_bf16_ref(g, e),
+                             (lambda: gf.to(torch.bfloat16),
+                              ".to(bfloat16) of gf alone (the payload only)")),
+           "decompress_int8": (lambda: K.decompress_int8_cuda(q, scale, shape),
+                               lambda: R.decompress_int8_ref(q, scale, shape),
+                               (mul, f"torch.mul(q, scale) (bit for bit the kernel: {same})"))}
+    times = {}
+    for name, (kern, plain, library) in fns.items():
+        nbytes, nops = compress_work(n, g.element_size())[name]
+        b_ms, by = bound_ms(nbytes, nops)
+        t = {"ms": time_ms(kern), "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": by,
+             "library_ms": time_ms(library[0]) if library is not None else None,
+             "bytes": nbytes}
+        times[name] = t
+        lib = (f", {library[1]} {t['library_ms']:.4f} ms ({t['ms'] / t['library_ms']:.3f}x "
+               "its time)" if library is not None else "")
+        print(f"  {name} {label}: {t['ms']:.4f} ms a launch ({nbytes / t['ms'] / 1e6:.1f} GB/s), "
+              f"bound {b_ms:.4f} ms ({by}, {b_ms / t['ms']:.3f} of it), plain "
+              f"{t['plain_ms']:.4f} ms{lib}", flush=True)
+    return times
+
+
+def compress_steps(comp, params, draw, dev) -> dict:
+    """``COMPRESS_STEPS`` steps of ``comp`` over a gradient tree shaped as
+    ``params`` (a fresh draw a step) with error feedback: each step's
+    compress and decompress timed (host clock after a sync) with the
+    launch counts zeroed just before and read just after; then every leaf's
+    payload, residual and decompressed value held bit for bit to the plain
+    versions on the same inputs (not counted)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as R
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _bits import same_bits
+
+    mode, leaves = comp.mode, len(params)
+    kernel = "compress_int8" if mode == "int8" else "compress_bf16"
+    grads = draw()
+    state = comp.init_state(grads)
+    n = sum(p.numel() for p in params.values())
+    formula = {"bf16": 2 * n, "int8": n + 4 * (n // 128 + 1)}[mode]
+    if comp.wire_bytes(grads) != formula:
+        raise AssertionError(f"{mode} wire_bytes {comp.wire_bytes(grads)} != {formula}")
+    nbytes = sum(compress_work(p.numel(), 2)[kernel][0] for p in params.values())
+    dbytes = sum(compress_work(p.numel(), 2)["decompress_int8"][0] for p in params.values())
+    launches = {"compress_int8": 0, "compress_bf16": 0, "decompress_int8": 0}
+    steps = []
+    for step in range(COMPRESS_STEPS):
+        if step:
+            grads = draw()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        payload, new_state = comp.compress(grads, state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dec = comp.decompress(payload)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = {k: ops.launch_counts[k] for k in launches}
+        want = {kernel: leaves, "decompress_int8": leaves if mode == "int8" else 0}
+        for k, v in counts.items():
+            if v != want.get(k, 0):
+                raise AssertionError(f"{mode} step {step}: {k} launched {v} times, expected "
+                                     f"{want.get(k, 0)} (one a leaf)")
+            launches[k] += v
+        for k, g in grads.items():
+            if mode == "int8":
+                q, scale, err = R.compress_int8_ref(g, state[k])
+                pairs = ((payload[k]["q"], q), (payload[k]["scale"], scale),
+                         (new_state[k], err),
+                         (dec[k], R.decompress_int8_ref(q, scale, tuple(g.shape))))
+            else:
+                c, err = R.compress_bf16_ref(g, state[k])
+                pairs = ((payload[k], c), (new_state[k], err), (dec[k], c.float()))
+            for a, b in pairs:
+                if not same_bits(a, b)[0]:
+                    raise AssertionError(f"{mode} step {step} leaf {k}: the card's compression "
+                                         "is not bit for bit the plain version's")
+        state = new_state
+        steps.append({"compress_s": t1 - t0, "decompress_s": t2 - t1})
+    for i, st in enumerate(steps):
+        print(f"  GradCompressor({mode!r}) step {i}: compress {st['compress_s'] * 1e3:.3f} ms "
+              f"({nbytes / st['compress_s'] / 1e9:.1f} GB/s over {nbytes / 1e9:.3f} GB), "
+              f"decompress {st['decompress_s'] * 1e3:.3f} ms"
+              + (f" ({dbytes / st['decompress_s'] / 1e9:.1f} GB/s)" if mode == "int8" else
+                 " (a dtype cast a leaf)"), flush=True)
+    print(f"  GradCompressor({mode!r}): {COMPRESS_STEPS} steps x {leaves} leaves, every leaf's "
+          f"payload, residual and decompressed value bit for bit the plain versions', "
+          f"wire_bytes {comp.wire_bytes(grads)} (the formula), launches {launches}", flush=True)
+    return {"steps": steps, "launches": launches, "state": state, "bytes": nbytes}
+
+
+def tree_nbytes(tree) -> int:
+    from repro_torch.distributed import tree as PT
+
+    return sum(x.numel() * x.element_size() for x in PT.leaves(tree))
+
+
+def assert_trees_equal(got, want, label: str) -> None:
+    import torch
+    from repro_torch.distributed import tree as PT
+
+    gl, wl = PT.leaves(got), PT.leaves(want)
+    if len(gl) != len(wl):
+        raise AssertionError(f"{label}: {len(gl)} leaves, expected {len(wl)}")
+    for a, b in zip(gl, wl):
+        if not (a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)):
+            raise AssertionError(f"{label}: a leaf differs ({a.dtype} {a.device} against "
+                                 f"{b.dtype} {b.device})")
+
+
+def checkpoint_run(train_state, comp_state, draw, dev) -> dict:
+    """6c and 6e: a blocking save from the card, a save with blocking=False
+    while the int8 compressor runs, a restore onto the card, two more saves
+    (keep=3 leaves three) beside a torn .tmp directory, then ``Recovery``
+    with a one-device mesh; in a temporary directory that is removed."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from repro_torch.distributed import CheckpointManager, GradCompressor, Recovery
+    from repro_torch.distributed.sharding import Mesh
+
+    total = tree_nbytes(train_state)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    out = {"bytes": total}
+    try:
+        free = shutil.disk_usage(root).free
+        need = (CKPT_KEEP + 1) * total
+        print(f"checkpoint: {root}, {free / 1e9:.2f} GB free; the train state {total / 1e9:.3f} "
+              f"GB in {len(train_state['params'])} + {2 * len(train_state['opt']['m'])} + "
+              f"{len(train_state['compress_err'])} + 2 leaves; {CKPT_KEEP} kept + 1 being "
+              f"written need {need / 1e9:.2f} GB", flush=True)
+        if free < need:
+            raise AssertionError(f"the temporary directory has {free / 1e9:.2f} GB free, the "
+                                 f"checkpoints need {need / 1e9:.2f} GB")
+        mgr = CheckpointManager(root, keep=CKPT_KEEP)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mgr.save(1, train_state)
+        out["save_s"] = time.perf_counter() - t
+        grads = draw()
+        comp = GradCompressor("int8")
+        state = comp_state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(2, train_state, blocking=False)
+        out["async_held_s"] = time.perf_counter() - t0
+        t = time.perf_counter()
+        for _ in range(COMPRESS_STEPS):
+            _, state = comp.compress(grads, state)
+        torch.cuda.synchronize()
+        out["async_compress_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        mgr.wait()
+        out["async_wait_s"] = time.perf_counter() - t
+        out["async_total_s"] = time.perf_counter() - t0
+        del grads, state
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        restored, step = mgr.restore(train_state)
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t
+        if step != 2:
+            raise AssertionError(f"restored step {step}, expected 2")
+        assert_trees_equal(restored, train_state, "restore")
+        del restored
+        t = time.perf_counter()
+        for s in (3, 4):
+            mgr.save(s, train_state)
+        out["save_3_4_s"] = time.perf_counter() - t
+        torn = Path(root) / "step_00000005.tmp"
+        torn.mkdir()
+        (torn / "shard_00000.msgpack").write_bytes(b"\x81")
+        kept = mgr.all_steps()
+        on_disk = sorted(p.name for p in Path(root).iterdir())
+        if kept != [2, 3, 4] or mgr.latest_step() != 4:
+            raise AssertionError(f"keep={CKPT_KEEP} after 4 saves left {kept} ({on_disk})")
+        mesh = Mesh(np.array([[dev]], dtype=object), ("data", "model"))
+        seen = []
+        rec = Recovery(mgr, rebuild_mesh=lambda: mesh, on_rebalance=seen.append)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state_r, step_r, mesh_r = rec.recover(train_state)
+        torch.cuda.synchronize()
+        out["recover_s"] = time.perf_counter() - t
+        if not (step_r == 4 and mesh_r is mesh and seen == [mesh]):
+            raise AssertionError(f"Recovery gave step {step_r}, mesh {mesh_r}, on_rebalance saw "
+                                 f"{seen}")
+        assert_trees_equal(state_r, train_state, "Recovery")
+        del state_r
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gb = total / 1e9
+    print(f"checkpoint: blocking save {out['save_s']:.4f} s ({gb / out['save_s']:.3f} GB/s); "
+          f"async save held the caller {out['async_held_s']:.4f} s, {COMPRESS_STEPS} int8 "
+          f"compress steps meanwhile {out['async_compress_s']:.4f} s, wait "
+          f"{out['async_wait_s']:.4f} s ({out['async_total_s']:.4f} s from save to the end of "
+          f"wait); restore onto the card {out['restore_s']:.4f} s ({gb / out['restore_s']:.3f} "
+          f"GB/s), leaf for leaf equal; saves 3 and 4 {out['save_3_4_s']:.4f} s; keep="
+          f"{CKPT_KEEP} left steps {kept} beside {torn.name} ({on_disk}); Recovery restored step "
+          f"{step_r} in {out['recover_s']:.4f} s, leaf for leaf equal, on_rebalance saw the "
+          f"one-device mesh {mesh.shape}", flush=True)
+    return out
+
+
+def batch_digest(batches) -> str:
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for b in batches:
+        for k in ("tokens", "targets"):
+            h.update(np.ascontiguousarray(b[k]).tobytes())
+    return h.hexdigest()[:16]
+
+
+def stream_run(case: dict, dev) -> dict:
+    """6d: a ``Prefetcher`` over ``StreamConfig(**case)`` for STREAM_STEPS
+    steps, each batch copied to the card (pinned, non-blocking); the
+    digest of steps 0-3 as they came back from the card against the same
+    batches made on the CPU in this run."""
+    import numpy as np
+    import torch
+    from repro_torch.streams import Prefetcher, StreamConfig, TokenStream
+
+    cfg = StreamConfig(**case)
+    pf = Prefetcher(TokenStream(cfg))
+    waits, copies, back = [], [], []
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(STREAM_STEPS):
+            t = time.perf_counter()
+            batch = next(pf)
+            waits.append(time.perf_counter() - t)
+            if batch["_step"] != i:
+                raise AssertionError(f"the prefetcher gave step {batch['_step']} at {i}")
+            host = [torch.from_numpy(np.ascontiguousarray(batch[k])).pin_memory()
+                    for k in ("tokens", "targets")]
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            on_card = [h.to(dev, non_blocking=True) for h in host]
+            end.record()
+            end.synchronize()
+            copies.append(start.elapsed_time(end))
+            if i < 4:
+                back.append({k: v.cpu().numpy() for k, v in zip(("tokens", "targets"), on_card)})
+        wall = time.perf_counter() - t0
+    finally:
+        pf.close()
+    stream = TokenStream(cfg)
+    cpu = batch_digest(stream.batch(i) for i in range(4))
+    card = batch_digest(back)
+    if card != cpu:
+        raise AssertionError(f"steps 0-3 from the card {card} != the CPU's {cpu}")
+    tokens = cfg.global_batch * cfg.seq_len
+    out = {"batches_per_s": pf.stats.produced / wall, "tokens_per_s": STREAM_STEPS * tokens / wall,
+           "copy_ms": float(np.median(copies)), "wait_ms": float(np.median(waits)) * 1e3,
+           "wait_max_ms": max(waits) * 1e3, "wall_s": wall, "digest": card}
+    print(f"stream {cfg.global_batch} x {cfg.seq_len} (vocab {cfg.vocab_size}, "
+          f"{cfg.num_partitions} partitions, prefetch {cfg.prefetch}): {STREAM_STEPS} steps in "
+          f"{wall:.4f} s, produced {pf.stats.produced} ({out['batches_per_s']:.2f} batches/s), "
+          f"{out['tokens_per_s']:.0f} tokens/s, host-to-card copy {out['copy_ms']:.4f} ms a "
+          f"batch (median), consumer wait {out['wait_ms']:.4f} ms a batch (median; max "
+          f"{out['wait_max_ms']:.4f}), stalls {pf.stats.stalls}, dropped {pf.stats.dropped}; "
+          f"steps 0-3 digest {card}, the CPU's the same", flush=True)
+    return out
+
+
+def stream_backpressure() -> dict:
+    """6d: a slow consumer (the producer stalls, keeps its batch, skips and
+    repeats nothing) and a wedged one (``BackpressureError``)."""
+    from repro_torch.streams import BackpressureError, Prefetcher, StreamConfig, TokenStream
+
+    base = dict(STREAM_CASES[1], prefetch=1)
+    pf = Prefetcher(TokenStream(StreamConfig(**base, stall_timeout_s=0.02, max_stalls=10_000)))
+    try:
+        steps = []
+        for _ in range(5):
+            time.sleep(0.1)
+            steps.append(next(pf)["_step"])
+    finally:
+        pf.close()
+    slow = pf.stats
+    if steps != [0, 1, 2, 3, 4] or slow.stalls < 3 or slow.dropped != slow.produced - 5:
+        raise AssertionError(f"slow consumer: steps {steps}, stats {slow}")
+    pf = Prefetcher(TokenStream(StreamConfig(**base, stall_timeout_s=0.01, max_stalls=3)))
+    try:
+        deadline = time.monotonic() + 10.0
+        while pf._error is None and time.monotonic() < deadline:
+            time.sleep(0.01)
+        try:
+            next(pf)
+        except BackpressureError as e:
+            raised = str(e)
+        else:
+            raise AssertionError("a wedged consumer got no BackpressureError")
+    finally:
+        pf.close()
+    print(f"stream backpressure: a consumer 0.1 s a batch took steps {steps} with {slow.stalls} "
+          f"stalls (longest run {slow.max_stall_run}), {slow.dropped} dropped at close; a wedged "
+          f"one raised BackpressureError({raised!r})", flush=True)
+    return {"slow": slow, "wedged": raised}
+
+
+def feeders_phase(dev, record) -> dict:
+    """Phase 6: the training feeders at smollm-360m's full width."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import GradCompressor
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.compress import compress_edge_cases
+    from repro_torch.models import build_model
+
+    cfg = get_config(FEEDER_ARCH)
+    t = time.perf_counter()
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(FEEDER_SEED))
+    torch.cuda.synchronize()
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    n_params = sum(p.numel() for p in params.values())
+    print(f"feeders: {FEEDER_ARCH} at its published widths in {time.perf_counter() - t:.2f} s, "
+          f"{len(params)} parameter leaves, {n_params} elements, dtypes "
+          f"{sorted({str(p.dtype) for p in params.values()})}", flush=True)
+    if params["embed"].dtype != torch.bfloat16:
+        raise AssertionError(f"{FEEDER_ARCH}'s weights are not bf16")
+    gen = torch.Generator(device=dev).manual_seed(FEEDER_SEED + 1)
+
+    def draw():
+        return {k: (torch.randn(p.shape, generator=gen, device=dev) * 1e-2).to(torch.bfloat16)
+                for k, p in params.items()}
+
+    # -- 6a. the compression kernels against their plain versions ---------------
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, (g, e) in sorted(compress_edge_cases(FEEDER_SEED).items()):
+            check_compress(name, torch.as_tensor(g, device=dev).to(dtype),
+                           torch.as_tensor(e, device=dev), record)
+    embed = params["embed"]
+    g_embed = (torch.randn(embed.shape, generator=gen, device=dev) * 1e-2).to(torch.bfloat16)
+    e_embed = torch.randn(embed.shape, generator=gen, device=dev) * 1e-5
+    times = check_compress(f"embed {tuple(embed.shape)}", g_embed, e_embed, record, timed=True)
+    check_compress(f"embed {tuple(embed.shape)}", g_embed.float(), e_embed, record)
+    del g_embed, e_embed
+
+    # -- 6b. GradCompressor over the whole gradient tree ------------------------
+    runs = {mode: compress_steps(GradCompressor(mode), params, draw, dev)
+            for mode in ("bf16", "int8")}
+    launches = {k: runs["bf16"]["launches"][k] + runs["int8"]["launches"][k]
+                for k in runs["int8"]["launches"]}
+
+    # -- 6c. CheckpointManager, 6e. Recovery --------------------------------------
+    train_state = {
+        "params": params,
+        "opt": {"count": torch.tensor(COMPRESS_STEPS, dtype=torch.int32, device=dev),
+                "m": {k: torch.randn(p.shape, generator=gen, device=dev) * 1e-3
+                      for k, p in params.items()},
+                "v": {k: torch.rand(p.shape, generator=gen, device=dev) * 1e-6
+                      for k, p in params.items()}},
+        "step": torch.tensor(COMPRESS_STEPS, dtype=torch.int32, device=dev),
+        "compress_err": runs["int8"]["state"]}
+    ckpt = checkpoint_run(train_state, runs["int8"]["state"], draw, dev)
+    del train_state
+    torch.cuda.empty_cache()
+
+    # -- 6d. the token pipeline -----------------------------------------------------
+    streams = [stream_run(case, dev) for case in STREAM_CASES]
+    backpressure = stream_backpressure()
+
+    # -- 6f. attn_batch_shard on one card -------------------------------------------
+    flagged = build_model(dataclasses.replace(cfg, attn_batch_shard=True), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(FEEDER_SEED))
+    for (k, a), b in zip(model.named_parameters(), flagged.parameters()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"the flagged model drew other weights ({k})")
+    B, S = ATTN_SHARD_SHAPE
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+    logits, flash = [], []
+    for m in (model, flagged):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            logits.append(m.forward_train({"tokens": toks})[0])
+        torch.cuda.synchronize()
+        flash.append(ops.launch_counts["flash_attention"])
+    if not (torch.equal(logits[0], logits[1]) and flash[0] == flash[1] == cfg.num_layers):
+        raise AssertionError(f"attn_batch_shard: logits equal {torch.equal(*logits)}, "
+                             f"flash_attention launches {flash}")
+    print(f"attn_batch_shard on one card: forward_train B={B}, S={S}: logits "
+          f"{tuple(logits[0].shape)} bit for bit those without the flag, finite "
+          f"{bool(torch.isfinite(logits[0]).all())}, flash_attention launched {flash[1]} times "
+          f"(without the flag {flash[0]})", flush=True)
+    return {"times": times, "launches": launches, "runs": runs, "checkpoint": ckpt,
+            "streams": streams, "backpressure": backpressure}
+
+
 def host_gumbel(sweep: int, size: int, device):
     """Gumbel noise drawn on the host with numpy (one seed a sweep), for the
     sampled solve's ``gumbel_fn``."""
@@ -3316,7 +3818,10 @@ def main() -> int:
               "move_eval_best_batched": {"max_abs_err": 0.0},
               "commit_topk_batched": {"max_abs_err": 0.0},
               "tier_stats": {"max_abs_err": 0.0},
-              "tier_mean": {"max_abs_err": 0.0}}
+              "tier_mean": {"max_abs_err": 0.0},
+              "compress_int8": {"max_abs_err": 0.0},
+              "compress_bf16": {"max_abs_err": 0.0},
+              "decompress_int8": {"max_abs_err": 0.0}}
 
     # -- 2a. sweep kernels at the stated shapes --------------------------------
     for N, T in ((300, 5), (500, 17), (100_000, 5), (100_000, 128)):
@@ -3596,7 +4101,11 @@ def main() -> int:
     flash_launches = {name: serving["launches"][name] + hybrid["launches"][name]
                       for name in ("flash_attention", "flash_decode")}
 
-    # -- 6. result lines --------------------------------------------------------
+    # -- 6. the training feeders: smollm-360m at full width -----------------------
+    torch.cuda.empty_cache()
+    feeders = feeders_phase(dev, record)
+
+    # -- 7. result lines --------------------------------------------------------
     kernels = [
         {"name": "move_eval_best", "route": "cuda", "source": MOVE_EVAL_SRC,
          "replaces": "src/repro/kernels/move_eval.py:275",
@@ -3717,6 +4226,15 @@ def main() -> int:
             "max_abs_err": record[name]["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms")})
+    for name, replaces in COMPRESS_REPLACES.items():
+        t = feeders["times"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": COMPRESS_SRC,
+            "replaces": replaces,
+            "launches": feeders["launches"][name],
+            "max_abs_err": record[name]["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

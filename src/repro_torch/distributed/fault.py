@@ -1,8 +1,7 @@
 """Fault tolerance & elasticity — where the framework meets the paper.
 
-The PyTorch port of ``repro.distributed.fault`` (the capacity-event half;
-``Recovery``, the checkpoint-restart path, needs the checkpoint manager and
-is ROADMAP Queue 1 item 7b).
+The PyTorch port of ``repro.distributed.fault``: the capacity events and
+``Recovery``, the checkpoint-restart path.
 
 The cluster is organized exactly like the paper's tiers: pod slices with
 capacity headroom in three dimensions (compute FLOP/s, HBM bytes, stream-task
@@ -30,7 +29,7 @@ its sweeps, commits and host packing are the port's CUDA kernels.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -153,3 +152,22 @@ def rebalance(cluster: ClusterState, *events,
     new_problem = degraded.problem.with_assignment0(decision.assignment.clone())
     rebalanced = dataclasses.replace(degraded, problem=new_problem)
     return rebalanced, decision
+
+
+@dataclasses.dataclass
+class Recovery:
+    """Checkpoint-restart path used by launch/train.py."""
+
+    ckpt_manager: object                  # distributed.checkpoint.CheckpointManager
+    rebuild_mesh: Callable[[], object]    # () -> sharding.Mesh over surviving devices
+    on_rebalance: Optional[Callable] = None
+
+    def recover(self, template_state):
+        """-> (state, step, mesh): restore the latest complete checkpoint
+        into ``template_state``'s structure, devices and dtypes, rebuild the
+        mesh and hand it to ``on_rebalance``."""
+        state, step = self.ckpt_manager.restore(template_state)
+        mesh = self.rebuild_mesh()
+        if self.on_rebalance is not None:
+            self.on_rebalance(mesh)
+        return state, step, mesh

@@ -28,16 +28,18 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# Per-source extra flags: the move_eval, commit and optimal_round kernels
-# round every operation on its own (no fused multiply-add), as the plain
-# torch version's ops do.
+# Per-source extra flags: the move_eval, commit, optimal_round and compress
+# kernels round every operation on its own (no fused multiply-add), as the
+# plain torch version's ops do.
 EXTRA_FLAGS = {"move_eval": ["-fmad=false"], "commit": ["-fmad=false"],
                "optimal_round": ["-fmad=false"], "pack": [],
-               "flash_attention": [], "flash_decode": [], "ssd_chunk": []}
+               "flash_attention": [], "flash_decode": [], "ssd_chunk": [],
+               "compress": ["-fmad=false"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 SIGNATURES = {
     "move_eval": {
         "move_eval_best_launch": [_I, _I, _I] + [_P] * 22,
@@ -67,6 +69,11 @@ SIGNATURES = {
     },
     "ssd_chunk": {
         "ssd_chunk_launch": [_I] * 7 + [_P] * 9,
+    },
+    "compress": {
+        "compress_int8_launch": [_I, _L, _P, _P, _F, _I, _P, _P, _P, _P],
+        "compress_bf16_launch": [_I, _L, _P, _P, _I, _P, _P, _P],
+        "decompress_int8_launch": [_L, _P, _P, _I, _P, _P],
     },
 }
 

@@ -18,7 +18,7 @@ from repro_torch.kernels import ref as _ref
 launch_counts = {"move_eval": 0, "move_eval_best": 0, "commit_topk": 0, "pack_ffd_tiers": 0,
                  "optimal_round": 0, "flash_attention": 0, "flash_decode": 0, "ssd_chunk": 0,
                  "move_eval_best_batched": 0, "commit_topk_batched": 0, "tier_stats": 0,
-                 "tier_mean": 0}
+                 "tier_mean": 0, "compress_int8": 0, "compress_bf16": 0, "decompress_int8": 0}
 
 
 def reset_launch_counts() -> None:
@@ -177,3 +177,40 @@ def ssd_chunk(x, dt, A, Bm, Cm):
         launch_counts["ssd_chunk"] += 1
         return out
     return _ref.ssd_chunk_ref(x, dt, A, Bm, Cm)
+
+
+def compress_int8(g, e):
+    """int8 block quantization of a leaf with error feedback -> (q i8[nb,
+    128], scale f32[nb, 1], residual f32 shaped as g); see
+    kernels.ref.compress_int8_ref."""
+    if g.is_cuda:
+        from repro_torch.kernels.compress import compress_int8_cuda
+        out = compress_int8_cuda(g, e)
+        if g.numel():
+            launch_counts["compress_int8"] += 1
+        return out
+    return _ref.compress_int8_ref(g, e)
+
+
+def compress_bf16(g, e):
+    """bf16 rounding of a leaf with error feedback -> (bf16 payload, residual
+    f32); see kernels.ref.compress_bf16_ref."""
+    if g.is_cuda:
+        from repro_torch.kernels.compress import compress_bf16_cuda
+        out = compress_bf16_cuda(g, e)
+        if g.numel():
+            launch_counts["compress_bf16"] += 1
+        return out
+    return _ref.compress_bf16_ref(g, e)
+
+
+def decompress_int8(q, scale, shape):
+    """f32(q) * scale cut to the leaf's ``shape``; see
+    kernels.ref.decompress_int8_ref."""
+    if q.is_cuda:
+        from repro_torch.kernels.compress import decompress_int8_cuda
+        out = decompress_int8_cuda(q, scale, shape)
+        if out.numel():
+            launch_counts["decompress_int8"] += 1
+        return out
+    return _ref.decompress_int8_ref(q, scale, shape)

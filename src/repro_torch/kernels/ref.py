@@ -6,6 +6,7 @@ tensors are on a card.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -315,3 +316,50 @@ def random_shard_batch(S: int, N: int, T: int, seed: int = 0, device="cpu"):
     totals = torch.stack([torch.stack([a[1].sum().clamp(min=1.0), a[2].sum().clamp(min=1.0)])
                           for a in shards])
     return args, totals
+
+
+# ---------------------------------------------------------------------------
+# gradient compression (distributed.compress): blocks of 128, error feedback
+# ---------------------------------------------------------------------------
+
+COMPRESS_BLOCK = 128
+SCALE_FLOOR = 1e-12          # the least int8 scale (an all-zero block's)
+
+
+def _f32(value: float, device) -> torch.Tensor:
+    """A 0-d f32 tensor on ``device``: dividing by it is an IEEE division on
+    a card too, where dividing by a Python number multiplies by its
+    reciprocal."""
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
+def compress_int8_ref(g: torch.Tensor, e: torch.Tensor):
+    """-> (q i8[nb, 128], scale f32[nb, 1], residual f32 shaped as g) for a
+    leaf g and its f32 error feedback e, nb = ceil(numel / 128): gf = f32(g)
+    + e flattened and zero-padded to whole blocks, scale = max(max|block| /
+    127, 1e-12), q = clamp(round(gf / scale), -127, 127) (NaN -> 0), the
+    residual gf - f32(q) * scale (``src/repro/distributed/compress.py:57-66``)."""
+    gf = g.float() + e
+    flat = gf.reshape(-1)
+    n = flat.numel()
+    fp = torch.nn.functional.pad(flat, (0, (-n) % COMPRESS_BLOCK)).reshape(-1, COMPRESS_BLOCK)
+    scale = (fp.abs().amax(dim=1, keepdim=True) / _f32(127.0, g.device)).clamp_min(SCALE_FLOOR)
+    qf = torch.clamp(torch.round(fp / scale), -127, 127)
+    q = torch.where(torch.isnan(qf), torch.zeros_like(qf), qf).to(torch.int8)
+    deq = (q.float() * scale).reshape(-1)[:n].reshape(gf.shape)
+    return q, scale, gf - deq
+
+
+def compress_bf16_ref(g: torch.Tensor, e: torch.Tensor):
+    """-> (bf16 payload shaped as g, residual f32): gf = f32(g) + e rounded to
+    bf16 (nearest even), and gf - f32(payload)."""
+    gf = g.float() + e
+    c = gf.to(torch.bfloat16)
+    return c, gf - c.float()
+
+
+def decompress_int8_ref(q: torch.Tensor, scale: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """f32(q) * scale over the padded blocks, cut to the leaf's elements and
+    shaped as it."""
+    n = math.prod(shape)
+    return (q.float() * scale).reshape(-1)[:n].reshape(shape)

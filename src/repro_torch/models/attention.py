@@ -18,9 +18,12 @@ The cache is this layer's {"k", "v"}, each [B, Smax, KV, D] (the
 reference's layout), updated in place: the port does not copy a 36-layer
 cache every step as the functional reference does.
 
-MLA, a sliding window with a cache (``ring_cache``) and
-``attn_batch_shard`` raise ``NotImplementedError`` naming their ROADMAP
-items: they have no path on the card yet.
+``attn_batch_shard`` runs the cache-free attention between the
+reference's two activation constraints (``distributed.sharding.constrain``:
+x over ("dpm", None, None), y over ("dp", None, None)); on one card both are
+identities, so the flag changes nothing there.  MLA and a sliding window
+with a cache (``ring_cache``) raise ``NotImplementedError`` naming their
+ROADMAP items: they have no path on the card yet.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -37,9 +41,6 @@ def check_supported(cfg) -> None:
     """Raise for the attention variants the port has not ported yet."""
     if cfg.mla:
         raise NotImplementedError("MLA attention is not ported yet: ROADMAP.md Queue 1 item 8c")
-    if cfg.attn_batch_shard:
-        raise NotImplementedError("attn_batch_shard is not ported yet (sharded serving): "
-                                  "ROADMAP.md Queue 1 item 7")
     if cfg.ring_cache:
         raise NotImplementedError("ring_cache is not ported yet: ROADMAP.md Queue 1 item 8a")
 
@@ -85,6 +86,9 @@ class GQAttention(nn.Module):
         cfg = self.cfg
         B, S, _ = x.shape
         D = cfg.resolved_head_dim
+        batch_shard = cfg.attn_batch_shard and cache is None
+        if batch_shard:
+            x = constrain(x, ("dpm", None, None))
         q = L.linear(x, self.wq, self.bq).reshape(B, S, cfg.num_heads, D)
         k = L.linear(x, self.wk, self.bk).reshape(B, S, cfg.num_kv_heads, D)
         v = L.linear(x, self.wv, self.bv).reshape(B, S, cfg.num_kv_heads, D)
@@ -109,7 +113,8 @@ class GQAttention(nn.Module):
             cv.index_copy_(1, cache_pos, v)
             out = ops.flash_decode(q, ck, cv, kv_len, softcap=cfg.attn_softcap,
                                    scale=cfg.query_scale)
-        return L.linear(out.reshape(B, S, cfg.num_heads * D), self.wo)
+        y = L.linear(out.reshape(B, S, cfg.num_heads * D), self.wo)
+        return constrain(y, ("dp", None, None)) if batch_shard else y
 
 
 def gqa_cache_shape(cfg, batch: int, max_seq: int) -> dict:

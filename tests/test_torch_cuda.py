@@ -26,6 +26,8 @@ with the CPU's actions and routes, and the controller's sharded route equal
 to ``balance_fleet`` on the card.  The SSD chunk kernel within the reference's 5e-5 (f32
 operands, 3xTF32 tensor-core products), also with x drawn 30 times larger.  A reduced-config serve on the card gives the CPU plain path's
 tokens, and a reduced Zamba2 on the card gives the CPU's logits and caches.
+The gradient compression kernels bit for bit equal to their plain versions
+(NaN compared as NaN), and ``GradCompressor`` on the card to the CPU's.
 """
 import dataclasses
 
@@ -38,14 +40,17 @@ from repro_torch.core.delta import move_best_per_app, move_delta_cost
 from repro_torch.core.means import tier_mean
 from repro_torch.kernels import ops
 from repro_torch.kernels import optimal_round as K_round
+from repro_torch.kernels.compress import compress_edge_cases
 from repro_torch.kernels.optimal_round import ROUND_KINDS, round_case, round_edge_cases
 from repro_torch.kernels.pack import pack_edge_cases, pack_ffd, pack_ffd_tiers
 from repro_torch.kernels.ref import (commit_topk_batched_ref, commit_topk_ref,
-                                    flash_attention_ref, flash_decode_ref,
+                                    compress_bf16_ref, compress_int8_ref,
+                                    decompress_int8_ref, flash_attention_ref, flash_decode_ref,
                                     move_eval_best_batched_ref, optimal_round_ref,
                                     pack_ffd_tiers_ref, random_problem_arrays,
                                     random_shard_batch, ssd_chunk_ref, tier_stats_ref)
 
+from _bits import same_bits
 from _torch_port import (SERVICE_APPS, SERVICE_COOLDOWN, SERVICE_SEED,  # noqa: F401
                          SERVICE_TICKS, SERVICE_TIMEOUT_S, SHED_TARGET, assert_rel, cuda_device,
                          host, overload_demand, run_control, service_events)
@@ -1254,3 +1259,80 @@ def test_router_and_fault_path_on_the_card_match_the_cpu(cuda_device):
     assert all(launched[k] > 0 for k in ("move_eval_best", "commit_topk", "pack_ffd_tiers",
                                          "tier_stats"))
     assert card["router"].cluster.problem.device == cuda_device
+
+
+# ---------------------------------------------------------------------------
+# gradient compression (csrc/compress.cu)
+# ---------------------------------------------------------------------------
+
+def assert_same_bits(got: torch.Tensor, want: torch.Tensor) -> None:
+    """Equal dtype, shape and bits; NaN compared as NaN."""
+    assert same_bits(got.cpu(), want.cpu())[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", sorted(compress_edge_cases()))
+def test_compress_kernels_match_plain_versions(cuda_device, case, dtype):
+    """compress_int8, compress_bf16 and decompress_int8 bit for bit against
+    their plain versions on the same card inputs, one launch each."""
+    g_np, e_np = compress_edge_cases()[case]
+    g = torch.as_tensor(g_np, device=cuda_device).to(dtype)
+    e = torch.as_tensor(e_np, device=cuda_device)
+    ops.reset_launch_counts()
+    q, scale, err = ops.compress_int8(g, e)
+    q_p, scale_p, err_p = compress_int8_ref(g, e)
+    for a, b in ((q, q_p), (scale, scale_p), (err, err_p)):
+        assert_same_bits(a, b)
+    assert_same_bits(ops.decompress_int8(q, scale, tuple(g.shape)),
+                     decompress_int8_ref(q_p, scale_p, tuple(g.shape)))
+    c, err16 = ops.compress_bf16(g, e)
+    c_p, err16_p = compress_bf16_ref(g, e)
+    assert_same_bits(c, c_p)
+    assert_same_bits(err16, err16_p)
+    assert (ops.launch_counts["compress_int8"], ops.launch_counts["decompress_int8"],
+            ops.launch_counts["compress_bf16"]) == (1, 1, 1)
+
+
+@pytest.mark.cuda
+def test_compress_kernels_take_unaligned_and_strided_leaves(cuda_device):
+    """A leaf whose data starts off a 16-byte boundary (the per-element
+    path) and a transposed leaf (made contiguous), bit for bit."""
+    base = torch.randn(3 * 1000 + 1, device=cuda_device,
+                       generator=torch.Generator(device=cuda_device).manual_seed(3))
+    for g in (base[1:], base[:3000].reshape(30, 100).t()):
+        e = torch.full(g.shape, 1e-3, device=cuda_device)
+        for got, want in zip(ops.compress_int8(g, e), compress_int8_ref(g, e)):
+            assert_same_bits(got, want)
+        for got, want in zip(ops.compress_bf16(g, e), compress_bf16_ref(g, e)):
+            assert_same_bits(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_grad_compressor_on_the_card_equals_the_cpu(cuda_device, mode):
+    """Three steps of error feedback over a small bf16 tree on the card and
+    on the CPU's plain path: payloads, residuals and decompressed values
+    bit for bit (IEEE divisions on both), one compress launch a leaf a
+    step."""
+    from repro_torch.distributed.compress import GradCompressor
+    from repro_torch.distributed import tree as PT
+
+    rng = np.random.default_rng(7)
+    comp = GradCompressor(mode)
+    trees = [{"a": [torch.as_tensor(rng.standard_normal(n).astype(np.float32)).to(torch.bfloat16)
+                    for n in (1, 127, 129)], "b": torch.as_tensor(
+        rng.standard_normal((8, 960)).astype(np.float32)).to(torch.bfloat16)} for _ in range(3)]
+    state = {d: comp.init_state(PT.tree_map(lambda t: t.to(d), trees[0]))
+             for d in (cuda_device, "cpu")}
+    ops.reset_launch_counts()
+    for grads in trees:
+        out = {}
+        for d in (cuda_device, "cpu"):
+            c, state[d] = comp.compress(PT.tree_map(lambda t: t.to(d), grads), state[d])
+            out[d] = (PT.leaves(comp.decompress(c)), PT.leaves(state[d]))
+        for a, b in zip(out[cuda_device][0] + out[cuda_device][1], out["cpu"][0] + out["cpu"][1]):
+            assert_same_bits(a, b)
+    name = "compress_int8" if mode == "int8" else "compress_bf16"
+    assert ops.launch_counts[name] == 3 * 4
+    assert ops.launch_counts["decompress_int8"] == (3 * 4 if mode == "int8" else 0)

@@ -114,3 +114,39 @@ def test_rebalance_matches_reference(clusters, case):
     assert dt.projected.num_moved <= int(ct.problem.move_budget)
     assert_same_cluster(rt, rj)
     np.testing.assert_array_equal(host(rt.problem.assignment0), host(dt.assignment))
+
+
+def test_recovery_restores_rebuilds_and_rebalances(tmp_path):
+    """``Recovery.recover`` -> (state, step, mesh), as the reference's code
+    returns: the newest checkpoint restored into the template (the
+    reference's manager and the port's write the same files), the mesh
+    rebuilt and handed to ``on_rebalance``; the same for both packages."""
+    import jax.numpy as jnp
+
+    from repro.distributed.checkpoint import CheckpointManager as RefManager
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.distributed.sharding import Mesh
+
+    w = np.arange(12, dtype=np.float32).reshape(3, 4)
+    for step in (2, 6):
+        CheckpointManager(tmp_path / "port").save(step, {"w": torch.from_numpy(w * step),
+                                                         "step": np.int32(step)})
+        RefManager(tmp_path / "ref").save(step, {"w": jnp.asarray(w * step),
+                                                 "step": np.int32(step)})
+    mesh = Mesh(np.array([[torch.device("cpu")]], dtype=object), ("data", "model"))
+    seen = []
+    for d in ("port", "ref"):
+        rec = P.Recovery(CheckpointManager(tmp_path / d), rebuild_mesh=lambda: mesh,
+                         on_rebalance=seen.append)
+        state, step, got_mesh = rec.recover({"w": torch.zeros(3, 4), "step": np.int32(0)})
+        assert step == 6 and got_mesh is mesh
+        assert torch.equal(state["w"], torch.from_numpy(w * 6)) and state["step"] == 6
+    assert seen == [mesh, mesh]
+    ref_state, ref_step, ref_mesh = R.Recovery(RefManager(tmp_path / "port"),
+                                               rebuild_mesh=lambda: "m").recover(
+        {"w": jnp.zeros((3, 4)), "step": np.int32(0)})
+    assert ref_step == 6 and ref_mesh == "m" and np.array_equal(ref_state["w"], w * 6)
+    quiet = P.Recovery(CheckpointManager(tmp_path / "port"), rebuild_mesh=lambda: mesh)
+    assert quiet.recover({"w": torch.zeros(3, 4), "step": np.int32(0)})[1] == 6
+    with pytest.raises(FileNotFoundError):
+        P.Recovery(CheckpointManager(tmp_path / "none"), rebuild_mesh=lambda: mesh).recover({})

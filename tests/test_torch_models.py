@@ -211,3 +211,20 @@ def test_window_with_a_cache_raises_and_unported_archs_name_their_item():
         m.prefill({"tokens": toks}, m.init_cache(1, 8))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config("gemma2-9b")
+
+
+def test_attn_batch_shard_matches_reference(pair):
+    """``attn_batch_shard=True``: the reference's ``gqa_apply`` runs the
+    attention between two sharding constraints, identities without a mesh;
+    the port's forward with the flag matches the reference's with it, and
+    equals its own without the flag bit for bit."""
+    arch, cfg, _, params, params_np, port = pair
+    rcfg = dataclasses.replace(ref_reduce(ref_get_config(arch)), attn_batch_shard=True)
+    flagged = lm_from_reference(dataclasses.replace(cfg, attn_batch_shard=True), params_np,
+                                device="cpu")
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    want, _ = jax.jit(ref_build_model(rcfg).forward_train)(params, {"tokens": jnp.asarray(toks)})
+    got, _ = flagged.forward_train({"tokens": torch.as_tensor(toks)})
+    plain, _ = port.forward_train({"tokens": torch.as_tensor(toks)})
+    assert _scaled_err(got.numpy(), want) <= REL, arch
+    assert torch.equal(got, plain)
