@@ -212,8 +212,34 @@ Phases (each raises on failure, so the script exits non-zero):
      ``BackpressureError``); ``attn_batch_shard`` on one forward of B=2,
      S=1024, bit for bit the logits without the flag with as many
      ``flash_attention`` launches.
-  7. A ``{"kernels": [...]}`` line (the flash kernels' launches summed over
-     both serving runs, the scheduling kernels' over the balance pass, the
+  7. gemma2-9b at full width (every earlier model freed first): the
+     windowed ``flash_decode`` against its plain version at gemma2's decode
+     (B=8, Smax=8,192, H=16, KV=8, D=256, bf16, the SIMT body; window
+     4,096, softcap 50 and none, kv_len 1, 17, 4,095, 4,096, 4,097, 4,160,
+     8,000 and 8,192; f32 at three of them), the ring read (4,096 slots,
+     no window, kv_len past them), timed at kv_len 8,000 over caches past
+     the L2 beside the plain version, the bytes bound of the rows the
+     window admits, SDPA over those rows (no softcap; timed only), the
+     unwindowed global-layer call and the ring read; ``flash_attention`` at
+     S=8,000, D=256, softcap 50, window 4,096 and none, held to its plain
+     version and timed at B=1 and timed at B=8; then full-width gemma2-9b
+     in bf16 (random weights from a seeded generator on the card) serves
+     16 requests in 2 waves of 8 at max_seq 8,192 (wave 1's prompts
+     4,050-4,090 tokens, so its decode crosses position 4,096; wave 2's
+     7,000-8,150) through ``ServeEngine``, with the counts zeroed just
+     before (``flash_attention`` 42 x waves, all on the tensor-core body;
+     ``flash_decode`` 42 x steps); TTFT and decode ms a step per wave
+     beside the step's bytes bound, peak memory, a repeat with the same
+     tokens, each wave's first decode logits within 2^-4 of the largest
+     logit of a ``prefill`` over the padded prompt plus that token, one
+     profiled prefill and decode step; the same with ``ring_cache=True``
+     (the local layers' caches 4,096 slots; each wave's first decode
+     logits within 2^-4 of the full caches', the tokens that agree);
+     reduced gemma2 in f32 on the card and the CPU, full and ring caches,
+     a prefill past the window and decode across it, within 1e-4 of scale.
+  8. A ``{"kernels": [...]}`` line (the flash kernels' launches summed over
+     the serving runs, gemma2's full and ring ones included, with gemma2's
+     shapes beside each; the scheduling kernels' over the balance pass, the
      control loop, the service, the simulator's two pairs and the stream
      router's path, the shard-batched ones' over the measured fleet pass,
      the service and the simulator, the tier table's over every path that
@@ -232,6 +258,8 @@ It imports nothing of JAX or of the JAX reference package.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -369,6 +397,40 @@ SERVE_SLOTS = 8
 SERVE_NEW = 32
 PROMPT_MIN, PROMPT_MAX = 128, 1024
 SERVE_MAX_SEQ = PROMPT_MAX + SERVE_NEW + 8
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeSpec:
+    """A serving run's requests and cache: prompt lengths uniform in one
+    (lo, hi) for every request, or in one (lo, hi) a wave in serving order;
+    ``max_seq`` positions a slot; ``requests`` served ``slots`` at a time,
+    ``new`` tokens each."""
+    prompt_ranges: tuple
+    max_seq: int
+    requests: int = SERVE_REQUESTS
+    slots: int = SERVE_SLOTS
+    new: int = SERVE_NEW
+
+
+DENSE_SPEC = ServeSpec(((PROMPT_MIN, PROMPT_MAX),), SERVE_MAX_SEQ)
+# The gemma2 serving slice (phase 7): full-width gemma2-9b at its 8,192
+# context, 16 requests with the same SLO draws and 32 new tokens each; wave
+# 1's prompts of 4,050-4,090 tokens, so that its decode steps cross
+# position 4,096 (the local layers' window, and the ring's wrap with
+# ring_cache), wave 2's of 7,000-8,150, so that a local layer reads half of
+# what a global one does.  The windowed decode kernel is held to its plain
+# version at gemma2's decode shape at GEMMA2_DECODE_LENS and timed at
+# GEMMA2_TIMED_LEN; the prefill kernel at GEMMA2_PREFILL_LEN; reduced
+# gemma2 runs on card and CPU for GEMMA2_SMALL = (B, prompt, decode steps,
+# max_seq).
+GEMMA2_ARCH = "gemma2-9b"
+GEMMA2_SPEC = ServeSpec(((4050, 4090), (7000, 8150)), 8192)
+GEMMA2_DECODE_LENS = (1, 17, 4095, 4096, 4097, 4160, 8000, 8192)
+GEMMA2_TIMED_LEN = 8000
+GEMMA2_PREFILL_LEN = 8000
+GEMMA2_SMALL = (2, 20, 12, 40)
+# Card against CPU on reduced configs in f32: the parity tests' bound.
+SMALL_REL = 1e-4
 # The flash kernels against their plain versions, (atol, rtol).  f32: the
 # reference's flash test tolerance.  bf16: kernel and plain version both
 # compute in f32 and round the output once, so they part by at most one
@@ -1308,24 +1370,35 @@ def check_flash_decode(label, shape, dtype, dev, gen, record, kv_lens, *, softca
     return out
 
 
-def serve_requests(cfg):
-    """The slice's requests, drawn from SERVE_SEED: prompt lengths uniform
-    in [PROMPT_MIN, PROMPT_MAX], token ids uniform over the vocabulary, SLO
-    classes as the reference CLI draws them."""
+def serve_requests(cfg, spec: ServeSpec = DENSE_SPEC):
+    """The slice's requests, drawn from SERVE_SEED: token ids uniform over
+    the vocabulary, SLO classes as the reference CLI draws them, prompt
+    lengths uniform in ``spec``'s range (drawn before each request's SLO
+    class), or, with a range a wave, the SLO classes drawn first and each
+    request's length from the range of the wave it is served in."""
     import numpy as np
     from repro_torch.launch.serve import Request
 
     rng = np.random.default_rng(SERVE_SEED)
-    reqs = []
-    for i in range(SERVE_REQUESTS):
-        n = int(rng.integers(PROMPT_MIN, PROMPT_MAX + 1))
-        reqs.append(Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
-                            slo=int(rng.choice(4, p=[0.2, 0.2, 0.45, 0.15])),
-                            max_new_tokens=SERVE_NEW))
-    return reqs
+    slo_p = [0.2, 0.2, 0.45, 0.15]
+    if len(spec.prompt_ranges) == 1:
+        (lo, hi), reqs = spec.prompt_ranges[0], []
+        for i in range(spec.requests):
+            n = int(rng.integers(lo, hi + 1))
+            reqs.append(Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                                slo=int(rng.choice(4, p=slo_p)), max_new_tokens=spec.new))
+        return reqs
+    slos = [int(rng.choice(4, p=slo_p)) for _ in range(spec.requests)]
+    order = sorted(range(spec.requests), key=lambda i: slos[i])    # RequestQueue's order
+    lengths = {}
+    for k, i in enumerate(order):
+        lo, hi = spec.prompt_ranges[k // spec.slots]
+        lengths[i] = int(rng.integers(lo, hi + 1))
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, lengths[i]).astype(np.int32),
+                    slo=slos[i], max_new_tokens=spec.new) for i in range(spec.requests)]
 
 
-def serve_once(model, cfg, dev):
+def serve_once(model, cfg, dev, spec: ServeSpec = DENSE_SPEC):
     """One run of the slice through the user's entry points: the requests
     queued, ``ServeEngine`` built, ``serve_all`` drained -> (finished
     requests in serving order, wall seconds, the engine)."""
@@ -1334,22 +1407,22 @@ def serve_once(model, cfg, dev):
 
     queue = RequestQueue()
     t0 = time.perf_counter()
-    for r in serve_requests(cfg):
+    for r in serve_requests(cfg, spec):
         r.arrival_s = t0
         queue.push(r)
-    engine = ServeEngine(model, slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, device=dev)
+    engine = ServeEngine(model, slots=spec.slots, max_seq=spec.max_seq, device=dev)
     finished = serve_all(engine, queue)
     torch.cuda.synchronize()
     return finished, time.perf_counter() - t0, engine
 
 
-def wave_stats(finished, t0: float) -> list[dict]:
-    """Per wave (SERVE_SLOTS requests in serving order): its longest prompt,
+def wave_stats(finished, t0: float, slots: int = SERVE_SLOTS) -> list[dict]:
+    """Per wave (``slots`` requests in serving order): its longest prompt,
     decode steps, prefill seconds (first token minus the previous wave's
     end), decode ms per step."""
     waves, start = [], t0
-    for w in range(0, len(finished), SERVE_SLOTS):
-        reqs = finished[w:w + SERVE_SLOTS]
+    for w in range(0, len(finished), slots):
+        reqs = finished[w:w + slots]
         first = reqs[0].first_token_s
         done = max(r.done_s for r in reqs)
         steps = max(len(r.tokens) for r in reqs) - 1
@@ -1360,26 +1433,35 @@ def wave_stats(finished, t0: float) -> list[dict]:
     return waves
 
 
-def teacher_forced_check(model, reqs, dev) -> dict:
+def teacher_forced_check(model, reqs, dev, spec: ServeSpec = DENSE_SPEC,
+                         against: str = "forward_train") -> dict:
     """The wave's padded prompts through ``prefill`` and one ``decode_step``
     of its first generated tokens, against ``forward_train`` over the
     padded prompts plus those tokens (the reference's own check,
-    tests/test_models.py:63); returns the errors."""
+    tests/test_models.py:63), or, with ``against="prefill"``, against the
+    last logits of a ``prefill`` over them on a fresh cache (the same
+    function without [B, S, vocab] f32 logits); returns the errors and the
+    decode logits of the wave's rows (f32, on the host)."""
     import numpy as np
     import torch
 
     maxlen = max(len(r.prompt) for r in reqs)
-    batch = np.zeros((SERVE_SLOTS, maxlen), np.int32)
-    first = np.zeros((SERVE_SLOTS, 1), np.int32)
+    batch = np.zeros((spec.slots, maxlen), np.int32)
+    first = np.zeros((spec.slots, 1), np.int32)
     for i, r in enumerate(reqs):
         batch[i, maxlen - len(r.prompt):] = r.prompt
         first[i, 0] = r.tokens[0]
     tokens = torch.as_tensor(batch, device=dev)
     tok0 = torch.as_tensor(first, device=dev)
-    cache = model.init_cache(SERVE_SLOTS, SERVE_MAX_SEQ)
+    cache = model.init_cache(spec.slots, spec.max_seq)
     pre, cache = model.prefill({"tokens": tokens}, cache)
     dec, cache = model.decode_step(tok0, cache)
-    full, _ = model.forward_train({"tokens": torch.cat([tokens, tok0], dim=1)})
+    del cache
+    if against == "prefill":
+        full, _ = model.prefill({"tokens": torch.cat([tokens, tok0], dim=1)},
+                                model.init_cache(spec.slots, spec.max_seq))
+    else:
+        full, _ = model.forward_train({"tokens": torch.cat([tokens, tok0], dim=1)})
     want = full[:, -1].float()
     got = dec[:, 0].float()
     n = len(reqs)
@@ -1391,7 +1473,7 @@ def teacher_forced_check(model, reqs, dev) -> dict:
            "argmax_agree": int((got.argmax(-1) == want.argmax(-1))[:n].sum()),
            "prefill_tokens_agree": int((pre[:n, -1].argmax(-1).cpu().numpy()
                                         == first[:n, 0]).sum()),
-           "rows": n}
+           "rows": n, "decode_logits": got[:n].cpu()}
     del full
     return out
 
@@ -1416,31 +1498,33 @@ def teacher_forced_f32(cfg, dev, reqs) -> tuple[dict, float]:
     return tf, time.perf_counter() - t
 
 
-def wave_lengths(cfg) -> list[int]:
+def wave_lengths(cfg, spec: ServeSpec = DENSE_SPEC) -> list[int]:
     """Each wave's longest prompt on the main path (waves follow SLO
     priority)."""
     from repro_torch.launch.serve import RequestQueue
 
     q = RequestQueue()
-    reqs = serve_requests(cfg)
+    reqs = serve_requests(cfg, spec)
     for r in reqs:
         q.push(r)
     order = [q.pop() for _ in range(len(reqs))]
-    return [max(len(r.prompt) for r in order[w:w + SERVE_SLOTS])
-            for w in range(0, len(order), SERVE_SLOTS)]
+    return [max(len(r.prompt) for r in order[w:w + spec.slots])
+            for w in range(0, len(order), spec.slots)]
 
 
-def serve_slice(cfg, dev, expected_launches, phases) -> dict:
+def serve_slice(cfg, dev, expected_launches, phases, spec: ServeSpec = DENSE_SPEC,
+                teacher_waves: int = 1, against: str = "forward_train") -> dict:
     """Full-width ``cfg`` in bf16 with seeded random weights serves the
-    slice's requests through ``ServeEngine``, with the launch counters
-    zeroed just before and read just after (``expected_launches(waves,
-    steps)`` names the counts each kernel must show); then the checks (a
-    repeat gives the same tokens, wave 1's first decode logits match a
-    teacher-forced ``forward_train``, all logits finite), one profiled
-    prefill (device time by kernel name) and one profiled decode step
-    (device idle share, one ``flash_decode`` launch a call; host phases
-    under cProfile).  Every ``flash_attention`` launch of the serve must
-    have taken the tensor-core body."""
+    slice's requests (``spec``) through ``ServeEngine``, with the launch
+    counters zeroed just before and read just after
+    (``expected_launches(waves, steps)`` names the counts each kernel must
+    show); then the checks (a repeat gives the same tokens, the first
+    ``teacher_waves`` waves' first decode logits match a teacher-forced
+    pass, ``against`` ``forward_train`` or ``prefill``, all logits finite),
+    one profiled prefill (device time by kernel name) and one profiled
+    decode step (device idle share, one ``flash_decode`` launch a call;
+    host phases under cProfile).  Every ``flash_attention`` launch of the
+    serve must have taken the tensor-core body."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import body_launches
@@ -1454,14 +1538,15 @@ def serve_slice(cfg, dev, expected_launches, phases) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
     n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    finished, wall, _ = serve_once(model, cfg, dev)
+    finished, wall, _ = serve_once(model, cfg, dev, spec)
     launches = dict(ops.launch_counts)
     bodies = dict(body_launches)
     peak = torch.cuda.max_memory_allocated()
-    waves = wave_stats(finished, t0)
+    waves = wave_stats(finished, t0, spec.slots)
     steps = sum(w["steps"] for w in waves)
     for name, n in expected_launches(len(waves), steps).items():
         if launches[name] != n:
@@ -1471,59 +1556,68 @@ def serve_slice(cfg, dev, expected_launches, phases) -> dict:
         raise AssertionError(f"{arch} prefill took the flash_attention bodies {bodies}, not the "
                              f"tensor-core body {launches['flash_attention']} times")
     for r in finished:
-        if len(r.tokens) != SERVE_NEW or not all(0 <= x < cfg.vocab_size for x in r.tokens):
+        if len(r.tokens) != spec.new or not all(0 <= x < cfg.vocab_size for x in r.tokens):
             raise AssertionError(f"{arch} request {r.rid}: tokens {r.tokens}")
-    if sorted(r.rid for r in finished) != list(range(SERVE_REQUESTS)):
+    if sorted(r.rid for r in finished) != list(range(spec.requests)):
         raise AssertionError(f"{arch}: not every request was served once")
     for i, w in enumerate(waves):
-        print(f"serve {arch} wave {i + 1}: B={SERVE_SLOTS} prompt_len {w['prompt_len']} "
+        print(f"serve {arch} wave {i + 1}: B={spec.slots} prompt_len {w['prompt_len']} "
               f"(left-padded), prefill {w['prefill_s'] * 1e3:.3f} ms, TTFT from arrival "
               f"{w['ttft_s'] * 1e3:.3f} ms, {w['steps']} decode steps at "
               f"{w['decode_ms_per_step']:.4f} ms per step "
-              f"({w['decode_ms_per_step'] / SERVE_SLOTS:.4f} ms per token)", flush=True)
+              f"({w['decode_ms_per_step'] / spec.slots:.4f} ms per token)", flush=True)
     report = latency_report(finished)
     print(f"serve {arch} full width ({n_params / 1e9:.4f} B params, bf16, init "
           f"{init_s:.3f} s): {len(finished)} requests in {len(waves)} waves, wall {wall:.4f} s, "
-          f"{SERVE_REQUESTS * SERVE_NEW / wall:.2f} generated tokens/s, launches {launches} "
+          f"{spec.requests * spec.new / wall:.2f} generated tokens/s, launches {launches} "
           f"(flash_attention bodies {bodies}), "
           f"peak memory {peak / 2**30:.3f} GiB; latency by SLO "
           + json.dumps({f"SLO{k + 1}": v for k, v in report.items()}), flush=True)
 
     # checks: repeat, teacher forcing, finite logits
     t0 = time.perf_counter()
-    again, wall2, engine = serve_once(model, cfg, dev)
+    again, wall2, engine = serve_once(model, cfg, dev, spec)
     same = {r.rid: r.tokens for r in again} == {r.rid: r.tokens for r in finished}
     print(f"repeat serve {arch}: wall {wall2:.4f} s, tokens identical {same}; per wave "
           + "; ".join(f"prefill {w['prefill_s'] * 1e3:.3f} ms, {w['decode_ms_per_step']:.4f} ms "
-                      "per step" for w in wave_stats(again, t0)), flush=True)
+                      "per step" for w in wave_stats(again, t0, spec.slots)), flush=True)
     if not same:
         raise AssertionError(f"a second {arch} serve of the same requests gave other tokens")
-    tf = teacher_forced_check(model, finished[:SERVE_SLOTS], dev)
-    print(f"teacher-forced check {arch} (wave 1, {tf['rows']} rows): decode vs forward_train "
-          f"max abs err {tf['max_abs_err']:.4f} of max |logit| {tf['scale']:.4f} (tol "
-          f"{TEACHER_TOL:g} x scale), mean abs err {tf['mean_abs_err']:.5f}, argmax agree "
-          f"{tf['argmax_agree']}/{tf['rows']}, prefill argmax = served first token "
-          f"{tf['prefill_tokens_agree']}/{tf['rows']}, all finite {tf['finite']}", flush=True)
-    if not tf["finite"]:
-        raise AssertionError(f"non-finite logits at full width ({arch})")
-    if not tf["max_abs_err"] <= TEACHER_TOL * tf["scale"]:
-        raise AssertionError(f"{arch} decode logits part from the teacher-forced forward")
-    if tf["prefill_tokens_agree"] != tf["rows"]:
-        raise AssertionError(f"a repeat {arch} prefill picked another first token than the "
-                             "served run")
+    cache_slots = [layer["k"].shape[1] for layer in engine.cache.get("layers", [])]
+    engine.cache = None                    # the teacher-forced passes take their own caches
+    torch.cuda.empty_cache()
+    teachers = []
+    for w in range(teacher_waves):
+        tf = teacher_forced_check(model, finished[w * spec.slots:(w + 1) * spec.slots], dev,
+                                  spec, against)
+        teachers.append(tf)
+        print(f"teacher-forced check {arch} (wave {w + 1}, {tf['rows']} rows): decode vs "
+              f"{against} max abs err {tf['max_abs_err']:.4f} of max |logit| "
+              f"{tf['scale']:.4f} (tol {TEACHER_TOL:g} x scale), mean abs err "
+              f"{tf['mean_abs_err']:.5f}, argmax agree {tf['argmax_agree']}/{tf['rows']}, "
+              f"prefill argmax = served first token {tf['prefill_tokens_agree']}/{tf['rows']}, "
+              f"all finite {tf['finite']}", flush=True)
+        if not tf["finite"]:
+            raise AssertionError(f"non-finite logits at full width ({arch})")
+        if not tf["max_abs_err"] <= TEACHER_TOL * tf["scale"]:
+            raise AssertionError(f"{arch} decode logits part from the teacher-forced {against}")
+        if tf["prefill_tokens_agree"] != tf["rows"]:
+            raise AssertionError(f"a repeat {arch} prefill picked another first token than "
+                                 "the served run")
+    tf = teachers[0]
 
     # one profiled prefill (a fresh wave), then one profiled decode step
-    prompts = serve_requests(cfg)[:SERVE_SLOTS]
+    prompts = serve_requests(cfg, spec)[:spec.slots]
     plen = max(len(r.prompt) for r in prompts)
     pre = device_profile(lambda: engine.admit_wave(prompts))
     if pre["busy_s"] is None:
-        print(f"profile {arch}: one prefill of {SERVE_SLOTS} prompts (longest {plen}), wall "
+        print(f"profile {arch}: one prefill of {spec.slots} prompts (longest {plen}), wall "
               f"{pre['wall_s'] * 1e3:.3f} ms; the profiler saw no device activity", flush=True)
     else:
         ktot = sum(us for _, us in pre["kernels"])
         top = "; ".join(f"{kernel_label(name)} {us / 1e3:.3f} ms x{pre['counts'][name]} "
                         f"({us / ktot:.3f})" for name, us in pre["kernels"][:PROFILE_TOP])
-        print(f"profile {arch}: one prefill of {SERVE_SLOTS} prompts (longest {plen}), wall "
+        print(f"profile {arch}: one prefill of {spec.slots} prompts (longest {plen}), wall "
               f"{pre['wall_s'] * 1e3:.3f} ms, device busy {pre['busy_s'] * 1e3:.3f} ms (idle "
               f"share {1.0 - pre['busy_s'] / pre['span_s']:.4f}), kernel time "
               f"{ktot / 1e3:.3f} ms in {pre['launches']} device launches; by name (share of "
@@ -1553,7 +1647,8 @@ def serve_slice(cfg, dev, expected_launches, phases) -> dict:
     del model, engine
     torch.cuda.empty_cache()
     return {"launches": launches, "waves": waves, "idle": idle, "peak_gib": peak / 2**30,
-            "wave1": finished[:SERVE_SLOTS], "teacher": tf}
+            "wave1": finished[:spec.slots], "teacher": tf, "teachers": teachers,
+            "finished": finished, "param_bytes": param_bytes, "cache_slots": cache_slots}
 
 
 def serving_phase(dev, record) -> dict:
@@ -1769,6 +1864,276 @@ def hybrid_phase(dev, record) -> dict:
         raise AssertionError(f"{cfg.arch_id} in f32: decode parts from the teacher-forced "
                              "forward beyond what f32 roundings explain")
     return {**out, "times": times, "teacher_f32": tf32}
+
+
+def windowed_decode_phase(cfg, dev, gen, record) -> dict:
+    """Phase 7a: the windowed flash_decode kernel at gemma2's decode shape
+    (B=8, Smax=8,192, H=16, KV=8, D=256, bf16, the model's query scale)
+    against its plain version with the local layers' window, with softcap
+    50 and without, at GEMMA2_DECODE_LENS (f32 at three of them); the ring
+    read (Smax = window, no window, kv_len past it); then, at
+    GEMMA2_TIMED_LEN over caches past the L2, the kernel beside its plain
+    version, the bytes bound of the rows the window admits, SDPA over
+    those rows (no softcap; timed only, used nowhere), the unwindowed call
+    a global layer makes and the ring read."""
+    import torch
+    from repro_torch.kernels.flash_decode import choose_body, flash_decode_cuda
+    from repro_torch.kernels.ref import flash_decode_ref
+
+    B, Smax = GEMMA2_SPEC.slots, GEMMA2_SPEC.max_seq
+    H, KV, D, W = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.window
+    scale, cap = cfg.query_scale, cfg.attn_softcap
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = seeded_normal((B, 1, H, D), dtype, dev, gen)
+        k = seeded_normal((B, Smax, KV, D), dtype, dev, gen)
+        v = seeded_normal((B, Smax, KV, D), dtype, dev, gen)
+        lens = GEMMA2_DECODE_LENS if dtype == torch.bfloat16 else (1, 4097, 8000)
+        for softcap in (None, cap):
+            for n in lens:
+                n_dev = torch.tensor(n, dtype=torch.int32, device=dev)
+                kw = dict(scale=scale, softcap=softcap, window=W)
+                got = flash_decode_cuda(q, k, v, n_dev, **kw)
+                want = flash_decode_ref(q, k, v, n_dev, **kw)
+                torch.cuda.synchronize()
+                ok, err = flash_close(got, want)
+                errs[(str(dtype)[6:], softcap, n)] = err
+                if not ok:
+                    raise AssertionError(f"windowed flash_decode {dtype} softcap {softcap} "
+                                         f"kv_len={n}: max abs err {err:.3e} beyond "
+                                         f"{tol_text(dtype)}")
+        if dtype == torch.bfloat16:
+            qb, kb, vb = q, k, v
+    record["flash_decode"]["max_abs_err"] = max(record["flash_decode"]["max_abs_err"],
+                                                *errs.values())
+    print(f"flash_decode window {W} at gemma2's decode B={B} Smax={Smax} H={H} KV={KV} D={D} "
+          f"({choose_body(torch.bfloat16, H // KV, D)} body in bf16): max abs err by (dtype, "
+          f"softcap, kv_len) " + ", ".join(f"{key}: {e:.2e}" for key, e in errs.items())
+          + f" (bf16 {tol_text(torch.bfloat16)}, f32 {tol_text(torch.float32)})", flush=True)
+
+    # the ring read: a local layer's W slots, no window, kv_len past the ring
+    kr, vr = kb[:, :W].contiguous(), vb[:, :W].contiguous()
+    ring_errs = []
+    for n in (W + 1, 5000, GEMMA2_TIMED_LEN):
+        n_dev = torch.tensor(n, dtype=torch.int32, device=dev)
+        got = flash_decode_cuda(qb, kr, vr, n_dev, scale=scale, softcap=cap)
+        want = flash_decode_ref(qb, kr, vr, n_dev, scale=scale, softcap=cap)
+        torch.cuda.synchronize()
+        ok, err = flash_close(got, want)
+        ring_errs.append(err)
+        if not ok:
+            raise AssertionError(f"ring read kv_len={n}: max abs err {err:.3e}")
+    record["flash_decode"]["max_abs_err"] = max(record["flash_decode"]["max_abs_err"],
+                                                *ring_errs)
+
+    # timed at kv_len 8,000: each call on one of the cache copies
+    n = GEMMA2_TIMED_LEN
+    n_dev = torch.tensor(n, dtype=torch.int32, device=dev)
+    local = flash_decode_cuda(qb, kb, vb, n_dev, scale=scale, softcap=cap, window=W)
+    glob = flash_decode_cuda(qb, kb, vb, n_dev, scale=scale, softcap=cap)
+    bites = float((local.float() - glob.float()).abs().max())
+    if not bites > 0.0:
+        raise AssertionError("the window changed nothing at kv_len 8,000")
+    copies = max(2, math.ceil(L2_FLUSH_BYTES / (2 * kb.nbytes)))
+    caches = itertools.cycle([(kb.clone(), vb.clone()) for _ in range(copies)])
+    rings = itertools.cycle([(kr.clone(), vr.clone()) for _ in range(copies)])
+
+    def rotated(fn, pool=caches):
+        def call():
+            kc, vc = next(pool)
+            return fn(kc, vc)
+        return call
+
+    lo = n - W
+    out = {"ms": time_ms(rotated(lambda kc, vc: flash_decode_cuda(
+               qb, kc, vc, n_dev, scale=scale, softcap=cap, window=W))),
+           "plain_ms": time_ms(rotated(lambda kc, vc: flash_decode_ref(
+               qb, kc, vc, n_dev, scale=scale, softcap=cap, window=W))),
+           "library_ms": time_ms(rotated(lambda kc, vc: sdpa_decode(
+               qb, kc[:, lo:], vc[:, lo:], W))),
+           "global_ms": time_ms(rotated(lambda kc, vc: flash_decode_cuda(
+               qb, kc, vc, n_dev, scale=scale, softcap=cap))),
+           "ring_ms": time_ms(rotated(lambda kc, vc: flash_decode_cuda(
+               qb, kc, vc, n_dev, scale=scale, softcap=cap), rings))}
+    out["bound_ms"], out["bound_by"] = flash_bound_ms(*decode_work(B, W, H, KV, D, 2),
+                                                      torch.bfloat16)
+    out["global_bound_ms"], _ = flash_bound_ms(*decode_work(B, n, H, KV, D, 2), torch.bfloat16)
+    out["max_abs_err"] = max(errs.values())
+    nbytes, _ = decode_work(B, W, H, KV, D, 2)
+    print(f"flash_decode ring read B={B} W={W} no window, kv_len (W + 1, 5000, {n}): max abs "
+          f"err {', '.join(f'{e:.2e}' for e in ring_errs)}; window {W} vs none at kv_len {n}: "
+          f"max abs diff {bites:.4f} (the window bites) | at kv_len {n}, over {copies} cache "
+          f"copies (L2 cold), softcap {cap}: windowed kernel {out['ms']:.4f} ms, plain "
+          f"{out['plain_ms']:.4f} ms, SDPA over rows [{lo}, {n}) without softcap "
+          f"{out['library_ms']:.4f} ms, bound of the admitted rows {out['bound_ms']:.6f} ms "
+          f"({out['bound_by']}; {nbytes / out['ms'] / 1e6:.1f} GB/s of its "
+          f"{nbytes / 1e6:.3f} MB), {out['ms'] / out['library_ms']:.3f}x SDPA's time; the "
+          f"unwindowed global-layer call {out['global_ms']:.4f} ms (bound "
+          f"{out['global_bound_ms']:.6f} ms); the ring read {out['ring_ms']:.4f} ms", flush=True)
+    del caches, rings, kb, vb, kr, vr
+    return out
+
+
+def decode_step_bound_ms(cfg, param_bytes: int, kv_len: int) -> tuple[float, float]:
+    """(bytes, ms at the HBM rate) one decode step at kv_len must move: every
+    weight once (the tied embedding through the unembedding) and each layer's
+    admitted cache rows of k and v (min(kv_len, window) on a local layer,
+    kv_len on a global one; the ring holds the same rows)."""
+    from repro_torch.models.transformer import layer_windows
+
+    B, KV, D = GEMMA2_SPEC.slots, cfg.num_kv_heads, cfg.resolved_head_dim
+    rows = sum(kv_len if w is None else min(kv_len, w) for w in layer_windows(cfg))
+    nbytes = param_bytes + 2 * B * rows * KV * D * 2
+    return float(nbytes), nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def small_card_vs_cpu(cfg_full, dev) -> list[dict]:
+    """Phase 7e: reduced gemma2 in f32 on the card and on the CPU's plain
+    path, with full and ring caches: a prefill past the window, then decode
+    steps across it; logits within SMALL_REL of their scale, every cache
+    tensor too, one flash_attention launch a layer and one flash_decode a
+    layer a step on the card."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, reduce_for_smoke
+
+    B, S, steps, Smax = GEMMA2_SMALL
+    out = []
+    for ring in (False, True):
+        cfg = dataclasses.replace(reduce_for_smoke(cfg_full), ring_cache=ring)
+        cpu_model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(7))
+        card_model = copy.deepcopy(cpu_model).to(dev)
+        toks = torch.as_tensor(np.random.default_rng(7).integers(0, cfg.vocab_size,
+                                                                 (B, S + steps)))
+        runs = {}
+        for name, model in (("cpu", cpu_model), ("card", card_model)):
+            ops.reset_launch_counts()
+            cache = model.init_cache(B, Smax)
+            logits, cache = model.prefill({"tokens": toks[:, :S].to(model.device)}, cache)
+            got = [logits.cpu()]
+            for s in range(S, S + steps):
+                logits, cache = model.decode_step(toks[:, s:s + 1].to(model.device), cache)
+                got.append(logits.cpu())
+            runs[name] = (got, [{k: t.cpu() for k, t in layer.items()}
+                                for layer in cache["layers"]], dict(ops.launch_counts))
+        (cl, cc, _), (gl, gc, counts) = runs["cpu"], runs["card"]
+
+        def rel(a, b):
+            return float((a.double() - b.double()).abs().max() / (b.double().abs().max() + 1e-30))
+
+        logit_rel = max(rel(a, b) for a, b in zip(gl, cl))
+        cache_rel = max(rel(a[k], b[k]) for a, b in zip(gc, cc) for k in ("k", "v"))
+        slots = [layer["k"].shape[1] for layer in gc]
+        print(f"reduced {cfg.arch_id} ring_cache={ring} (window {cfg.window}, cache slots "
+              f"{slots}): prefill {S} then {steps} decode steps, card vs CPU logits max rel "
+              f"{logit_rel:.3e}, caches max rel {cache_rel:.3e} (limit {SMALL_REL:g}), launches "
+              f"flash_attention {counts['flash_attention']}, flash_decode "
+              f"{counts['flash_decode']}", flush=True)
+        if not (logit_rel <= SMALL_REL and cache_rel <= SMALL_REL):
+            raise AssertionError(f"reduced gemma2 ring_cache={ring}: the card parts from the CPU")
+        if (counts["flash_attention"], counts["flash_decode"]) != (
+                cfg.num_layers, cfg.num_layers * steps):
+            raise AssertionError(f"reduced gemma2 launches {counts}")
+        out.append({"ring": ring, "logit_rel": logit_rel, "cache_rel": cache_rel})
+    return out
+
+
+def gemma2_phase(dev, record) -> dict:
+    """Phase 7: the windowed decode kernel and the prefill kernel at
+    gemma2's shapes, then full-width gemma2-9b serves the slice's requests
+    with full caches and again with ring caches, then reduced gemma2 on
+    card and CPU."""
+    import torch
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 2)
+    cfg = get_config(GEMMA2_ARCH)
+    spec = GEMMA2_SPEC
+    H, KV, D, W = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.window
+    wave_lens = wave_lengths(cfg, spec)
+
+    # -- 7a. the windowed decode kernel -----------------------------------------
+    times = {"decode_window": windowed_decode_phase(cfg, dev, gen, record)}
+
+    # -- 7b. flash_attention at the prefill shape: held to the plain version
+    # and timed beside it at B=1, timed alone at B=8 (the plain version's f32
+    # logits would take ~32 GB there) ----------------------------------------------
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    S, B = GEMMA2_PREFILL_LEN, spec.slots
+    q = seeded_normal((B, S, H, D), bf16, dev, gen)
+    k = seeded_normal((B, S, KV, D), bf16, dev, gen)
+    v = seeded_normal((B, S, KV, D), bf16, dev, gen)
+    for window in (W, None):
+        kw = dict(window=window, softcap=cfg.attn_softcap, scale=cfg.query_scale)
+        one = check_flash_attention(f"gemma2 B=1 S={S} window {window} softcap 50 D={D}",
+                                    (1, S, H, KV, D), bf16, dev, gen, record, timed=True,
+                                    window=window, softcap=cfg.attn_softcap)
+        b, by = flash_bound_ms(*attention_work(B, S, S, H, KV, D, 2, window=window), bf16)
+        ms = time_ms(lambda: flash_attention_cuda(q, k, v, **kw), reps=10)
+        nbytes, nops = attention_work(B, S, S, H, KV, D, 2, window=window)
+        times[f"prefill_{'local' if window else 'global'}"] = {
+            "ms": ms, "bound_ms": b, "bound_by": by, "library_ms": None, "B": B,
+            "plain_ms_b1": one["plain_ms"], "ms_b1": one["ms"], "bound_ms_b1": one["bound_ms"]}
+        print(f"flash_attention gemma2 B={B} S={S} window {window} softcap 50 D={D} bf16: "
+              f"kernel {ms:.4f} ms, bound {b:.4f} ms ({by}), {nops / ms / 1e9:.1f} TFLOP/s of "
+              f"the function's {nops / 1e9:.3f} GFLOP, {b / ms:.3f} of the bound; no library "
+              "call computes the softcap (SDPA none)", flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # -- 7c. the slice with full caches, 7d. with ring caches ----------------------
+    def expected(waves, steps):
+        return {"flash_attention": cfg.num_layers * waves, "flash_decode": cfg.num_layers * steps}
+
+    runs = {}
+    for ring in (False, True):
+        c = dataclasses.replace(cfg, ring_cache=ring)
+        runs[ring] = serve_slice(c, dev, expected, DECODE_PHASES, spec,
+                                 teacher_waves=len(wave_lens), against="prefill")
+        torch.cuda.empty_cache()
+    full, ring = runs[False], runs[True]
+    for run, local in ((full, spec.max_seq), (ring, min(W, spec.max_seq))):
+        if run["cache_slots"] != [local, spec.max_seq] * (cfg.num_layers // 2):
+            raise AssertionError(f"{GEMMA2_ARCH} cache slots {run['cache_slots']}, not "
+                                 f"{local} on the local layers and {spec.max_seq} on the "
+                                 "global ones")
+    for name, run in (("full", full), ("ring", ring)):
+        for i, w in enumerate(run["waves"]):
+            mid = w["prompt_len"] + w["steps"] // 2
+            nbytes, b = decode_step_bound_ms(cfg, run["param_bytes"], mid)
+            w["step_bound_ms"] = b
+            print(f"decode step bound {GEMMA2_ARCH} {name} caches wave {i + 1}: at kv_len {mid} "
+                  f"(mid-wave) {nbytes / 1e9:.3f} GB, {b:.4f} ms at the HBM rate; measured "
+                  f"{w['decode_ms_per_step']:.4f} ms a step ({b / w['decode_ms_per_step']:.3f} "
+                  "of the bound's rate)", flush=True)
+    same_tokens = sum(a.tokens == b.tokens for a, b in zip(full["finished"], ring["finished"]))
+    for w, (a, b) in enumerate(zip(full["teachers"], ring["teachers"])):
+        diff = float((a["decode_logits"] - b["decode_logits"]).abs().max())
+        scale = float(a["decode_logits"].abs().max())
+        agree = int((a["decode_logits"].argmax(-1) == b["decode_logits"].argmax(-1)).sum())
+        print(f"ring vs full caches {GEMMA2_ARCH} wave {w + 1}: first decode logits max abs "
+              f"diff {diff:.4f} of max |logit| {scale:.4f} (tol {TEACHER_TOL:g} x scale), "
+              f"argmax agree {agree}/{a['rows']}", flush=True)
+        if not diff <= TEACHER_TOL * scale:
+            raise AssertionError(f"wave {w + 1}: the ring caches' decode parts from the full "
+                                 "caches'")
+    print(f"ring vs full caches {GEMMA2_ARCH}: {same_tokens}/{spec.requests} requests served "
+          f"the same {spec.new} tokens; the local layers' caches {ring['cache_slots'][0]} "
+          f"slots against {full['cache_slots'][0]}; peak memory full {full['peak_gib']:.3f} "
+          f"GiB, ring {ring['peak_gib']:.3f} GiB", flush=True)
+
+    # -- 7e. card against CPU, reduced ---------------------------------------------
+    small = small_card_vs_cpu(cfg, dev)
+    launches = {k: full["launches"][k] + ring["launches"][k]
+                for k in ("flash_attention", "flash_decode")}
+    print(f"phase 7 ({GEMMA2_ARCH}): {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"times": times, "full": full, "ring": ring, "launches": launches, "small": small}
 
 
 def optimal_phase(cluster, pp, obj0: float, record, dev, *, clock_mhz) -> dict:
@@ -4105,7 +4470,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     feeders = feeders_phase(dev, record)
 
-    # -- 7. result lines --------------------------------------------------------
+    # -- 7. gemma2-9b at full width: windowed decode, ring caches -----------------
+    del feeders["runs"]                    # the compressor states: every model is freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"before phase 7: {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated on the "
+          "card", flush=True)
+    gemma2 = gemma2_phase(dev, record)
+    flash_launches = {name: flash_launches[name] + gemma2["launches"][name]
+                      for name in ("flash_attention", "flash_decode")}
+    flash_by_path = {name: {SERVE_ARCH: serving["launches"][name],
+                            HYBRID_ARCH: hybrid["launches"][name],
+                            GEMMA2_ARCH: gemma2["full"]["launches"][name],
+                            f"{GEMMA2_ARCH} ring_cache": gemma2["ring"]["launches"][name]}
+                     for name in ("flash_attention", "flash_decode")}
+
+    # -- 8. result lines --------------------------------------------------------
     kernels = [
         {"name": "move_eval_best", "route": "cuda", "source": MOVE_EVAL_SRC,
          "replaces": "src/repro/kernels/move_eval.py:275",
@@ -4164,15 +4544,19 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda", "source": FLASH_ATTENTION_SRC,
          "replaces": "src/repro/kernels/flash_attention.py:144",
          "launches": flash_launches["flash_attention"],
+         "launches_by_path": flash_by_path["flash_attention"],
          "max_abs_err": record["flash_attention"]["max_abs_err"],
          "ms": fa["ms"], "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"],
-         "bound_by": fa["bound_by"], "library_ms": fa["library_ms"]},
+         "bound_by": fa["bound_by"], "library_ms": fa["library_ms"],
+         "gemma2": {k: gemma2["times"][k] for k in ("prefill_local", "prefill_global")}},
         {"name": "flash_decode", "route": "cuda", "source": FLASH_DECODE_SRC,
          "replaces": "src/repro/kernels/flash_decode.py:108",
          "launches": flash_launches["flash_decode"],
+         "launches_by_path": flash_by_path["flash_decode"],
          "max_abs_err": record["flash_decode"]["max_abs_err"],
          "ms": fd["ms"], "plain_ms": fd["plain_ms"], "bound_ms": fd["bound_ms"],
-         "bound_by": fd["bound_by"], "library_ms": fd["library_ms"]},
+         "bound_by": fd["bound_by"], "library_ms": fd["library_ms"],
+         "gemma2": gemma2["times"]["decode_window"]},
         {"name": "ssd_chunk", "route": "cuda", "source": SSD_CHUNK_SRC,
          "replaces": "src/repro/kernels/mamba_scan.py:71",
          "launches": hybrid["launches"]["ssd_chunk"],

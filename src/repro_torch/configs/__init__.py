@@ -1,9 +1,10 @@
-"""Architecture registry of the port: the dense configs and the hybrid
-(Zamba2) one it serves so far.
+"""Architecture registry of the port: the dense configs (gemma2's
+alternating local/global layers among them) and the hybrid (Zamba2) one it
+serves so far.
 
 ``get_config(arch_id)`` returns the exact published config (the same
 numbers as the reference's ``repro.configs``); the CLI aliases are the
-reference's.  The other six architectures come with their families in
+reference's.  The other five architectures come with their families in
 later slices of the port (ROADMAP.md, Queue 1 item 8).
 """
 from __future__ import annotations
@@ -15,6 +16,7 @@ ARCHS = (
     "smollm_360m",
     "olmo_1b",
     "zamba2_2p7b",
+    "gemma2_9b",
 )
 
 # The reference's CLI aliases, all ten (--arch accepts either form).
@@ -33,7 +35,6 @@ ALIASES = {
 
 # Where each architecture not yet ported stands in ROADMAP.md.
 NOT_YET_PORTED = {
-    "gemma2_9b": "Queue 1 item 8a (windowed decode and local_global_pattern)",
     "granite_moe_1b": "Queue 1 item 8b (MoE)",
     "deepseek_v2_lite_16b": "Queue 1 items 8b-8c (MoE and MLA)",
     "phi3_vision_4p2b": "Queue 1 item 8d (VLM, audio and xLSTM families)",

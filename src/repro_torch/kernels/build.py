@@ -65,7 +65,7 @@ SIGNATURES = {
         "flash_attention_launch": [_I] * 8 + [_F, _I, _I, _F] + [_P] * 5,
     },
     "flash_decode": {
-        "flash_decode_launch": [_I] * 10 + [_F, _F] + [_P] * 8,
+        "flash_decode_launch": [_I] * 11 + [_F, _F] + [_P] * 8,
     },
     "ssd_chunk": {
         "ssd_chunk_launch": [_I] * 7 + [_P] * 9,

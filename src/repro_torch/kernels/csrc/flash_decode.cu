@@ -4,18 +4,24 @@
 // Replaces src/repro/kernels/flash_decode.py::flash_decode (the Pallas TPU
 // kernel _decode_kernel, pallas_call at :108).  Same function: query head h
 // of sequence b attends kv head h / G (G = H / KV) over cache positions
-// j < kv_len, where kv_len is read on the card from an int32 (the Pallas
-// kernel's SMEM scalar), so the host never waits for it:
+// lo <= j < kv_len, where kv_len is read on the card from an int32 (the
+// Pallas kernel's SMEM scalar), so the host never waits for it, and lo is 0,
+// or max(0, kv_len - window) for a sliding window (gemma2's local layers):
 //   logit = (q * scale) . k_j,  softcap * tanh(logit / softcap) when softcap > 0
-//   out = sum_{j < kv_len} exp(logit - m) v_j / max(sum exp(logit - m), 1e-20)
-// Positions >= kv_len are never read.  (The Pallas kernel masks them to
-// -1e30 inside a visited block, where they weigh exp(-1e30 - m) = 0: the same
-// sums.)
+//   out = sum_{lo <= j < kv_len} exp(logit - m) v_j / max(sum exp(logit - m), 1e-20)
+// Positions outside [lo, kv_len) are never read.  (The Pallas kernel masks
+// those >= kv_len to -1e30 inside a visited block, where they weigh
+// exp(-1e30 - m) = 0: the same sums.  It has no window: the reference runs
+// windowed decode in XLA, src/repro/models/layers.py:111-153, with the mask
+// kv_pos > q_pos - window, which is j >= lo for the query at kv_len - 1.)
 //
-// Bound on this card: the function must read the written cache once,
-// B * kv_len * KV * D * 2 tensors * (2 bytes in bf16): at the qwen decode
-// (B=8, KV=2, D=128, kv_len ~1050) 8.6 MB, 2.6 us at 3.35 TB/s; at Zamba2's
-// shared block (KV=32, D=80) 86 MB, 26 us.  Its 4 D operations per position
+// Bound on this card: the function must read the rows [lo, kv_len) of the
+// cache once, B * (kv_len - lo) * KV * D * 2 tensors * (2 bytes in bf16): at
+// the qwen decode (B=8, KV=2, D=128, kv_len ~1050) 8.6 MB, 2.6 us at 3.35
+// TB/s; at Zamba2's shared block (KV=32, D=80) 86 MB, 26 us; at gemma2's
+// (B=8, KV=8, D=256) 268 MB for the 4,096 rows a local layer's window
+// admits, 80 us, and 524 MB for a global layer at kv_len 8,000, 156 us.  Its
+// 4 D operations per position
 // and query head are far below the operation bound: it is bytes-bound, and
 // at these sizes a launch and the chain of dependent memory round trips
 // inside it weigh as much as the bytes.
@@ -24,20 +30,26 @@
 // walked in order, gives only B * KV programs (16 at the qwen decode) for
 // 132 SMs, so the cache is cut into `nsplit` ranges of whole TILE-row tiles
 // (kernels/flash_decode.py::split_plan) and one CTA of 4 warps takes one
-// (b, kv head, range).  K and V stay bf16 (or f32) in memory and are read
-// with 16-byte loads straight into registers; nothing is staged in shared
-// memory.  Each warp walks its own steps of rows; no barrier couples the
-// warps until the end, where they merge with weights e^(m_w - M).  Two
-// bodies, chosen by the wrapper (flash_decode.py::choose_body):
+// (b, kv head, range).  The ranges start at lo, which each CTA computes on
+// the card from kv_len: with a window the wrapper plans them over the
+// window's rows, not over Smax, so a local layer's CTAs all fall inside
+// [lo, kv_len) and none idles over rows before it.  K and V stay bf16 (or
+// f32) in memory and are read with 16-byte loads straight into registers;
+// nothing is staged in shared memory.  Each warp walks its own steps of
+// rows; no barrier couples the warps until the end, where they merge with
+// weights e^(m_w - M).  Two bodies, chosen by the wrapper
+// (flash_decode.py::choose_body):
 //   * Tensor cores (bf16, a query group of up to 16 heads, D = 64, 80 or
-//     128: every served shape): the group's heads are the 16 rows of mma.sync
+//     128: qwen2.5, smollm and Zamba2's shared block; gemma2's D = 256
+//     takes the SIMT body): the group's heads are the 16 rows of mma.sync
 //     m16n8k16, so q's fragments serve every head once and each loaded K
 //     row serves all G heads in one product; 16 rows a warp step (the next
 //     step's rows loaded before this step's products), S and P.V on the
 //     tensor cores, P split in two bf16 terms (namespace tcd).
-//   * SIMT (f32, other D, larger groups): a row is read by LPR lanes,
-//     neighbouring lanes on neighbouring 16 bytes, CPL chunks a lane (few
-//     lanes a row where the registers allow, so more rows are in flight),
+//   * SIMT (f32, other D such as gemma2's 256, larger groups): a row is
+//     read by LPR lanes, neighbouring lanes on neighbouring 16 bytes, CPL
+//     chunks a lane (few lanes a row where the registers allow, so more
+//     rows are in flight),
 //     converted to f32 in registers; a lane's partial dots are summed over
 //     its row's lanes by shuffles and the softmax bookkeeping is done once
 //     a step and head, spread over the warp's lanes; a query group is cut
@@ -50,11 +62,12 @@
 // e^(m_s - M), 1e-20), writes out and puts the counter back to 0
 // (finish_cta).  With one range the CTA writes out directly.  Ranges that
 // start at or past kv_len contribute (m = -inf, l = 0, acc = 0) and read
-// nothing.
-// Left for a later redesign: a shorter chain of dependent memory round
-// trips around the rows (q, partials, fence, ticket, merge), fewer
-// instructions a row in the SIMT body, a persistent grid sized to the card,
-// fusing the cache write of the new token, fp8 caches.
+// nothing; no range starts before lo, so no row before it is read or masked.
+// Left for a later redesign: the tensor-core body at D = 256, a shorter
+// chain of dependent memory round trips around the rows (q, partials,
+// fence, ticket, merge), fewer instructions a row in the SIMT body, a
+// persistent grid sized to the card, fusing the cache write of the new
+// token, fp8 caches.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -242,8 +255,9 @@ struct RowsAtOnce {
 template <typename T, int CPL, int GC>
 __global__ void __launch_bounds__(DNT)
 flash_decode_kernel(int Smax, int KV, int G, int D, int lpr, int hsplit, int split_len,
-                    float scale, float softcap, const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ kv_len_ptr,
+                    int window, float scale, float softcap, const T* __restrict__ q,
+                    const T* __restrict__ k, const T* __restrict__ v,
+                    const int* __restrict__ kv_len_ptr,
                     float* __restrict__ part, int* __restrict__ tickets, T* __restrict__ out) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int E = CPL * VEC;                           // dims a lane holds
@@ -271,7 +285,8 @@ flash_decode_kernel(int Smax, int KV, int G, int D, int lpr, int hsplit, int spl
   const int grp = lane / lpr, sub = lane - grp * lpr;   // row group, lane in it
   int kv_len = *kv_len_ptr;
   kv_len = kv_len < 0 ? 0 : (kv_len > Smax ? Smax : kv_len);
-  const int s0 = split * split_len;
+  const int lo = window > 0 ? max(0, kv_len - window) : 0;   // the window's first row
+  const int s0 = lo + split * split_len;
   const int s1 = min(s0 + split_len, kv_len);
   const bool vec_ok = D % VEC == 0;
   const size_t row_stride = (size_t)KV * D;
@@ -442,9 +457,9 @@ flash_decode_kernel(int Smax, int KV, int G, int D, int lpr, int hsplit, int spl
 
 template <typename T, int CPL, int GC>
 static int launch(int B, int Smax, int H, int KV, int D, int lpr, int hsplit, int nsplit,
-                  int split_len, float scale, float softcap, const void* q, const void* k,
-                  const void* v, const void* kv_len, void* part, void* tickets, void* out,
-                  cudaStream_t stream) {
+                  int split_len, int window, float scale, float softcap, const void* q,
+                  const void* k, const void* v, const void* kv_len, void* part, void* tickets,
+                  void* out, cudaStream_t stream) {
   const int G = H / KV;
   const int wrows = (32 / lpr) * RowsAtOnce<CPL, GC, 16 / sizeof(T)>::value;
   const int pass_floats = DWARPS * (wrows + 1) * GC + DWARPS * GC * D + 2 * DWARPS * GC;
@@ -457,7 +472,7 @@ static int launch(int B, int Smax, int H, int KV, int D, int lpr, int hsplit, in
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * KV * hsplit, nsplit);
   flash_decode_kernel<T, CPL, GC><<<grid, DNT, smem, stream>>>(
-      Smax, KV, G, D, lpr, hsplit, split_len, scale, softcap, (const T*)q, (const T*)k,
+      Smax, KV, G, D, lpr, hsplit, split_len, window, scale, softcap, (const T*)q, (const T*)k,
       (const T*)v, (const int*)kv_len, (float*)part, (int*)tickets, (T*)out);
   return (int)cudaGetLastError();
 }
@@ -468,9 +483,9 @@ static int launch(int B, int Smax, int H, int KV, int D, int lpr, int hsplit, in
 // at most 32 lanes a row (f32 rows of more than 128 values take 2 chunks).
 template <typename T>
 static int dispatch(int B, int Smax, int H, int KV, int D, int hsplit, int nsplit,
-                    int split_len, float scale, float softcap, const void* q, const void* k,
-                    const void* v, const void* kv_len, void* part, void* tickets, void* out,
-                    cudaStream_t stream) {
+                    int split_len, int window, float scale, float softcap, const void* q,
+                    const void* k, const void* v, const void* kv_len, void* part, void* tickets,
+                    void* out, cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(T);
   const int chunks = (D + VEC - 1) / VEC;
   const int hper = (H / KV + hsplit - 1) / hsplit;
@@ -483,8 +498,8 @@ static int dispatch(int B, int Smax, int H, int KV, int D, int hsplit, int nspli
   }
 #define FD_CASE(C, N)                                                                     \
   if (cpl == C && gc == N)                                                                \
-    return launch<T, C, N>(B, Smax, H, KV, D, lpr, hsplit, nsplit, split_len, scale, softcap, \
-                           q, k, v, kv_len, part, tickets, out, stream);
+    return launch<T, C, N>(B, Smax, H, KV, D, lpr, hsplit, nsplit, split_len, window, scale, \
+                           softcap, q, k, v, kv_len, part, tickets, out, stream);
   FD_CASE(1, 1) FD_CASE(1, 2) FD_CASE(1, 4) FD_CASE(2, 1) FD_CASE(2, 2) FD_CASE(4, 1)
   FD_CASE(5, 1)
   if constexpr (VEC == 4) {             // f32: 4 values a chunk, so larger CPL fit
@@ -538,7 +553,8 @@ __device__ __forceinline__ uint32_t word(const uint4& r, int i) {
 
 template <int D>
 __global__ void __launch_bounds__(DNT)
-flash_decode_mma_kernel(int Smax, int KV, int G, int split_len, float scale, float softcap,
+flash_decode_mma_kernel(int Smax, int KV, int G, int split_len, int window, float scale,
+                        float softcap,
                         const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_len_ptr,
                         float* __restrict__ part, int* __restrict__ tickets,
@@ -556,7 +572,8 @@ flash_decode_mma_kernel(int Smax, int KV, int G, int split_len, float scale, flo
   const int gid = lane >> 2, tig = lane & 3;
   int kv_len = *kv_len_ptr;
   kv_len = kv_len < 0 ? 0 : (kv_len > Smax ? Smax : kv_len);
-  const int s0 = split * split_len;
+  const int lo = window > 0 ? max(0, kv_len - window) : 0;   // the window's first row
+  const int s0 = lo + split * split_len;
   const int s1 = min(s0 + split_len, kv_len);
   const size_t row_stride = (size_t)KV * D;
   const __nv_bfloat16* kbase = k + ((size_t)b * Smax * KV + kvh) * D;
@@ -718,8 +735,8 @@ flash_decode_mma_kernel(int Smax, int KV, int G, int split_len, float scale, flo
 }
 
 template <int D>
-static int launch_mma(int B, int Smax, int H, int KV, int nsplit, int split_len, float scale,
-                      float softcap, const void* q, const void* k, const void* v,
+static int launch_mma(int B, int Smax, int H, int KV, int nsplit, int split_len, int window,
+                      float scale, float softcap, const void* q, const void* k, const void* v,
                       const void* kv_len, void* part, void* tickets, void* out,
                       cudaStream_t stream) {
   const int G = H / KV;
@@ -733,21 +750,21 @@ static int launch_mma(int B, int Smax, int H, int KV, int nsplit, int split_len,
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * KV, nsplit);
   flash_decode_mma_kernel<D><<<grid, DNT, smem, stream>>>(
-      Smax, KV, G, split_len, scale, softcap, (const __nv_bfloat16*)q,
+      Smax, KV, G, split_len, window, scale, softcap, (const __nv_bfloat16*)q,
       (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (const int*)kv_len, (float*)part,
       (int*)tickets, (__nv_bfloat16*)out);
   return (int)cudaGetLastError();
 }
 
 static int dispatch_mma(int B, int Smax, int H, int KV, int D, int nsplit, int split_len,
-                        float scale, float softcap, const void* q, const void* k,
+                        int window, float scale, float softcap, const void* q, const void* k,
                         const void* v, const void* kv_len, void* part, void* tickets,
                         void* out, cudaStream_t stream) {
   switch (D) {
 #define FD_MMA_CASE(N)                                                                       \
   case N:                                                                                    \
-    return launch_mma<N>(B, Smax, H, KV, nsplit, split_len, scale, softcap, q, k, v, kv_len, \
-                         part, tickets, out, stream);
+    return launch_mma<N>(B, Smax, H, KV, nsplit, split_len, window, scale, softcap, q, k, v, \
+                         kv_len, part, tickets, out, stream);
     FD_MMA_CASE(64) FD_MMA_CASE(80) FD_MMA_CASE(128)
 #undef FD_MMA_CASE
     default:
@@ -758,14 +775,15 @@ static int dispatch_mma(int B, int Smax, int H, int KV, int D, int nsplit, int s
 }  // namespace tcd
 
 // dtype: 0 = float32, 1 = bfloat16; body: 0 = SIMT, 1 = tensor cores (bf16,
-// G <= 16, D = 64, 80 or 128, hsplit = 1); softcap <= 0: none.  q/out
+// G <= 16, D = 64, 80 or 128, hsplit = 1); softcap <= 0: none; window <= 0:
+// none, else the rows [max(0, kv_len - window), kv_len).  q/out
 // [B, 1, H, D], k/v [B, Smax, KV, D], all contiguous; kv_len one int32 on the
 // card; part f32: m and l (B * KV * nsplit * G each), then acc (B * KV *
 // nsplit * G * D); tickets int32[B * KV * hsplit], all 0 on entry and left 0;
 // the G query heads of a kv head in hsplit sets of at most 4 (SIMT);
-// nsplit * split_len >= Smax; D <= 256.
+// nsplit * split_len >= Smax, or >= window with a window; D <= 256.
 extern "C" int flash_decode_launch(int B, int Smax, int H, int KV, int D, int dtype, int body,
-                                   int hsplit, int nsplit, int split_len, float scale,
+                                   int hsplit, int nsplit, int split_len, int window, float scale,
                                    float softcap, const void* q, const void* k, const void* v,
                                    const void* kv_len, void* part, void* tickets, void* out,
                                    void* stream) {
@@ -775,16 +793,16 @@ extern "C" int flash_decode_launch(int B, int Smax, int H, int KV, int D, int dt
   if (body == 1) {
     if (dtype != 1 || hsplit != 1 || H / KV > tcd::MH)
       return (int)cudaErrorInvalidValue;
-    return tcd::dispatch_mma(B, Smax, H, KV, D, nsplit, split_len, scale, softcap, q, k, v,
-                             kv_len, part, tickets, out, s);
+    return tcd::dispatch_mma(B, Smax, H, KV, D, nsplit, split_len, window, scale, softcap, q,
+                             k, v, kv_len, part, tickets, out, s);
   }
   if (body != 0 || hsplit <= 0 || hsplit > H / KV || 4 * hsplit < H / KV)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch<float>(B, Smax, H, KV, D, hsplit, nsplit, split_len, scale, softcap, q, k,
-                           v, kv_len, part, tickets, out, s);
+    return dispatch<float>(B, Smax, H, KV, D, hsplit, nsplit, split_len, window, scale, softcap,
+                           q, k, v, kv_len, part, tickets, out, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(B, Smax, H, KV, D, hsplit, nsplit, split_len, scale,
+    return dispatch<__nv_bfloat16>(B, Smax, H, KV, D, hsplit, nsplit, split_len, window, scale,
                                    softcap, q, k, v, kv_len, part, tickets, out, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,17 +5,22 @@ Replaces the Pallas TPU kernel ``flash_decode`` of
 append-only KV cache [B, Smax, KV, D], positions < kv_len.  ``kv_len`` is an
 int32 on the card that the kernel reads there (the Pallas kernel's SMEM
 scalar), so a decode step never waits on the host for it.  Nothing is
-padded (no D to 128 lanes, no G to 8 sublanes).
+padded (no D to 128 lanes, no G to 8 sublanes).  A sliding ``window`` (which
+the Pallas kernel lacks: the reference runs windowed decode in XLA) keeps
+the positions >= kv_len - window; the kernel computes that first row on the
+card.
 
 The kernel splits the cache over CTAs (split-KV); the CTA that finishes
 last for a (sequence, kv head, head set) merges the partial softmaxes, so a
 call is one launch.  ``choose_body`` picks one of its two bodies from the
 dtype, the group size and D: bf16 query groups of up to 16 heads at D = 64,
-80 or 128 (every served shape) run on the tensor cores, the group's heads
-as the rows of ``mma.sync``; the rest (f32, other D) on the SIMT units, a
-group cut into sets of at most HEADS_PER_CTA heads, one CTA a set.  The
-wrapper sizes the split from Smax and the card's SM count (both looked up
-once per shape and card).  The f32 scratch for the partials
+80 or 128 (qwen2.5, smollm, Zamba2's shared block) run on the tensor cores,
+the group's heads as the rows of ``mma.sync``; the rest (f32, other D, such
+as gemma2's 256) on the SIMT units, a group cut into sets of at most
+HEADS_PER_CTA heads, one CTA a set.  The wrapper sizes the split from the
+rows a call can read (Smax, or the window when it is shorter: the ranges
+then start at the window's first row) and the card's SM count (both looked
+up once per shape and card).  The f32 scratch for the partials
 and the int32 ticket counters (zeroed; the kernel leaves them at 0) are
 allocated once per (device, shape) and reused by every later call: calls
 on one stream run in order, so this assumes that every call for a shape
@@ -40,14 +45,15 @@ HEADS_PER_CTA = 4         # a query group's heads are cut into sets of at most t
 
 
 @functools.lru_cache(maxsize=None)
-def split_plan(B: int, KV: int, Smax: int, num_sms: int) -> tuple[int, int]:
-    """(nsplit, split_len): enough ranges of whole tiles that B * KV * nsplit
-    CTAs cover the card about CTAS_PER_SM times, and no empty range."""
-    tiles = max(1, -(-Smax // TILE))
+def split_plan(B: int, KV: int, rows: int, num_sms: int) -> tuple[int, int]:
+    """(nsplit, split_len) over the ``rows`` a call can read (Smax, or a
+    shorter window): enough ranges of whole tiles that B * KV * nsplit CTAs
+    cover the card about CTAS_PER_SM times, and no empty range."""
+    tiles = max(1, -(-rows // TILE))
     want = max(1, -(-(CTAS_PER_SM * num_sms) // max(1, B * KV)))
     nsplit = min(tiles, want)
     split_len = -(-tiles // nsplit) * TILE
-    return -(-max(Smax, 1) // split_len), split_len
+    return -(-max(rows, 1) // split_len), split_len
 
 
 BODY_CODES = {"simt": 0, "mma": 1}
@@ -109,30 +115,35 @@ def kv_len_tensor(kv_len, device) -> torch.Tensor:
 
 
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len, *,
-                      scale: Optional[float] = None,
-                      softcap: Optional[float] = None) -> torch.Tensor:
+                      scale: Optional[float] = None, softcap: Optional[float] = None,
+                      window: Optional[int] = None) -> torch.Tensor:
     """q [B, 1, H, D], k/v [B, Smax, KV, D], kv_len (int or int32 on the
-    card) -> [B, 1, H, D] in q's dtype."""
+    card) -> [B, 1, H, D] in q's dtype; with ``window``, over the positions
+    [max(0, kv_len - window), kv_len) only."""
     check_qkv(q, k, v)
     if q.shape[1] != 1:
         raise ValueError(f"decode takes one query token, got {q.shape[1]}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be positive, got {softcap}")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
     B, _, H, D = q.shape
     Smax, KV = k.shape[1], k.shape[2]
     G = H // KV
     scale = scale if scale is not None else D ** -0.5
+    if window is not None and window >= Smax:
+        window = None                  # kv_len <= Smax: the window never bites
     dev = q.device
     q, k, v = aligned16(q), aligned16(k), aligned16(v)
     n_len = kv_len_tensor(kv_len, dev)
-    nsplit, split_len = split_plan(B, KV, Smax, sm_count(dev.index))
+    nsplit, split_len = split_plan(B, KV, window or Smax, sm_count(dev.index))
     part, tickets = scratch(dev, B, KV, G, D, nsplit)
     out = torch.empty_like(q)
     lib = load_library("flash_decode")
     body = choose_body(q.dtype, G, D)
     code = lib.flash_decode_launch(
         B, Smax, H, KV, D, DTYPE_CODES[q.dtype], BODY_CODES[body],
-        head_split(G) if body == "simt" else 1, nsplit, split_len, float(scale),
+        head_split(G) if body == "simt" else 1, nsplit, split_len, int(window or 0), float(scale),
         float(softcap or 0.0), q.data_ptr(), k.data_ptr(), v.data_ptr(), n_len.data_ptr(),
         part.data_ptr(), tickets.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)

@@ -156,15 +156,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
 
 
 def flash_decode(q, k, v, kv_len, *, scale: Optional[float] = None,
-                 softcap: Optional[float] = None):
-    """One query token over the cache positions < kv_len, q [B, 1, H, D],
-    k/v [B, Smax, KV, D] -> [B, 1, H, D]; see kernels.ref.flash_decode_ref."""
+                 softcap: Optional[float] = None, window: Optional[int] = None):
+    """One query token over the cache positions < kv_len (and, with a
+    ``window``, >= kv_len - window), q [B, 1, H, D], k/v [B, Smax, KV, D] ->
+    [B, 1, H, D]; see kernels.ref.flash_decode_ref."""
     if q.is_cuda:
         from repro_torch.kernels.flash_decode import flash_decode_cuda
-        out = flash_decode_cuda(q, k, v, kv_len, scale=scale, softcap=softcap)
+        out = flash_decode_cuda(q, k, v, kv_len, scale=scale, softcap=softcap, window=window)
         launch_counts["flash_decode"] += 1
         return out
-    return _ref.flash_decode_ref(q, k, v, kv_len, scale=scale, softcap=softcap)
+    return _ref.flash_decode_ref(q, k, v, kv_len, scale=scale, softcap=softcap, window=window)
 
 
 def ssd_chunk(x, dt, A, Bm, Cm):

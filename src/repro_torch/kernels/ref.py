@@ -232,13 +232,19 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len, *,
-                     scale: Optional[float] = None,
-                     softcap: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None, softcap: Optional[float] = None,
+                     window: Optional[int] = None) -> torch.Tensor:
     """Plain version of the flash decode kernel: q [B, 1, H, D] over cache
     positions < kv_len of k/v [B, Smax, KV, D] -> [B, 1, H, D] in q's dtype.
     ``kv_len`` is an int or a one-value tensor (compared on its device, never
-    read on the host).  f32 throughout, as the flash kernels (reference
-    ``kernels/ref.py:52`` rounds the probabilities to v's dtype instead)."""
+    read on the host).  With a ``window`` the query (position kv_len - 1)
+    sees only positions >= kv_len - window, the reference's mask
+    ``kv_pos > q_pos - window`` (``repro/models/layers.py:143``); kv_len is
+    taken at most Smax first, as the kernel takes it.  f32 throughout, as
+    the flash kernels (reference ``kernels/ref.py:52`` rounds the
+    probabilities to v's dtype instead)."""
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
     B, _, H, D = q.shape
     Smax, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -246,8 +252,13 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len, 
     qf = (q.to(torch.float32) * scale).reshape(B, 1, KV, G, D)
     logits = torch.einsum("bqkgd,bskd->bkgqs", qf, k.to(torch.float32))
     if isinstance(kv_len, torch.Tensor):
-        kv_len = kv_len.to(q.device).reshape(())
-    mask = torch.arange(Smax, device=q.device) < kv_len
+        kv_len = kv_len.to(q.device).reshape(()).clamp(max=Smax)
+    else:
+        kv_len = min(kv_len, Smax)
+    pos = torch.arange(Smax, device=q.device)
+    mask = pos < kv_len
+    if window is not None:
+        mask &= pos >= kv_len - window
     out = _flash_softmax_pv(logits, mask, v, softcap)
     return out.reshape(B, 1, H, D).to(q.dtype)
 

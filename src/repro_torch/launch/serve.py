@@ -95,6 +95,7 @@ class ServeEngine:
         for i, r in enumerate(reqs):
             batch[i, maxlen - len(r.prompt):] = r.prompt   # left-pad
             self.active[i] = r
+        self.cache = None                        # freed before the next is allocated
         self.cache = self.model.init_cache(self.slots, self.max_seq)
         logits, self.cache = self.model.prefill(
             {"tokens": torch.as_tensor(batch, device=self.device)}, self.cache)

@@ -1,18 +1,28 @@
-"""Standard GQA attention (the reference's ``models/attention.py:25-133``).
+"""Standard GQA attention (the reference's ``models/attention.py:25-132``).
 
 ``GQAttention.forward(x, rope=(cos, sin), cache=None, cache_pos=None,
-window=None) -> y``.  Attention itself goes through
-``kernels.ops``, so a card runs the hand-written kernels:
+window=None) -> y``, ``window`` the layer's sliding window (gemma2's local
+layers) or None.  Attention itself goes through ``kernels.ops``, so a card
+runs the hand-written kernels:
 
   * no cache (training / encoder forward): ``ops.flash_attention`` over the
     S tokens;
   * prefill (S > 1, from position 0): k/v are written at [0, S) of this layer's
-    cache and ``ops.flash_attention`` runs causally over the S new tokens,
-    which is the reference's masked attention over the cache (its slots
-    >= S are masked out and weigh exp(-1e30 - m) = 0);
+    cache and ``ops.flash_attention`` runs causally (and windowed) over the
+    S new tokens, which is the reference's masked attention over the cache
+    (its slots >= S are masked out and weigh exp(-1e30 - m) = 0);
   * decode (S = 1): k/v are written at ``cache_pos`` (an int64 [1] index
     on the device) and ``ops.flash_decode`` reads the cache with
-    ``kv_len`` = cache_pos + 1 (an int32 on the device; no host sync).
+    ``kv_len`` = cache_pos + 1 (an int32 on the device; no host sync) and
+    the window, which the kernel applies on the card.
+  * ring cache: a windowed layer whose cache holds at most ``window`` slots
+    (the reference's test ``cache["k"].shape[1] <= window``, met by
+    ``ring_cache`` configs) keeps the last W positions, position p in slot
+    p % W.  Decode writes slot cache_pos % W (computed on the device) and
+    reads every written slot with no window: the ring holds exactly the
+    window the query sees, and its slot numbers are not positions.  Prefill
+    attends in-sequence with the window, then stores the last W positions
+    in their slots.
 
 The cache is this layer's {"k", "v"}, each [B, Smax, KV, D] (the
 reference's layout), updated in place: the port does not copy a 36-layer
@@ -21,9 +31,9 @@ cache every step as the functional reference does.
 ``attn_batch_shard`` runs the cache-free attention between the
 reference's two activation constraints (``distributed.sharding.constrain``:
 x over ("dpm", None, None), y over ("dp", None, None)); on one card both are
-identities, so the flag changes nothing there.  MLA and a sliding window
-with a cache (``ring_cache``) raise ``NotImplementedError`` naming their
-ROADMAP items: they have no path on the card yet.
+identities, so the flag changes nothing there.  MLA raises
+``NotImplementedError`` naming its ROADMAP item: it has no path on the card
+yet.
 """
 from __future__ import annotations
 
@@ -41,8 +51,6 @@ def check_supported(cfg) -> None:
     """Raise for the attention variants the port has not ported yet."""
     if cfg.mla:
         raise NotImplementedError("MLA attention is not ported yet: ROADMAP.md Queue 1 item 8c")
-    if cfg.ring_cache:
-        raise NotImplementedError("ring_cache is not ported yet: ROADMAP.md Queue 1 item 8a")
 
 
 class GQAttention(nn.Module):
@@ -96,28 +104,47 @@ class GQAttention(nn.Module):
             q = L.rotate(q, rope)
             k = L.rotate(k, rope)
 
-        if cache is None:
+        if cache is None or S > 1:                      # no cache, or prefill from 0
             out = ops.flash_attention(q, k, v, causal=cfg.causal, window=window,
                                       softcap=cfg.attn_softcap, scale=cfg.query_scale)
-        elif window is not None:
-            raise NotImplementedError("a sliding window with a KV cache is not ported yet: "
-                                      "ROADMAP.md Queue 1 item 8a")
-        elif S > 1:                                    # prefill from position 0
-            cache["k"][:, :S] = k
-            cache["v"][:, :S] = v
-            out = ops.flash_attention(q, k, v, causal=cfg.causal, softcap=cfg.attn_softcap,
-                                      scale=cfg.query_scale)
+            if cache is not None:
+                store_prefill(cache, k, v, window)
         else:
             ck, cv = cache["k"], cache["v"]
-            ck.index_copy_(1, cache_pos, k)
-            cv.index_copy_(1, cache_pos, v)
+            ring = is_ring(window, ck.shape[1])
+            slot = cache_pos % ck.shape[1] if ring else cache_pos
+            ck.index_copy_(1, slot, k)
+            cv.index_copy_(1, slot, v)
             out = ops.flash_decode(q, ck, cv, kv_len, softcap=cfg.attn_softcap,
-                                   scale=cfg.query_scale)
+                                   scale=cfg.query_scale, window=None if ring else window)
         y = L.linear(out.reshape(B, S, cfg.num_heads * D), self.wo)
         return constrain(y, ("dp", None, None)) if batch_shard else y
 
 
-def gqa_cache_shape(cfg, batch: int, max_seq: int) -> dict:
-    """KV-cache shape of one layer."""
-    shape = (batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+def is_ring(window: Optional[int], slots: int) -> bool:
+    """Whether a layer's cache of ``slots`` positions is a ring: the
+    reference's test, a windowed layer whose cache holds at most ``window``."""
+    return window is not None and slots <= window
+
+
+def store_prefill(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                  window: Optional[int]) -> None:
+    """Write a prefill's k/v [B, S, KV, D] (positions [0, S)) into this
+    layer's cache: at [0, S), or, in a ring of W slots holding fewer than
+    S, the last W positions p at slots p % W."""
+    S, W = k.shape[1], cache["k"].shape[1]
+    if is_ring(window, W) and S >= W:
+        slots = torch.arange(S - W, S, device=k.device) % W
+        cache["k"].index_copy_(1, slots, k[:, S - W:])
+        cache["v"].index_copy_(1, slots, v[:, S - W:])
+    else:
+        cache["k"][:, :S] = k
+        cache["v"][:, :S] = v
+
+
+def gqa_cache_shape(cfg, batch: int, max_seq: int, window: Optional[int] = None) -> dict:
+    """KV-cache shape of one layer (``window`` caps a local layer's cache,
+    the reference's ``gqa_cache_shape``)."""
+    s = max_seq if window is None else min(max_seq, window)
+    shape = (batch, s, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"k": shape, "v": shape}

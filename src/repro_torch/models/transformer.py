@@ -1,27 +1,33 @@
-"""Decoder-only transformer LM of the dense family (qwen2.5, smollm, olmo).
+"""Decoder-only transformer LM of the dense family (qwen2.5, smollm, olmo,
+gemma2).
 
 The port of ``repro/models/transformer.py`` for ``family == "dense"``: an
 ``nn.ModuleList`` of blocks takes the place of the reference's stacked and
-scanned layers.  Entry points, as the reference's (the parameters live in
-the module):
+scanned layers; block i is the reference's layer i, which its scan keeps
+as group i // G, position i % G of a group of G layers (``layer_windows``:
+gemma2's ``local_global_pattern`` groups a local layer, with ``cfg.window``,
+and a global one, without).  Entry points, as the reference's (the
+parameters live in the module):
 
     model.forward_train(batch) -> (logits [B, S, V] f32, aux 0.0)
     model.init_cache(batch, max_seq) -> cache
     model.prefill(batch, cache) -> (logits [B, 1, V], cache)
     model.decode_step(token [B, 1], cache) -> (logits [B, 1, V], cache)
 
-The cache is {"pos": int32 scalar on the device, "layers": [{"k", "v"}]};
-prefill and decode update it in place and return it.  A decode step never
-reads the position on the host.
+The cache is {"pos": int32 scalar on the device, "layers": [{"k", "v"}]},
+one entry a block; with ``ring_cache`` a windowed layer's holds
+min(window, max_seq) slots.  Prefill and decode update it in place and
+return it.  A decode step never reads the position on the host.
 
-``post_block_norms``, ``embed_scale`` and ``final_softcap`` are honoured.
-MoE (``num_experts > 0``, ``first_dense_layers``) and
-``local_global_pattern`` raise ``NotImplementedError``; the loss and every
+``post_block_norms``, ``embed_scale``, ``final_softcap``, the attention
+softcap and the query scale are honoured.  MoE (``num_experts > 0``,
+``first_dense_layers``) raises ``NotImplementedError``; the loss and every
 backward pass wait for the training slice (ROADMAP.md).
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -36,9 +42,24 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch
 def check_dense(cfg: ModelConfig) -> None:
     if cfg.num_experts > 0 or cfg.first_dense_layers:
         raise NotImplementedError("MoE layers are not ported yet: ROADMAP.md Queue 1 item 8b")
+
+
+def group_windows(cfg: ModelConfig) -> tuple[Optional[int], ...]:
+    """The windows of a group of the reference's ``layer_plan``
+    (``repro/models/transformer.py:108-117``): (window, None) for
+    ``local_global_pattern``, else (window,)."""
     if cfg.local_global_pattern:
-        raise NotImplementedError("local_global_pattern (gemma2) is not ported yet: "
-                                  "ROADMAP.md Queue 1 item 8a")
+        if cfg.num_layers % 2:
+            raise ValueError(f"local_global_pattern needs an even layer count, "
+                             f"got {cfg.num_layers}")
+        return (cfg.window, None)
+    return (cfg.window,)
+
+
+def layer_windows(cfg: ModelConfig) -> list[Optional[int]]:
+    """Each layer's sliding window (None: global attention)."""
+    groups = group_windows(cfg)
+    return [groups[i % len(groups)] for i in range(cfg.num_layers)]
 
 
 class Block(nn.Module):
@@ -88,6 +109,7 @@ class TransformerLM(nn.Module):
             torch.empty(cfg.d_model, cfg.vocab_size, **kw), requires_grad=False))
         self.blocks = nn.ModuleList(Block(cfg, dtype=self.dtype, device=device)
                                     for _ in range(cfg.num_layers))
+        self.windows = layer_windows(cfg)
 
     @property
     def device(self) -> torch.device:
@@ -106,10 +128,14 @@ class TransformerLM(nn.Module):
 
     # -- caches --------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int) -> dict:
-        """A zeroed cache in the parameters' dtype, the k/v dtype."""
+        """A zeroed cache in the parameters' dtype, the k/v dtype; with
+        ``ring_cache`` a windowed layer holds min(window, max_seq) slots
+        (the reference's ``init_cache``)."""
+        ring = self.cfg.ring_cache
         layers = [{name: torch.zeros(shape, dtype=self.dtype, device=self.device)
-                   for name, shape in gqa_cache_shape(self.cfg, batch, max_seq).items()}
-                  for _ in self.blocks]
+                   for name, shape in gqa_cache_shape(self.cfg, batch, max_seq,
+                                                      w if ring else None).items()}
+                  for w in self.windows]
         return {"pos": torch.zeros((), dtype=torch.int32, device=self.device), "layers": layers}
 
     # -- forward -------------------------------------------------------------
@@ -132,9 +158,9 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         rope = (L.rope_tables(positions, cfg.rope_dim or cfg.resolved_head_dim, cfg.rope_theta)
                 if cfg.use_rope else None)
-        for i, block in enumerate(self.blocks):
+        for i, (block, window) in enumerate(zip(self.blocks, self.windows)):
             c = cache["layers"][i] if cache is not None else None
-            x = block(x, rope=rope, window=cfg.window, cache=c, cache_pos=cache_pos,
+            x = block(x, rope=rope, window=window, cache=c, cache_pos=cache_pos,
                       kv_len=kv_len)
         return x
 

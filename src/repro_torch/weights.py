@@ -10,7 +10,9 @@ weights, and the optional utility curves may be absent or None.
 ``lm_from_reference`` builds the port's model from the reference's params
 pytree as numpy arrays, by ``cfg.family``: for the dense ``TransformerLM``
 its ``init``'s layout (``embed``, ``final_norm``, optional ``lm_head``, and
-``layers`` a list of one group whose leaves are stacked [num_layers, ...]);
+``layers`` a list of G groups whose leaves are stacked [num_layers / G,
+...]: one group, or gemma2's two, local and global, whose leaf g of group j
+is the port's block G g + j);
 for the hybrid ``Zamba2`` its ``init``'s (``embed``, ``final_norm``,
 ``layers`` a dict of Mamba2 leaves stacked [num_layers, ...], and
 ``shared`` = {in_proj, ln1, attn, ln2, mlp, out_proj [apps, d, d]}).
@@ -28,6 +30,7 @@ import torch
 from repro_torch.core.problem import GOAL_NAMES, GoalWeights, Problem
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.model import empty_model
+from repro_torch.models.transformer import group_windows
 
 _CURVES = ("util_knee", "util_slope", "util_weight")
 
@@ -144,10 +147,9 @@ def lm_from_reference(cfg, params_np: dict, device=DEFAULT_DEVICE):
         raise NotImplementedError("unrolled prefix layers belong to MoE configs, "
                                   "which are not ported yet")
     groups = params_np["layers"]
-    if len(groups) != 1:
-        raise NotImplementedError("layer groups of more than one layer belong to "
-                                  "local_global_pattern configs, which are not ported yet")
-    stacked = groups[0]
+    G = len(group_windows(cfg))
+    if len(groups) != G:
+        raise ValueError(f"{len(groups)} layer groups for a plan of {G}")
     _put(model.embed, params_np["embed"])
     for key, t in _norm_params(model.final_norm).items():
         _put(t, params_np["final_norm"] if key == "" else params_np["final_norm"][key])
@@ -155,13 +157,14 @@ def lm_from_reference(cfg, params_np: dict, device=DEFAULT_DEVICE):
         _put(model.lm_head, params_np["lm_head"])
     for i, block in enumerate(model.blocks):
         for path, t in _layer_tensors(block).items():
-            _put(t, _get(stacked, path)[i])
+            _put(t, _get(groups[i % G], path)[i // G])
     return model
 
 
 def lm_to_numpy(model) -> dict:
     """The inverse of ``lm_from_reference``: the reference's params pytree
-    with numpy leaves (stacked [num_layers, ...]; f32 for bf16 weights)."""
+    with numpy leaves (stacked [num_layers / G, ...] in G groups; f32 for
+    bf16 weights)."""
     if model.cfg.family == "hybrid":
         shared = {}
         for (sub, name), t in _shared_tensors(model.shared).items():
@@ -187,17 +190,20 @@ def lm_to_numpy(model) -> dict:
                                                       _norm_params(model.final_norm).items()})}
     if model.lm_head is not None:
         out["lm_head"] = _arr(model.lm_head)
-    per_layer = [_layer_tensors(b) for b in model.blocks]
+    G = len(group_windows(model.cfg))
     first = model.blocks[0]
-    group = {}
-    for name in ("ln1", "ln2", "ln1_post", "ln2_post"):
-        if hasattr(first, name):
-            norm = getattr(first, name)
-            group[name] = norm_tree(norm, {
-                key: np.stack([_arr(layer[(name, key)]) for layer in per_layer])
-                for key in _norm_params(norm)})
-    for sub, names in (("attn", _ATTN), ("mlp", _MLP)):
-        group[sub] = {name: np.stack([_arr(layer[(sub, name)]) for layer in per_layer])
-                      for name in names if (sub, name) in per_layer[0]}
-    out["layers"] = [group]
+    out["layers"] = []
+    for j in range(G):                  # group j stacks blocks j, G + j, 2 G + j, ...
+        per_layer = [_layer_tensors(b) for b in model.blocks[j::G]]
+        group = {}
+        for name in ("ln1", "ln2", "ln1_post", "ln2_post"):
+            if hasattr(first, name):
+                norm = getattr(first, name)
+                group[name] = norm_tree(norm, {
+                    key: np.stack([_arr(layer[(name, key)]) for layer in per_layer])
+                    for key in _norm_params(norm)})
+        for sub, names in (("attn", _ATTN), ("mlp", _MLP)):
+            group[sub] = {name: np.stack([_arr(layer[(sub, name)]) for layer in per_layer])
+                          for name in names if (sub, name) in per_layer[0]}
+        out["layers"].append(group)
     return out

@@ -25,7 +25,10 @@ bit equal to its plain version, and the batched solve on the card equal to
 with the CPU's actions and routes, and the controller's sharded route equal
 to ``balance_fleet`` on the card.  The SSD chunk kernel within the reference's 5e-5 (f32
 operands, 3xTF32 tensor-core products), also with x drawn 30 times larger.  A reduced-config serve on the card gives the CPU plain path's
-tokens, and a reduced Zamba2 on the card gives the CPU's logits and caches.
+tokens, and a reduced Zamba2 on the card gives the CPU's logits and caches,
+as does a reduced gemma2 with full and ring caches; the windowed decode at
+gemma2's shape and at small odd ones, and the ring read, in the flash
+tolerances.
 The gradient compression kernels bit for bit equal to their plain versions
 (NaN compared as NaN), and ``GradCompressor`` on the card to the CPU's.
 """
@@ -671,6 +674,132 @@ def test_reduced_zamba2_on_the_card_gives_the_cpu_logits(cuda_device):
     for name in ("attn_k", "attn_v"):
         close(card_cache[name], cpu_cache[name], name)
     assert int(card_cache["pos"]) == S + steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softcap", [None, 50.0])
+def test_flash_decode_window_at_gemma2_decode(cuda_device, softcap):
+    """gemma2's decode (B=8, Smax=8,192, H=16, KV=8, D=256, bf16, the SIMT
+    body) with its local layers' window of 4,096, kv_len below, at and
+    past the window up to Smax; the window bites (a call without it
+    differs at kv_len 8,000)."""
+    from repro_torch.kernels.flash_decode import choose_body
+
+    B, Smax, H, KV, D, window = 8, 8192, 16, 8, 256, 4096
+    bf16 = torch.bfloat16
+    assert choose_body(bf16, H // KV, D) == "simt"
+    q = _normal((B, 1, H, D), bf16, cuda_device, 40)
+    k = _normal((B, Smax, KV, D), bf16, cuda_device, 41)
+    v = _normal((B, Smax, KV, D), bf16, cuda_device, 42)
+    lens = (1, 17, 4095, 4096, 4097, 4160, 8000, 8192)
+    ops.reset_launch_counts()
+    for kv_len in lens:
+        n = torch.tensor(kv_len, dtype=torch.int32, device=cuda_device)
+        got = ops.flash_decode(q, k, v, n, softcap=softcap, window=window, scale=1 / 16)
+        want = flash_decode_ref(q, k, v, n, softcap=softcap, window=window, scale=1 / 16)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(host(got.float()), host(want.float()),
+                                   err_msg=f"kv_len={kv_len}", **_flash_tol(bf16))
+    assert ops.launch_counts["flash_decode"] == len(lens)
+    unwindowed = ops.flash_decode(q, k, v, 8000, softcap=softcap, scale=1 / 16)
+    assert float((unwindowed.float() - got.float()).abs().max()) > 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Smax,H,KV,D,body", [
+    (2, 200, 16, 2, 128, "mma"),      # the tensor-core body in bf16
+    (1, 257, 16, 8, 256, "simt"),     # gemma2's head_dim
+    (2, 130, 4, 2, 16, "simt"),       # the reduced configs'
+])
+def test_flash_decode_window_at_small_odd_shapes(cuda_device, dtype, B, Smax, H, KV, D, body):
+    """Windows of 1, inside a 64-row tile (lo = kv_len - window not on a
+    tile edge), on a tile, and >= Smax (no window) in both bodies."""
+    from repro_torch.kernels.flash_decode import choose_body
+
+    if dtype == torch.bfloat16:
+        assert choose_body(dtype, H // KV, D) == body
+    q = _normal((B, 1, H, D), dtype, cuda_device, 43)
+    k = _normal((B, Smax, KV, D), dtype, cuda_device, 44)
+    v = _normal((B, Smax, KV, D), dtype, cuda_device, 45)
+    cases = [(w, n) for w in (1, 37, 64, 70, Smax, Smax + 5)
+             for n in (1, 17, 63, 64, 100, 129, Smax - 1, Smax)]
+    ops.reset_launch_counts()
+    for window, kv_len in cases:
+        n = torch.tensor(kv_len, dtype=torch.int32, device=cuda_device)
+        got = ops.flash_decode(q, k, v, n, window=window)
+        want = flash_decode_ref(q, k, v, n, window=window)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(host(got.float()), host(want.float()),
+                                   err_msg=f"window={window} kv_len={kv_len}",
+                                   **_flash_tol(dtype))
+    assert ops.launch_counts["flash_decode"] == len(cases)
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_decode(q, k, v, 5, window=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softcap", [None, 50.0])
+def test_flash_decode_ring_read(cuda_device, softcap):
+    """A local layer's ring of 4,096 slots (gemma2's decode shape, no
+    window): kv_len past the ring reads every slot, as kv_len = Smax."""
+    B, W, H, KV, D = 8, 4096, 16, 8, 256
+    bf16 = torch.bfloat16
+    q = _normal((B, 1, H, D), bf16, cuda_device, 46)
+    k = _normal((B, W, KV, D), bf16, cuda_device, 47)
+    v = _normal((B, W, KV, D), bf16, cuda_device, 48)
+    want = flash_decode_ref(q, k, v, W, softcap=softcap)
+    for kv_len in (W + 1, 5000, 8000):
+        n = torch.tensor(kv_len, dtype=torch.int32, device=cuda_device)
+        got = ops.flash_decode(q, k, v, n, softcap=softcap)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(host(got.float()), host(want.float()),
+                                   err_msg=f"kv_len={kv_len}", **_flash_tol(bf16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", [False, True])
+def test_reduced_gemma2_on_the_card_gives_the_cpu_logits(cuda_device, ring):
+    """Reduced gemma2 (window 16, local and global layers) in f32: a prefill
+    past the window, then decode steps across it (wrapping the ring with
+    ``ring_cache``): logits and every cache on the card within 1e-4 of
+    their scale of the CPU's plain path; one flash_attention launch a layer
+    for the prefill and one flash_decode a layer a step."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, reduce_for_smoke
+
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("gemma2-9b")), ring_cache=ring)
+    cpu_model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(7))
+    card_model = copy.deepcopy(cpu_model).to(cuda_device)
+    B, S, steps, Smax = 2, 20, 12, 40
+    toks = torch.as_tensor(np.random.default_rng(7).integers(0, cfg.vocab_size, (B, S + steps)))
+    out = {}
+    for name, model in (("cpu", cpu_model), ("card", card_model)):
+        dev = model.device
+        ops.reset_launch_counts()
+        cache = model.init_cache(B, Smax)
+        logits, cache = model.prefill({"tokens": toks[:, :S].to(dev)}, cache)
+        got = [logits]
+        for s in range(S, S + steps):
+            logits, cache = model.decode_step(toks[:, s:s + 1].to(dev), cache)
+            got.append(logits)
+        out[name] = (got, cache, dict(ops.launch_counts))
+    (cpu_logits, cpu_cache, _), (card_logits, card_cache, counts) = out["cpu"], out["card"]
+    assert counts["flash_attention"] == cfg.num_layers
+    assert counts["flash_decode"] == cfg.num_layers * steps
+    assert card_cache["layers"][0]["k"].shape[1] == (cfg.window if ring else Smax)
+
+    def close(a, b, what):
+        a, b = host(a).astype(np.float64), host(b).astype(np.float64)
+        assert np.max(np.abs(a - b)) <= 1e-4 * (np.max(np.abs(b)) + 1e-30), what
+
+    for i, (a, b) in enumerate(zip(card_logits, cpu_logits)):
+        close(a, b, f"logits {i}")
+    for i, (a, b) in enumerate(zip(card_cache["layers"], cpu_cache["layers"])):
+        for name in ("k", "v"):
+            close(a[name], b[name], f"layer {i} {name}")
 
 
 def _round_both(args):

@@ -188,6 +188,35 @@ def test_bf16_model_on_the_cpu_follows_the_f32_one():
     assert _scaled_err(dec[:, 0].numpy(), got[:, -1].numpy()) <= 2 ** -5
 
 
+# Variants the port now serves (``local_global_pattern`` and ``ring_cache``,
+# gemma2's) keep their cases here and check the route they take instead.
+PORTED_VARIANTS = ("local_global_pattern", "ring_cache")
+
+
+def _windowed_route(cfg, B: int = 2, P: int = 12, S: int = 16, max_seq: int = 20):
+    """Build ``cfg`` (a window of 8 where it has none); each layer's window
+    follows the layer plan, each cache has the plan's slots, and a windowed
+    prefill of P tokens then decode steps to S give the teacher-forced
+    logits of ``forward_train`` within REL."""
+    if cfg.window is None:
+        cfg = dataclasses.replace(cfg, window=8)
+    m = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    pattern = (cfg.window, None) if cfg.local_global_pattern else (cfg.window,)
+    assert m.windows == [pattern[i % len(pattern)] for i in range(cfg.num_layers)]
+    cache = m.init_cache(B, max_seq)
+    for w, layer in zip(m.windows, cache["layers"]):
+        ring = cfg.ring_cache and w is not None
+        assert layer["k"].shape[1] == (min(w, max_seq) if ring else max_seq)
+    toks = torch.as_tensor(np.random.default_rng(6).integers(0, cfg.vocab_size, (B, S)))
+    full, _ = m.forward_train({"tokens": toks})
+    pre, cache = m.prefill({"tokens": toks[:, :P]}, cache)
+    assert _scaled_err(pre[:, 0].numpy(), full[:, P - 1].numpy()) <= REL
+    for s in range(P, S):
+        dec, cache = m.decode_step(toks[:, s:s + 1], cache)
+        assert _scaled_err(dec[:, 0].numpy(), full[:, s].numpy()) <= REL, s
+    return m
+
+
 @pytest.mark.parametrize("change,match", [
     (dict(num_experts=4, top_k=2, d_ff_expert=32), "MoE"),
     (dict(local_global_pattern=True, window=8), "local_global_pattern"),
@@ -196,21 +225,32 @@ def test_bf16_model_on_the_cpu_follows_the_f32_one():
     (dict(family="ssm"), "ssm"),
 ])
 def test_unported_variants_raise(change, match):
+    """Unported variants raise naming themselves; the two gemma2 brings
+    (alternating local/global windows, ring caches) take their route."""
     cfg = dataclasses.replace(reduce_for_smoke(get_config("smollm-360m")), **change)
+    if match in PORTED_VARIANTS:
+        m = _windowed_route(cfg)
+        if match == "local_global_pattern":
+            assert m.windows == [8, None, 8, None]
+        else:
+            assert m.windows == [8] * 4 and cfg.ring_cache
+        return
     with pytest.raises(NotImplementedError, match=match):
         build_model(cfg, device="cpu")
 
 
 def test_window_with_a_cache_raises_and_unported_archs_name_their_item():
+    """A sliding window with a KV cache now serves (windowed prefill and
+    decode on a full cache match the teacher-forced forward); gemma2-9b is
+    ported, and an architecture still unported names its ROADMAP item."""
     cfg = dataclasses.replace(reduce_for_smoke(get_config("smollm-360m")), window=8)
-    m = build_model(cfg, device="cpu")
+    m = _windowed_route(cfg)
     toks = torch.zeros((1, 4), dtype=torch.int64)
     logits, _ = m.forward_train({"tokens": toks})          # no cache: windowed flash attention
     assert torch.isfinite(logits).all()
-    with pytest.raises(NotImplementedError, match="sliding window"):
-        m.prefill({"tokens": toks}, m.init_cache(1, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("gemma2-9b")
+    assert get_config("gemma2-9b").local_global_pattern
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8b"):
+        get_config("granite-moe-1b-a400m")
 
 
 def test_attn_batch_shard_matches_reference(pair):
