@@ -237,9 +237,38 @@ Phases (each raises on failure, so the script exits non-zero):
      logits within 2^-4 of the full caches', the tokens that agree);
      reduced gemma2 in f32 on the card and the CPU, full and ring caches,
      a prefill past the window and decode across it, within 1e-4 of scale.
-  8. A ``{"kernels": [...]}`` line (the flash kernels' launches summed over
-     the serving runs, gemma2's full and ring ones included, with gemma2's
-     shapes beside each; the scheduling kernels' over the balance pass, the
+  8. granite-moe-1b-a400m at full width (gemma2 freed first): the two MoE
+     kernels (``moe_dispatch``: routing, ranks, the capacity cut and the
+     expert buffer; ``moe_combine``: the gated sum back to the tokens) bit
+     for bit against their plain versions at every ``kernels.moe.MOE_CASES``
+     case (granite's prefill, T=8,192, E=32, k=8, capacity 2,560, d=1,024,
+     bf16, with left pads that overflow their experts, and decode, T=8,
+     capacity 64; skewed drops; equal probabilities; deepseek's E=64, k=6,
+     d=2,048; T=1; T=777; rows of no whole 16 bytes in f32 and f16), the
+     combine with and without a shared expert, each timed at granite's two
+     shapes beside its plain version and its bytes bound (no one library
+     call computes either); ``flash_attention`` and ``flash_decode`` at
+     granite's H=16, KV=8, D=64 in bf16 and f32; then full-width
+     granite-moe-1b-a400m in bf16 (random weights from a seeded generator on
+     the card) serves the 16 requests of phase 4 in 2 waves of 8 through
+     ``ServeEngine``, the counts zeroed just before (``flash_attention`` 24
+     x waves, all on the tensor-core body; ``flash_decode`` 24 x steps;
+     ``moe_dispatch`` and ``moe_combine`` 24 x (waves + steps) each); TTFT
+     and decode ms a step per wave beside the step's bytes bound, peak
+     memory, a repeat with the same tokens, one profiled prefill and decode
+     step; the assignments each prefill dropped, by layer and by slot; the
+     serve's own dispatch and combine at the first MoE layer of its first
+     prefill and first decode step held bit for bit to the plain versions
+     on the inputs it gave them; wave 1's first decode logits within 2^-4
+     of the largest logit of a ``prefill`` over the padded prompts plus that
+     token, on every slot that lost no assignment in either run (slot 0 at
+     least; the skipped slots printed); reduced granite and deepseek
+     (mla=False) in f32 on the card and the CPU within 1e-4 of scale.
+  9. A ``{"kernels": [...]}`` line (the flash kernels' launches summed over
+     the serving runs, gemma2's full and ring ones and granite's included,
+     with gemma2's and granite's shapes beside each; the MoE kernels'
+     over phase 8's serve, timed at granite's prefill and its decode; the
+     scheduling kernels' over the balance pass, the
      control loop, the service, the simulator's two pairs and the stream
      router's path, the shard-batched ones' over the measured fleet pass,
      the service and the simulator, the tier table's over every path that
@@ -472,6 +501,18 @@ STREAM_CASES = ({"vocab_size": 49_152, "seq_len": 2048, "global_batch": 64,
 STREAM_STEPS = 32
 ATTN_SHARD_SHAPE = (2, 1024)
 COMPRESS_SRC = "src/repro_torch/kernels/csrc/compress.cu"
+# The MoE serving slice (phase 8): full-width granite-moe-1b-a400m serves the
+# same 16 requests as phase 4 (DENSE_SPEC).  The MoE kernels are held to
+# their plain versions at every kernels.moe.MOE_CASES case and timed at
+# MOE_TIMED (granite's prefill and decode shapes); reduced granite and
+# deepseek (mla=False) run on card and CPU for MOE_SMALL = (B, prompt,
+# decode steps, max_seq).
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_SRC = "src/repro_torch/kernels/csrc/moe.cu"
+MOE_REPLACES = {"moe_dispatch": "src/repro/models/moe.py:71",
+                "moe_combine": "src/repro/models/moe.py:115"}
+MOE_TIMED = ("granite_prefill", "granite_decode")
+MOE_SMALL = (2, 12, 4, 20)
 COMPRESS_REPLACES = {"compress_int8": "src/repro/distributed/compress.py:57",
                      "compress_bf16": "src/repro/distributed/compress.py:53",
                      "decompress_int8": "src/repro/distributed/compress.py:85"}
@@ -1150,6 +1191,16 @@ DECODE_PHASES = {
 }
 
 
+# A granite decode step adds the MoE layers' routing, expert products and
+# combine.
+MOE_DECODE_PHASES = {
+    **DECODE_PHASES,
+    "moe_dispatch (checks + launch)": _ops_call("moe_dispatch"),
+    "moe_combine (checks + launch)": _ops_call("moe_combine"),
+    "expert products (bmm)": lambda f, n: n == "_bmm" and f.endswith("moe.py"),
+}
+
+
 # A Zamba2 decode step adds the Mamba2 layers' one-step forms.
 HYBRID_DECODE_PHASES = {
     **DECODE_PHASES,
@@ -1513,7 +1564,8 @@ def wave_lengths(cfg, spec: ServeSpec = DENSE_SPEC) -> list[int]:
 
 
 def serve_slice(cfg, dev, expected_launches, phases, spec: ServeSpec = DENSE_SPEC,
-                teacher_waves: int = 1, against: str = "forward_train") -> dict:
+                teacher_waves: int = 1, against: str = "forward_train", hooks=None,
+                checks=None) -> dict:
     """Full-width ``cfg`` in bf16 with seeded random weights serves the
     slice's requests (``spec``) through ``ServeEngine``, with the launch
     counters zeroed just before and read just after
@@ -1524,7 +1576,10 @@ def serve_slice(cfg, dev, expected_launches, phases, spec: ServeSpec = DENSE_SPE
     one profiled prefill (device time by kernel name) and one profiled
     decode step (device idle share, one ``flash_decode`` launch a call;
     host phases under cProfile).  Every ``flash_attention`` launch of the
-    serve must have taken the tensor-core body."""
+    serve must have taken the tensor-core body.  ``hooks`` = (install,
+    remove), each called with the model just before and just after the
+    counted serve; ``checks(model, finished)``, run after the teacher-forced
+    checks, returns what ``out["checks"]`` holds."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import body_launches
@@ -1540,10 +1595,14 @@ def serve_slice(cfg, dev, expected_launches, phases, spec: ServeSpec = DENSE_SPE
     n_params = sum(p.numel() for p in model.parameters())
     param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     torch.cuda.reset_peak_memory_stats()
+    if hooks is not None:
+        hooks[0](model)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     finished, wall, _ = serve_once(model, cfg, dev, spec)
     launches = dict(ops.launch_counts)
+    if hooks is not None:
+        hooks[1](model)
     bodies = dict(body_launches)
     peak = torch.cuda.max_memory_allocated()
     waves = wave_stats(finished, t0, spec.slots)
@@ -1604,7 +1663,8 @@ def serve_slice(cfg, dev, expected_launches, phases, spec: ServeSpec = DENSE_SPE
         if tf["prefill_tokens_agree"] != tf["rows"]:
             raise AssertionError(f"a repeat {arch} prefill picked another first token than "
                                  "the served run")
-    tf = teachers[0]
+    tf = teachers[0] if teachers else None
+    extra = checks(model, finished) if checks is not None else None
 
     # one profiled prefill (a fresh wave), then one profiled decode step
     prompts = serve_requests(cfg, spec)[:spec.slots]
@@ -1648,7 +1708,8 @@ def serve_slice(cfg, dev, expected_launches, phases, spec: ServeSpec = DENSE_SPE
     torch.cuda.empty_cache()
     return {"launches": launches, "waves": waves, "idle": idle, "peak_gib": peak / 2**30,
             "wave1": finished[:spec.slots], "teacher": tf, "teachers": teachers,
-            "finished": finished, "param_bytes": param_bytes, "cache_slots": cache_slots}
+            "finished": finished, "param_bytes": param_bytes, "cache_slots": cache_slots,
+            "checks": extra}
 
 
 def serving_phase(dev, record) -> dict:
@@ -2134,6 +2195,364 @@ def gemma2_phase(dev, record) -> dict:
                 for k in ("flash_attention", "flash_decode")}
     print(f"phase 7 ({GEMMA2_ARCH}): {time.perf_counter() - t0:.1f} s", flush=True)
     return {"times": times, "full": full, "ring": ring, "launches": launches, "small": small}
+
+
+MOE_OUTPUTS = ("idx", "gates", "slot", "counts", "buf")
+
+
+def moe_work(probs, x, k: int, capacity: int, slot, shared: bool) -> dict:
+    """Bytes each MoE kernel must move on these inputs (read once, written
+    once), by kernel: the dispatch reads probs and each x row with a kept
+    entry and writes the buffer (zeros included), idx, gates, slot and
+    counts; the combine reads the kept rows of h, idx, slot, gates and the
+    shared expert's output and writes y.  Their operations (E compares an
+    entry, two an element a kept entry) are far below the f32 rate."""
+    T, E = probs.shape
+    d, es = x.shape[1], x.element_size()
+    kept = slot >= 0
+    n_kept, rows = int(kept.sum()), int(kept.any(dim=1).sum())
+    dispatch = T * E * 4 + rows * d * es + E * capacity * d * es + 3 * T * k * 4 + E * 4
+    combine = n_kept * d * es + 3 * T * k * 4 + (T * d * es if shared else 0) + T * d * es
+    return {"moe_dispatch": (float(dispatch), float(T * k * E)),
+            "moe_combine": (float(combine), float(2 * n_kept * d))}
+
+
+def check_moe_bits(kernel: str, label: str, triples, record) -> None:
+    """Each (what, kernel output, plain output) equal bit for bit; the
+    largest abs difference goes into the record."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _bits import same_bits
+
+    for what, got, want in triples:
+        same, diff = same_bits(got, want)
+        record[kernel]["max_abs_err"] = max(record[kernel]["max_abs_err"], diff)
+        if not same:
+            raise AssertionError(f"{kernel} {label}: {what} is not bit for bit the plain "
+                                 f"version's (max abs err {diff:.3e})")
+
+
+def check_moe_case(name: str, dev, record, *, timed=False) -> dict:
+    """Both MoE kernels against their plain versions on the card at
+    ``kernels.moe.MOE_CASES[name]`` (the combine with and without a shared
+    expert's output); with ``timed``, each kernel (the combine without a
+    shared expert, as granite runs it) beside its plain version and its
+    bytes bound."""
+    import torch
+    from repro_torch.kernels.moe import moe_case, moe_combine_cuda, moe_dispatch_cuda
+    from repro_torch.kernels.ref import moe_combine_ref, moe_dispatch_ref
+
+    c = moe_case(name, seed=SERVE_SEED, device=dev)
+    args = (c["probs"], c["x"], c["k"], c["capacity"])
+    got = moe_dispatch_cuda(*args)
+    want = moe_dispatch_ref(*args)
+    torch.cuda.synchronize()
+    check_moe_bits("moe_dispatch", name, zip(MOE_OUTPUTS, got, want), record)
+    idx, gates, slot, counts, _ = want
+    for shared in (None, c["shared"]):
+        y = moe_combine_cuda(c["h"], idx, slot, gates, shared)
+        check_moe_bits("moe_combine", f"{name} shared={shared is not None}",
+                       [("y", y, moe_combine_ref(c["h"], idx, slot, gates, shared))], record)
+    T, E = c["probs"].shape
+    dropped = int((slot < 0).sum())
+    line = (f"moe kernels {name:>16}: T={T} E={E} k={c['k']} d={c['x'].shape[1]} capacity "
+            f"{c['capacity']} {str(c['x'].dtype)[6:]}, {dropped} of {T * c['k']} assignments "
+            f"dropped, most routed to one expert {int(counts.max())}: dispatch (idx, gates, "
+            "slot, counts, buffer) and combine (with and without shared) bit for bit")
+    out = {}
+    if timed:
+        work = moe_work(*args, slot, shared=False)
+        fns = {"moe_dispatch": (lambda: moe_dispatch_cuda(*args), lambda: moe_dispatch_ref(*args)),
+               "moe_combine": (lambda: moe_combine_cuda(c["h"], idx, slot, gates, None),
+                               lambda: moe_combine_ref(c["h"], idx, slot, gates, None))}
+        for kernel, (kern, plain) in fns.items():
+            b, by = bound_ms(*work[kernel])
+            t = {"ms": time_ms(kern), "plain_ms": time_ms(plain, reps=10), "bound_ms": b,
+                 "bound_by": by, "library_ms": None, "bytes": work[kernel][0]}
+            out[kernel] = t
+            line += (f" | {kernel} {t['ms']:.4f} ms ({t['bytes'] / t['ms'] / 1e6:.1f} GB/s of "
+                     f"{t['bytes'] / 1e6:.3f} MB), bound {b:.4f} ms ({by}, {b / t['ms']:.3f} of "
+                     f"it), plain {t['plain_ms']:.4f} ms")
+    print(line, flush=True)
+    return out
+
+
+class MoeTap:
+    """Wraps ``ops.moe_dispatch`` and ``ops.moe_combine`` while a model runs
+    (``install`` / ``remove``): keeps, by reference and computing nothing on
+    the card, each prefill's slots by layer and the inputs and outputs of
+    the first MoE layer's first prefill and first decode step.  The model
+    calls its MoE layers in order, one dispatch and one combine each, so a
+    dispatch's layer is its call index modulo the number of MoE layers; a
+    call over ``slots`` tokens is a decode step (``slots`` rows of one)."""
+
+    def __init__(self, slots: int = SERVE_SLOTS):
+        self.slots = slots
+        self.prefills: list[list] = []        # a prefill: [(layer, slot [T, k], B)]
+        self.captured: dict = {}              # "prefill" / "decode" -> {"dispatch", "combine"}
+        self._pending = None
+
+    def install(self, model) -> None:
+        from repro_torch.kernels import ops
+
+        self.layers = [i for i, b in enumerate(model.blocks) if b.is_moe]
+        self.first = self.layers[0]
+        self._calls = 0
+        self._orig = (ops.moe_dispatch, ops.moe_combine)
+        dispatch, combine = self._orig
+
+        def tapped_dispatch(probs, x, k, capacity):
+            out = dispatch(probs, x, k, capacity)
+            self._on_dispatch(dict(probs=probs, x=x, k=k, capacity=capacity,
+                                   **dict(zip(MOE_OUTPUTS, out))))
+            return out
+
+        def tapped_combine(h, idx, slot, gates, shared):
+            y = combine(h, idx, slot, gates, shared)
+            if self._pending is not None:
+                self.captured[self._pending]["combine"] = dict(h=h, idx=idx, slot=slot,
+                                                               gates=gates, shared=shared, y=y)
+                self._pending = None
+            return y
+
+        ops.moe_dispatch, ops.moe_combine = tapped_dispatch, tapped_combine
+
+    def remove(self, model) -> None:
+        from repro_torch.kernels import ops
+
+        ops.moe_dispatch, ops.moe_combine = self._orig
+
+    def _on_dispatch(self, values: dict) -> None:
+        layer = self.layers[self._calls % len(self.layers)]
+        self._calls += 1
+        T = values["probs"].shape[0]
+        kind = "decode" if T == self.slots else "prefill"
+        if kind == "prefill":
+            if layer == self.first:
+                self.prefills.append([])
+            self.prefills[-1].append((layer, values["slot"], self.slots))
+        if layer == self.first and kind not in self.captured:
+            self.captured[kind] = {"dispatch": values}
+            self._pending = kind
+
+    def slot_drops(self, prefill: int):
+        """Assignments dropped in one prefill: (by layer, by slot summed
+        over the layers)."""
+        by_layer, by_slot = [], 0
+        for _, slot, B in self.prefills[prefill]:
+            dropped = (slot < 0).reshape(B, -1).sum(dim=1)
+            by_layer.append(int(dropped.sum()))
+            by_slot = by_slot + dropped
+        return by_layer, by_slot.tolist()
+
+
+def check_captured_moe(tap: MoeTap, record) -> None:
+    """The serve's own MoE launches at the first MoE layer of its first
+    prefill and first decode step: their outputs against the plain
+    versions on the captured inputs, bit for bit."""
+    from repro_torch.kernels.ref import moe_combine_ref, moe_dispatch_ref
+
+    for kind in ("prefill", "decode"):
+        d, c = tap.captured[kind]["dispatch"], tap.captured[kind]["combine"]
+        want = moe_dispatch_ref(d["probs"], d["x"], d["k"], d["capacity"])
+        check_moe_bits("moe_dispatch", f"serve {kind}",
+                       [(w, d[w], v) for w, v in zip(MOE_OUTPUTS, want)], record)
+        y = moe_combine_ref(c["h"], c["idx"], c["slot"], c["gates"], c["shared"])
+        check_moe_bits("moe_combine", f"serve {kind}", [("y", c["y"], y)], record)
+        T, E = d["probs"].shape
+        print(f"moe serve capture ({kind}, layer {tap.first}, T={T}, capacity "
+              f"{d['capacity']}): the serve's dispatch and combine outputs bit for bit the "
+              f"plain versions on its inputs; {int((d['slot'] < 0).sum())} of {T * d['k']} "
+              "assignments dropped", flush=True)
+
+
+def moe_teacher_check(model, reqs, dev, spec: ServeSpec = DENSE_SPEC) -> dict:
+    """Wave 1's first decode logits against the last logits of a ``prefill``
+    over its padded prompts plus those tokens, row by row.  The two runs
+    prefill different lengths, so their capacities differ and a slot can
+    lose assignments in one and not the other (the reference's semantics:
+    left pads route alike and fill their experts, and the stable sort keeps
+    the earlier slots' entries); a slot is held to TEACHER_TOL only when it
+    lost none in either run (slot 0 never does: its entries come first)."""
+    import numpy as np
+    import torch
+
+    maxlen = max(len(r.prompt) for r in reqs)
+    batch = np.zeros((spec.slots, maxlen), np.int32)
+    first = np.zeros((spec.slots, 1), np.int32)
+    for i, r in enumerate(reqs):
+        batch[i, maxlen - len(r.prompt):] = r.prompt
+        first[i, 0] = r.tokens[0]
+    tokens = torch.as_tensor(batch, device=dev)
+    tok0 = torch.as_tensor(first, device=dev)
+    taps = [MoeTap(spec.slots), MoeTap(spec.slots)]
+    taps[0].install(model)
+    cache = model.init_cache(spec.slots, spec.max_seq)
+    _, cache = model.prefill({"tokens": tokens}, cache)
+    dec, cache = model.decode_step(tok0, cache)
+    taps[0].remove(model)
+    del cache
+    taps[1].install(model)
+    full, _ = model.prefill({"tokens": torch.cat([tokens, tok0], dim=1)},
+                            model.init_cache(spec.slots, spec.max_seq))
+    taps[1].remove(model)
+    got, want = dec[:, 0].float(), full[:, -1].float()
+    drops = [tap.slot_drops(0)[1] for tap in taps]
+    n = len(reqs)
+    checked = [i for i in range(n) if drops[0][i] == 0 and drops[1][i] == 0]
+    skipped = {i: (drops[0][i], drops[1][i]) for i in range(n) if i not in checked}
+    rows = torch.tensor(checked, device=dev)
+    err = (got - want).abs().max(dim=1).values
+    scale = float(want[rows].abs().max()) if checked else float("nan")
+    out = {"checked": checked, "skipped": skipped,
+           "max_abs_err": float(err[rows].max()) if checked else float("nan"), "scale": scale,
+           "row_err": err[:n].tolist(),
+           "argmax_agree": int((got.argmax(-1) == want.argmax(-1))[rows].sum()),
+           "finite": bool(torch.isfinite(dec).all() and torch.isfinite(full).all()),
+           "drops": drops}
+    print(f"teacher-forced check {model.cfg.arch_id} (wave 1): decode vs prefill over the "
+          f"padded prompt + token, rows checked {checked} (no assignment dropped in either run), "
+          f"max abs err {out['max_abs_err']:.4f} of max |logit| {scale:.4f} (tol "
+          f"{TEACHER_TOL:g} x scale), argmax agree {out['argmax_agree']}/{len(checked)}; "
+          "skipped (assignments dropped in the wave's prefill, in the teacher's prefill): "
+          + (", ".join(f"slot {i} {a}, {b}" for i, (a, b) in skipped.items()) or "none")
+          + "; every row's err " + ", ".join(f"{e:.4f}" for e in out["row_err"]), flush=True)
+    if not out["finite"]:
+        raise AssertionError("non-finite logits at full width (MoE)")
+    if 0 not in checked:
+        raise AssertionError("slot 0 lost assignments: its entries come first in the flat "
+                             "order and cannot be dropped")
+    if not out["max_abs_err"] <= TEACHER_TOL * scale:
+        raise AssertionError("MoE decode logits part from the teacher-forced prefill on a slot "
+                             "that lost no assignment")
+    del full, dec
+    return out
+
+
+def moe_small_card_vs_cpu(dev) -> list[dict]:
+    """Phase 8e: reduced granite and deepseek (mla=False) in f32 on the card
+    and on the CPU's plain path: a prefill and decode steps within
+    SMALL_REL of scale, one dispatch and one combine launch an MoE layer a
+    call on the card, and forward_train's aux loss within 1e-6."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_port import reduced_moe_configs
+
+    B, S, steps, Smax = MOE_SMALL
+    out = []
+    for name, cfg in reduced_moe_configs().items():
+        cpu_model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(7))
+        card_model = copy.deepcopy(cpu_model).to(dev)
+        toks = torch.as_tensor(np.random.default_rng(7).integers(0, cfg.vocab_size,
+                                                                 (B, S + steps)))
+        runs = {}
+        for where, model in (("cpu", cpu_model), ("card", card_model)):
+            ops.reset_launch_counts()
+            cache = model.init_cache(B, Smax)
+            logits, cache = model.prefill({"tokens": toks[:, :S].to(model.device)}, cache)
+            got = [logits.cpu()]
+            for s in range(S, S + steps):
+                logits, cache = model.decode_step(toks[:, s:s + 1].to(model.device), cache)
+                got.append(logits.cpu())
+            counts = dict(ops.launch_counts)
+            _, aux = model.forward_train({"tokens": toks.to(model.device)})
+            runs[where] = (got, float(aux), counts)
+        (cl, caux, _), (gl, gaux, counts) = runs["cpu"], runs["card"]
+        rel = max(float((a.double() - b.double()).abs().max() / b.double().abs().max())
+                  for a, b in zip(gl, cl))
+        n_moe = sum(b.is_moe for b in card_model.blocks)
+        print(f"reduced {name}: prefill {S} then {steps} decode steps, card vs CPU logits max rel "
+              f"{rel:.3e} (limit {SMALL_REL:g}), aux {gaux:.8f} vs {caux:.8f}, launches "
+              f"moe_dispatch {counts['moe_dispatch']}, moe_combine {counts['moe_combine']} "
+              f"({n_moe} MoE layers of {cfg.num_layers})", flush=True)
+        if not (rel <= SMALL_REL and abs(gaux - caux) <= 1e-6):
+            raise AssertionError(f"reduced {name}: the card parts from the CPU")
+        if counts["moe_dispatch"] != counts["moe_combine"] or counts["moe_dispatch"] != n_moe * (
+                1 + steps):
+            raise AssertionError(f"reduced {name} launches {counts}")
+        out.append({"name": name, "logit_rel": rel, "aux": (gaux, caux)})
+    return out
+
+
+def moe_phase(dev, record) -> dict:
+    """Phase 8: the MoE kernels at the shared cases (timed at granite's
+    prefill and decode shapes) and the flash kernels at granite's heads,
+    then full-width granite-moe-1b-a400m serves the slice's requests, then
+    reduced granite and deepseek (mla=False) on card and CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe import MOE_CASES, reference_capacity
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False     # the f32 plain versions in full f32
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = get_config(MOE_ARCH)
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+
+    # -- 8a. the MoE kernels against their plain versions, 8b. the flash kernels
+    times = {name: check_moe_case(name, dev, record, timed=name in MOE_TIMED)
+             for name in MOE_CASES}
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 3)
+    wave_lens = wave_lengths(cfg)
+    times["prefill_attention"] = check_flash_attention(
+        f"granite B=8 S={wave_lens[0]} H={H} KV={KV} D={D} bf16", (SERVE_SLOTS, wave_lens[0], H,
+                                                                   KV, D),
+        bf16, dev, gen, record, timed=True)
+    check_flash_attention(f"granite odd B=3 S=333 D={D} f32", (3, 333, H, KV, D), f32, dev, gen,
+                          record)
+    main_len = wave_lens[0] + SERVE_NEW - 1
+    dshape = (SERVE_SLOTS, SERVE_MAX_SEQ, H, KV, D)
+    times["decode_attention"] = check_flash_decode(
+        f"granite B=8 Smax={SERVE_MAX_SEQ} D={D} bf16", dshape, bf16, dev, gen, record,
+        (1, 17, 1000, SERVE_MAX_SEQ, main_len), timed_len=main_len)
+    check_flash_decode(f"granite B=8 Smax={SERVE_MAX_SEQ} D={D} f32", dshape, f32, dev, gen,
+                       record, (1, 17, 1000, SERVE_MAX_SEQ))
+
+    # -- 8c. the slice, its checks -------------------------------------------------
+    tap = MoeTap()
+    moe_layers = cfg.num_layers - cfg.first_dense_layers
+
+    def expected(waves, steps):
+        return {"flash_attention": cfg.num_layers * waves, "flash_decode": cfg.num_layers * steps,
+                "moe_dispatch": moe_layers * (waves + steps),
+                "moe_combine": moe_layers * (waves + steps)}
+
+    def checks(model, finished):
+        check_captured_moe(tap, record)
+        return moe_teacher_check(model, finished[:SERVE_SLOTS], dev)
+
+    run = serve_slice(cfg, dev, expected, MOE_DECODE_PHASES, teacher_waves=0,
+                      hooks=(tap.install, tap.remove), checks=checks)
+    for w in range(len(tap.prefills)):
+        by_layer, by_slot = tap.slot_drops(w)
+        _, slot, B = tap.prefills[w][0]
+        T = slot.shape[0]
+        capacity = reference_capacity(T, cfg.top_k, cfg.num_experts, cfg.capacity_factor, T // B)
+        print(f"moe drops {MOE_ARCH} prefill {w + 1} (T={T}, capacity {capacity}): "
+              f"{sum(by_layer)} of {slot.numel() * len(by_layer)} assignments dropped; by layer "
+              f"{by_layer}; by slot {by_slot}", flush=True)
+    run["drops"] = [tap.slot_drops(w) for w in range(len(tap.prefills))]
+    for i, w in enumerate(run["waves"]):
+        mid = w["prompt_len"] + w["steps"] // 2
+        nbytes, b = decode_step_bound_ms(cfg, run["param_bytes"], mid)
+        w["step_bound_ms"] = b
+        print(f"decode step bound {MOE_ARCH} wave {i + 1}: at kv_len {mid} (mid-wave) "
+              f"{nbytes / 1e9:.4f} GB (every weight, all 32 experts' included, and the cache "
+              f"rows), {b:.4f} ms at the HBM rate; measured {w['decode_ms_per_step']:.4f} ms a "
+              f"step ({b / w['decode_ms_per_step']:.3f} of the bound's rate)", flush=True)
+    tap.captured.clear()
+    torch.cuda.empty_cache()
+
+    # -- 8d. card against CPU, reduced ---------------------------------------------
+    small = moe_small_card_vs_cpu(dev)
+    launches = {k: run["launches"][k] for k in expected(0, 0)}
+    print(f"phase 8 ({MOE_ARCH}): {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"times": times, "run": run, "launches": launches, "small": small}
 
 
 def optimal_phase(cluster, pp, obj0: float, record, dev, *, clock_mhz) -> dict:
@@ -4186,7 +4605,9 @@ def main() -> int:
               "tier_mean": {"max_abs_err": 0.0},
               "compress_int8": {"max_abs_err": 0.0},
               "compress_bf16": {"max_abs_err": 0.0},
-              "decompress_int8": {"max_abs_err": 0.0}}
+              "decompress_int8": {"max_abs_err": 0.0},
+              "moe_dispatch": {"max_abs_err": 0.0},
+              "moe_combine": {"max_abs_err": 0.0}}
 
     # -- 2a. sweep kernels at the stated shapes --------------------------------
     for N, T in ((300, 5), (500, 17), (100_000, 5), (100_000, 128)):
@@ -4479,13 +4900,26 @@ def main() -> int:
     gemma2 = gemma2_phase(dev, record)
     flash_launches = {name: flash_launches[name] + gemma2["launches"][name]
                       for name in ("flash_attention", "flash_decode")}
+
+    # -- 8. granite-moe-1b-a400m at full width: the MoE kernels --------------------
+    gemma2_times, gemma2_launches = gemma2["times"], {k: gemma2[k]["launches"]
+                                                      for k in ("full", "ring")}
+    del gemma2                             # every gemma2 tensor is freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"before phase 8: {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated on the "
+          "card", flush=True)
+    moe = moe_phase(dev, record)
+    flash_launches = {name: flash_launches[name] + moe["launches"][name]
+                      for name in ("flash_attention", "flash_decode")}
     flash_by_path = {name: {SERVE_ARCH: serving["launches"][name],
                             HYBRID_ARCH: hybrid["launches"][name],
-                            GEMMA2_ARCH: gemma2["full"]["launches"][name],
-                            f"{GEMMA2_ARCH} ring_cache": gemma2["ring"]["launches"][name]}
+                            GEMMA2_ARCH: gemma2_launches["full"][name],
+                            f"{GEMMA2_ARCH} ring_cache": gemma2_launches["ring"][name],
+                            MOE_ARCH: moe["launches"][name]}
                      for name in ("flash_attention", "flash_decode")}
 
-    # -- 8. result lines --------------------------------------------------------
+    # -- 9. result lines --------------------------------------------------------
     kernels = [
         {"name": "move_eval_best", "route": "cuda", "source": MOVE_EVAL_SRC,
          "replaces": "src/repro/kernels/move_eval.py:275",
@@ -4548,7 +4982,8 @@ def main() -> int:
          "max_abs_err": record["flash_attention"]["max_abs_err"],
          "ms": fa["ms"], "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"],
          "bound_by": fa["bound_by"], "library_ms": fa["library_ms"],
-         "gemma2": {k: gemma2["times"][k] for k in ("prefill_local", "prefill_global")}},
+         "gemma2": {k: gemma2_times[k] for k in ("prefill_local", "prefill_global")},
+         "granite": moe["times"]["prefill_attention"]},
         {"name": "flash_decode", "route": "cuda", "source": FLASH_DECODE_SRC,
          "replaces": "src/repro/kernels/flash_decode.py:108",
          "launches": flash_launches["flash_decode"],
@@ -4556,7 +4991,8 @@ def main() -> int:
          "max_abs_err": record["flash_decode"]["max_abs_err"],
          "ms": fd["ms"], "plain_ms": fd["plain_ms"], "bound_ms": fd["bound_ms"],
          "bound_by": fd["bound_by"], "library_ms": fd["library_ms"],
-         "gemma2": gemma2["times"]["decode_window"]},
+         "gemma2": gemma2_times["decode_window"],
+         "granite": moe["times"]["decode_attention"]},
         {"name": "ssd_chunk", "route": "cuda", "source": SSD_CHUNK_SRC,
          "replaces": "src/repro/kernels/mamba_scan.py:71",
          "launches": hybrid["launches"]["ssd_chunk"],
@@ -4619,6 +5055,14 @@ def main() -> int:
             "max_abs_err": record[name]["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    for name, replaces in MOE_REPLACES.items():
+        t, d = moe["times"]["granite_prefill"][name], moe["times"]["granite_decode"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": MOE_SRC, "replaces": replaces,
+            "launches": moe["launches"][name], "max_abs_err": record[name]["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "decode": {k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,10 +1,10 @@
 """Architecture registry of the port: the dense configs (gemma2's
-alternating local/global layers among them) and the hybrid (Zamba2) one it
-serves so far.
+alternating local/global layers among them), the MoE one (granite-moe) and
+the hybrid (Zamba2) one it serves so far.
 
 ``get_config(arch_id)`` returns the exact published config (the same
 numbers as the reference's ``repro.configs``); the CLI aliases are the
-reference's.  The other five architectures come with their families in
+reference's.  The other four architectures come with their families in
 later slices of the port (ROADMAP.md, Queue 1 item 8).
 """
 from __future__ import annotations
@@ -17,6 +17,7 @@ ARCHS = (
     "olmo_1b",
     "zamba2_2p7b",
     "gemma2_9b",
+    "granite_moe_1b",
 )
 
 # The reference's CLI aliases, all ten (--arch accepts either form).
@@ -35,8 +36,7 @@ ALIASES = {
 
 # Where each architecture not yet ported stands in ROADMAP.md.
 NOT_YET_PORTED = {
-    "granite_moe_1b": "Queue 1 item 8b (MoE)",
-    "deepseek_v2_lite_16b": "Queue 1 items 8b-8c (MoE and MLA)",
+    "deepseek_v2_lite_16b": "Queue 1 item 8c (MLA)",
     "phi3_vision_4p2b": "Queue 1 item 8d (VLM, audio and xLSTM families)",
     "hubert_xlarge": "Queue 1 item 8d (VLM, audio and xLSTM families)",
     "xlstm_125m": "Queue 1 item 8d (VLM, audio and xLSTM families)",

@@ -23,7 +23,6 @@ the tests hand the port the reference's draw.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 from typing import Optional
@@ -33,7 +32,7 @@ import torch
 from repro_torch.core import goals
 from repro_torch.core.problem import Problem, tier_loads
 from repro_torch.core.solver_local import LocalSearchConfig, SolveResult, solve_local
-from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.device import DEFAULT_DEVICE, full_f32, resolve_device
 from repro_torch.kernels import ops
 
 
@@ -46,17 +45,6 @@ class OptimalSearchConfig:
     seed: int = 0
     batch_moves: int = 16         # top-k batch size of the rounding-refinement
                                   # LocalSearch pass (1 = single-move)
-
-
-@contextlib.contextmanager
-def _full_f32():
-    """f32 products in full f32 (no TF32 on a card) for the block."""
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prev)
 
 
 def _masked_softmax(logits: torch.Tensor, feas: torch.Tensor) -> torch.Tensor:
@@ -112,7 +100,7 @@ def _optimize(problem: Problem, noise: torch.Tensor, *, steps: int, lr: float,
     dev = problem.device
     T = problem.num_tiers
     feas = problem.feasible_mask()
-    with _full_f32():
+    with full_f32():
         # Warm-start at the current assignment with a little exploration noise.
         z = 4.0 * torch.nn.functional.one_hot(problem.assignment0.long(), T).to(torch.float32)
         z = z + 0.01 * noise.to(device=dev, dtype=torch.float32)

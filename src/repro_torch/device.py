@@ -11,6 +11,8 @@ cast to int64 only where they index.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -44,3 +46,15 @@ def device_copy(array, device, dtype=None) -> torch.Tensor:
     ``torch.as_tensor`` of a numpy array shares its memory, so a later
     write to the one would show in the other; this never shares."""
     return torch.as_tensor(np.array(host_array(array), dtype), device=device)
+
+
+@contextlib.contextmanager
+def full_f32():
+    """f32 products in full f32 (no TF32 on a card) for the block, whatever
+    the process-wide ``torch.set_float32_matmul_precision``."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)

@@ -28,13 +28,13 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# Per-source extra flags: the move_eval, commit, optimal_round and compress
-# kernels round every operation on its own (no fused multiply-add), as the
-# plain torch version's ops do.
+# Per-source extra flags: the move_eval, commit, optimal_round, compress and
+# moe kernels round every operation on its own (no fused multiply-add), as
+# the plain torch version's ops do.
 EXTRA_FLAGS = {"move_eval": ["-fmad=false"], "commit": ["-fmad=false"],
                "optimal_round": ["-fmad=false"], "pack": [],
                "flash_attention": [], "flash_decode": [], "ssd_chunk": [],
-               "compress": ["-fmad=false"]}
+               "compress": ["-fmad=false"], "moe": ["-fmad=false"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -74,6 +74,10 @@ SIGNATURES = {
         "compress_int8_launch": [_I, _L, _P, _P, _F, _I, _P, _P, _P, _P],
         "compress_bf16_launch": [_I, _L, _P, _P, _I, _P, _P, _P],
         "decompress_int8_launch": [_L, _P, _P, _I, _P, _P],
+    },
+    "moe": {
+        "moe_dispatch_launch": [_I] * 8 + [_P] * 8,
+        "moe_combine_launch": [_I] * 6 + [_P] * 7,
     },
 }
 

@@ -18,7 +18,8 @@ from repro_torch.kernels import ref as _ref
 launch_counts = {"move_eval": 0, "move_eval_best": 0, "commit_topk": 0, "pack_ffd_tiers": 0,
                  "optimal_round": 0, "flash_attention": 0, "flash_decode": 0, "ssd_chunk": 0,
                  "move_eval_best_batched": 0, "commit_topk_batched": 0, "tier_stats": 0,
-                 "tier_mean": 0, "compress_int8": 0, "compress_bf16": 0, "decompress_int8": 0}
+                 "tier_mean": 0, "compress_int8": 0, "compress_bf16": 0, "decompress_int8": 0,
+                 "moe_dispatch": 0, "moe_combine": 0}
 
 
 def reset_launch_counts() -> None:
@@ -215,3 +216,26 @@ def decompress_int8(q, scale, shape):
             launch_counts["decompress_int8"] += 1
         return out
     return _ref.decompress_int8_ref(q, scale, shape)
+
+
+def moe_dispatch(probs, x, k: int, capacity: int):
+    """MoE routing with the capacity cut -> (idx i32 [T, k], gates f32 [T,
+    k], slot i32 [T, k] (-1: dropped), counts i32 [E], buf [E, capacity, d]);
+    see kernels.ref.moe_dispatch_ref."""
+    if probs.is_cuda:
+        from repro_torch.kernels.moe import moe_dispatch_cuda
+        out = moe_dispatch_cuda(probs, x, k, capacity)
+        launch_counts["moe_dispatch"] += 1
+        return out
+    return _ref.moe_dispatch_ref(probs, x, k, capacity)
+
+
+def moe_combine(h, idx, slot, gates, shared):
+    """The experts' outputs h [E, capacity, d] summed back to their tokens
+    -> y [T, d] in h's dtype; see kernels.ref.moe_combine_ref."""
+    if h.is_cuda:
+        from repro_torch.kernels.moe import moe_combine_cuda
+        out = moe_combine_cuda(h, idx, slot, gates, shared)
+        launch_counts["moe_combine"] += 1
+        return out
+    return _ref.moe_combine_ref(h, idx, slot, gates, shared)

@@ -374,3 +374,66 @@ def decompress_int8_ref(q: torch.Tensor, scale: torch.Tensor, shape: tuple) -> t
     shaped as it."""
     n = math.prod(shape)
     return (q.float() * scale).reshape(-1)[:n].reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# MoE routing (models.moe): dispatch with the capacity cut, and combine
+# ---------------------------------------------------------------------------
+
+MOE_GATE_FLOOR = 1e-9        # the least renormalising sum (the reference's)
+
+
+def moe_dispatch_ref(probs: torch.Tensor, x: torch.Tensor, k: int, capacity: int):
+    """-> (idx i32 [T, k], gates f32 [T, k], slot i32 [T, k], counts i32 [E],
+    buf [E, capacity, d] in x's dtype) for the router's probabilities f32
+    [T, E] and the tokens x [T, d] (``src/repro/models/moe.py:70-112``):
+    token t's k experts in ``top_k``'s order (descending, the lower index
+    first on ties: a stable descending sort); each probability over
+    max(their sum, 1e-9), the sum taken one term at a time in that order;
+    each entry's rank among its expert's entries in flat order t k + j (the
+    reference's stable argsort), slot = rank where rank < capacity, else -1;
+    the entries routed to each expert before the cut; buf[e, r] = x[t] for
+    the kept entry of rank r, zero elsewhere."""
+    T, E = probs.shape
+    dev = probs.device
+    vals, order = torch.sort(probs, dim=1, descending=True, stable=True)
+    idx = order[:, :k].to(torch.int32)
+    top = vals[:, :k]
+    total = top[:, 0]
+    for j in range(1, k):
+        total = total + top[:, j]
+    gates = top / torch.clamp(total, min=MOE_GATE_FLOOR)[:, None]
+    e_flat = idx.reshape(-1).long()
+    counts = torch.bincount(e_flat, minlength=E)
+    by_expert = torch.argsort(e_flat, stable=True)
+    start = torch.cumsum(counts, 0) - counts
+    rank = torch.empty_like(e_flat)
+    rank[by_expert] = torch.arange(T * k, device=dev) - start[e_flat[by_expert]]
+    keep = rank < capacity
+    slot = torch.where(keep, rank, -1).to(torch.int32).reshape(T, k)
+    buf = torch.zeros((E, capacity, x.shape[1]), dtype=x.dtype, device=dev)
+    tok = torch.arange(T * k, device=dev) // k
+    buf[e_flat[keep], rank[keep]] = x[tok[keep]]
+    return idx, gates, slot, counts.to(torch.int32), buf
+
+
+def moe_combine_ref(h: torch.Tensor, idx: torch.Tensor, slot: torch.Tensor,
+                    gates: torch.Tensor, shared: Optional[torch.Tensor]) -> torch.Tensor:
+    """y [T, d] in h's dtype from the experts' outputs h [E, capacity, d]
+    (``src/repro/models/moe.py:114-121``): for each token, from 0.0, its kept
+    entries (slot >= 0) in ascending expert id, each f32(h[e, slot]) * gate
+    added in f32; then f32(shared) where given; one cast at the end."""
+    E, C, d = h.shape
+    order = torch.argsort(idx, dim=1)            # a token's experts are distinct
+    e = torch.gather(idx, 1, order).long()
+    s = torch.gather(slot, 1, order).long()
+    g = torch.gather(gates, 1, order)
+    flat = h.reshape(E * C, d)
+    y = torch.zeros((idx.shape[0], d), dtype=torch.float32, device=h.device)
+    for j in range(idx.shape[1]):
+        keep = s[:, j] >= 0
+        rows = flat[e[:, j] * C + s[:, j].clamp(min=0)].float()
+        y = torch.where(keep[:, None], y + rows * g[:, j, None], y)
+    if shared is not None:
+        y = y + shared.float()
+    return y.to(h.dtype)

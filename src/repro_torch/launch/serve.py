@@ -13,7 +13,8 @@ and every decode step the ``flash_decode`` kernel once per layer; for the
 hybrid Zamba2, once per shared-block application, and every prefill runs the
 ``ssd_chunk`` kernel once per Mamba2 layer (``kernels.ops.launch_counts``).
 
-Run (reduced config, on the card; ``--arch zamba2-2.7b`` for the hybrid):
+Run (reduced config, on the card; ``--arch zamba2-2.7b`` for the hybrid,
+``--arch granite-moe-1b-a400m`` for the MoE family):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
       --requests 24 --max-new 16
 """

@@ -1,9 +1,10 @@
 """Model builder of the port: ``build_model(cfg)`` -> a module with random
 weights on the card (the reference's ``build_model`` plus its ``init``).
 
-The dense family (``TransformerLM``) and the hybrid family (``Zamba2``,
-Mamba2 layers plus a shared attention block) are ported so far; the others
-raise, naming their ROADMAP items.
+The dense and MoE families (``TransformerLM``; MoE blocks hold
+``moe.MoE``) and the hybrid family (``Zamba2``, Mamba2 layers plus a shared
+attention block) are ported so far; the others raise, naming their ROADMAP
+items (MLA attention too, in ``attention.py``).
 """
 from __future__ import annotations
 
@@ -17,7 +18,6 @@ from repro_torch.models.mamba2 import Zamba2
 from repro_torch.models.transformer import TransformerLM
 
 NOT_YET_PORTED = {
-    "moe": "Queue 1 item 8b (MoE)",
     "vlm": "Queue 1 item 8d (VLM, audio and xLSTM families)",
     "audio": "Queue 1 item 8d (VLM, audio and xLSTM families)",
     "ssm": "Queue 1 item 8d (VLM, audio and xLSTM families)",
@@ -29,8 +29,9 @@ def build_model(cfg: ModelConfig, device=DEFAULT_DEVICE,
     """The model of ``cfg`` on ``device`` (default the card; raises without
     one), its weights drawn from ``generator`` with the reference's
     distributions: normal * scale / sqrt(d_in) for dense weights (scale 0.5
-    for the output projections), normal * 0.02 for the embedding, zero
-    biases, norms at one (zero with ``rms_offset``); for the Mamba2 layers
+    for the output projections, each expert's as its own), normal * 0.02
+    for the embedding, zero biases, norms at one (zero with
+    ``rms_offset``), the MoE router f32; for the Mamba2 layers
     also A_log = log(linspace(1, 16, H)), D at one, dt_bias at zero and the
     conv weights normal * 0.1.  Without a generator, one seeded with 0 on
     the device is used."""
@@ -50,6 +51,6 @@ def empty_model(cfg: ModelConfig, device) -> Union[TransformerLM, Zamba2]:
             f"family {cfg.family!r} is not ported yet: ROADMAP.md {NOT_YET_PORTED[cfg.family]}")
     if cfg.family == "hybrid":
         return Zamba2(cfg, device=resolve_device(device)).eval()
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise ValueError(f"unknown family {cfg.family!r}")
     return TransformerLM(cfg, device=resolve_device(device)).eval()

@@ -1,15 +1,19 @@
-"""Decoder-only transformer LM of the dense family (qwen2.5, smollm, olmo,
-gemma2).
+"""Decoder-only transformer LM of the dense and MoE families (qwen2.5,
+smollm, olmo, gemma2; granite-moe, deepseek-v2-lite's MoE layers).
 
-The port of ``repro/models/transformer.py`` for ``family == "dense"``: an
-``nn.ModuleList`` of blocks takes the place of the reference's stacked and
-scanned layers; block i is the reference's layer i, which its scan keeps
-as group i // G, position i % G of a group of G layers (``layer_windows``:
-gemma2's ``local_global_pattern`` groups a local layer, with ``cfg.window``,
-and a global one, without).  Entry points, as the reference's (the
-parameters live in the module):
+The port of ``repro/models/transformer.py``: an ``nn.ModuleList`` of blocks
+takes the place of the reference's unrolled prefix and its stacked and
+scanned layers (its ``layer_plan``).  The first P = ``first_dense_layers``
+blocks are the prefix (dense, no window); block P + i is the reference's
+scanned layer i, which its scan keeps as group i % G, position i // G of a
+group of G layers (``layer_windows``: gemma2's ``local_global_pattern``
+groups a local layer, with ``cfg.window``, and a global one, without, and
+has no prefix).  With ``num_experts > 0`` every scanned block holds a
+``moe.MoE`` where a dense one holds its MLP.  Entry points, as the
+reference's (the parameters live in the module):
 
-    model.forward_train(batch) -> (logits [B, S, V] f32, aux 0.0)
+    model.forward_train(batch) -> (logits [B, S, V] f32, aux: 0.0, or the
+                                   MoE layers' summed aux loss, an f32 tensor)
     model.init_cache(batch, max_seq) -> cache
     model.prefill(batch, cache) -> (logits [B, 1, V], cache)
     model.decode_step(token [B, 1], cache) -> (logits [B, 1, V], cache)
@@ -20,9 +24,9 @@ min(window, max_seq) slots.  Prefill and decode update it in place and
 return it.  A decode step never reads the position on the host.
 
 ``post_block_norms``, ``embed_scale``, ``final_softcap``, the attention
-softcap and the query scale are honoured.  MoE (``num_experts > 0``,
-``first_dense_layers``) raises ``NotImplementedError``; the loss and every
-backward pass wait for the training slice (ROADMAP.md).
+softcap and the query scale are honoured.  Prefill and decode ignore the aux
+loss.  The loss and every backward pass wait for the training slice
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -35,13 +39,15 @@ from torch import nn
 from repro_torch.models import layers as L
 from repro_torch.models.attention import GQAttention, gqa_cache_shape
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import MoE
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    if cfg.num_experts > 0 or cfg.first_dense_layers:
-        raise NotImplementedError("MoE layers are not ported yet: ROADMAP.md Queue 1 item 8b")
+def num_prefix(cfg: ModelConfig) -> int:
+    """Blocks of the reference's unrolled prefix (deepseek's first dense
+    layers; none under ``local_global_pattern``)."""
+    return 0 if cfg.local_global_pattern else cfg.first_dense_layers
 
 
 def group_windows(cfg: ModelConfig) -> tuple[Optional[int], ...]:
@@ -57,18 +63,34 @@ def group_windows(cfg: ModelConfig) -> tuple[Optional[int], ...]:
 
 
 def layer_windows(cfg: ModelConfig) -> list[Optional[int]]:
-    """Each layer's sliding window (None: global attention)."""
-    groups = group_windows(cfg)
-    return [groups[i % len(groups)] for i in range(cfg.num_layers)]
+    """Each layer's sliding window (None: global attention; the prefix has
+    none)."""
+    groups, P = group_windows(cfg), num_prefix(cfg)
+    return [None] * P + [groups[i % len(groups)] for i in range(cfg.num_layers - P)]
+
+
+def layer_moe(cfg: ModelConfig) -> list[bool]:
+    """Whether each layer holds an MoE (the scanned layers of a config with
+    experts, as the reference's ``layer_plan`` has it)."""
+    P = num_prefix(cfg)
+    moe = cfg.num_experts > 0 and not cfg.local_global_pattern
+    return [False] * P + [moe] * (cfg.num_layers - P)
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, dtype, device):
+    """A pre-norm block: attention, then an MLP, or with ``is_moe`` an MoE
+    (``self.moe`` in place of ``self.mlp``)."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype, device, is_moe: bool = False):
         super().__init__()
         self.ln1 = L.Norm(cfg, device)
         self.attn = GQAttention(cfg, dtype=dtype, device=device)
         self.ln2 = L.Norm(cfg, device)
-        self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.activation, dtype=dtype, device=device)
+        if is_moe:
+            self.moe = MoE(cfg, dtype=dtype, device=device)
+        else:
+            self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.activation, dtype=dtype, device=device)
+        self.is_moe = is_moe
         self.post = cfg.post_block_norms
         if self.post:                                  # gemma2 sandwich norms
             self.ln1_post = L.Norm(cfg, device)
@@ -78,27 +100,33 @@ class Block(nn.Module):
         for norm in self.norms():
             norm.reset()
         self.attn.reset(generator)
-        self.mlp.reset(generator)
+        (self.moe if self.is_moe else self.mlp).reset(generator)
 
     def norms(self):
         return [self.ln1, self.ln2] + ([self.ln1_post, self.ln2_post] if self.post else [])
 
-    def forward(self, x, *, rope, window=None, cache=None, cache_pos=None, kv_len=None):
+    def forward(self, x, *, rope, window=None, cache=None, cache_pos=None, kv_len=None,
+                with_aux: bool = False):
+        """-> (x, the MoE's aux loss, or None for an MLP or unless
+        ``with_aux``)."""
         attn_out = self.attn(self.ln1(x), rope=rope, cache=cache, cache_pos=cache_pos,
                              kv_len=kv_len, window=window)
         if self.post:
             attn_out = self.ln1_post(attn_out)
         x = x + attn_out
-        ffn_out = self.mlp(self.ln2(x))
+        aux = None
+        if self.is_moe:
+            ffn_out, aux = self.moe(self.ln2(x), with_aux=with_aux)
+        else:
+            ffn_out = self.mlp(self.ln2(x))
         if self.post:
             ffn_out = self.ln2_post(ffn_out)
-        return x + ffn_out
+        return x + ffn_out, aux
 
 
 class TransformerLM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device):
         super().__init__()
-        check_dense(cfg)
         self.cfg = cfg
         self.dtype = DTYPES[cfg.param_dtype]
         kw = dict(dtype=self.dtype, device=device)
@@ -107,8 +135,8 @@ class TransformerLM(nn.Module):
         self.final_norm = L.Norm(cfg, device)
         self.lm_head = (None if cfg.tie_embeddings else nn.Parameter(
             torch.empty(cfg.d_model, cfg.vocab_size, **kw), requires_grad=False))
-        self.blocks = nn.ModuleList(Block(cfg, dtype=self.dtype, device=device)
-                                    for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(Block(cfg, dtype=self.dtype, device=device, is_moe=moe)
+                                    for moe in layer_moe(cfg))
         self.windows = layer_windows(cfg)
 
     @property
@@ -154,29 +182,36 @@ class TransformerLM(nn.Module):
             logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
         return logits
 
-    def _run_layers(self, x, positions, cache=None, cache_pos=None, kv_len=None):
+    def _run_layers(self, x, positions, cache=None, cache_pos=None, kv_len=None,
+                    with_aux: bool = False):
+        """-> (x, the summed aux loss of the MoE blocks: 0.0 without them or
+        unless ``with_aux``)."""
         cfg = self.cfg
         rope = (L.rope_tables(positions, cfg.rope_dim or cfg.resolved_head_dim, cfg.rope_theta)
                 if cfg.use_rope else None)
+        aux_total = 0.0
         for i, (block, window) in enumerate(zip(self.blocks, self.windows)):
             c = cache["layers"][i] if cache is not None else None
-            x = block(x, rope=rope, window=window, cache=c, cache_pos=cache_pos,
-                      kv_len=kv_len)
-        return x
+            x, aux = block(x, rope=rope, window=window, cache=c, cache_pos=cache_pos,
+                           kv_len=kv_len, with_aux=with_aux)
+            if aux is not None:
+                aux_total = aux_total + aux
+        return x, aux_total
 
     def _positions(self, B: int, S: int) -> torch.Tensor:
         return torch.arange(S, dtype=torch.int32, device=self.device).expand(B, S)
 
     @torch.no_grad()
     def forward_train(self, batch: dict):
-        """-> (logits over the S positions [B, S, V] f32, aux loss 0.0)."""
+        """-> (logits over the S positions [B, S, V] f32, the aux loss: 0.0,
+        or the MoE blocks' sum as an f32 0-d tensor)."""
         if batch.get("vision_embeds") is not None:
             raise NotImplementedError("vision inputs are not ported yet: "
                                       "ROADMAP.md Queue 1 item 8d")
         x = self._embed(batch["tokens"])
         B, S, _ = x.shape
-        x = self._run_layers(x, self._positions(B, S))
-        return self._unembed(x), 0.0
+        x, aux = self._run_layers(x, self._positions(B, S), with_aux=True)
+        return self._unembed(x), aux
 
     @torch.no_grad()
     def prefill(self, batch: dict, cache: dict):
@@ -184,7 +219,7 @@ class TransformerLM(nn.Module):
         ``cache["pos"]`` to S -> (logits of the last position [B, 1, V])."""
         x = self._embed(batch["tokens"])
         B, S, _ = x.shape
-        x = self._run_layers(x, self._positions(B, S), cache=cache, cache_pos=0)
+        x, _ = self._run_layers(x, self._positions(B, S), cache=cache, cache_pos=0)
         cache["pos"].fill_(S)
         return self._unembed(x[:, -1:]), cache
 
@@ -198,7 +233,7 @@ class TransformerLM(nn.Module):
         positions = pos.expand(B, 1)
         index = pos.to(torch.int64).reshape(1)
         kv_len = pos + 1
-        x = self._run_layers(x, positions, cache=cache, cache_pos=index, kv_len=kv_len)
+        x, _ = self._run_layers(x, positions, cache=cache, cache_pos=index, kv_len=kv_len)
         cache["pos"] = kv_len
         return self._unembed(x), cache
 

@@ -8,11 +8,15 @@ one entry per ``Problem`` field; ``weights`` is a dict of the five goal
 weights, and the optional utility curves may be absent or None.
 
 ``lm_from_reference`` builds the port's model from the reference's params
-pytree as numpy arrays, by ``cfg.family``: for the dense ``TransformerLM``
-its ``init``'s layout (``embed``, ``final_norm``, optional ``lm_head``, and
-``layers`` a list of G groups whose leaves are stacked [num_layers / G,
-...]: one group, or gemma2's two, local and global, whose leaf g of group j
-is the port's block G g + j);
+pytree as numpy arrays, by ``cfg.family``: for the dense and MoE
+``TransformerLM`` its ``init``'s layout (``embed``, ``final_norm``, optional
+``lm_head``, with ``first_dense_layers`` a ``prefix`` list of P unstacked
+blocks, the port's blocks 0..P-1, and ``layers`` a list of G groups whose
+leaves are stacked [(num_layers - P) / G, ...]: one group, or gemma2's two,
+local and global, whose leaf g of group j is the port's block P + G g + j;
+an MoE block's ``moe`` holds ``router``, ``w_gate``, ``w_up``, ``w_down``
+stacked [E, ...] and, with shared experts, ``shared`` = {w_gate, w_up,
+w_down});
 for the hybrid ``Zamba2`` its ``init``'s (``embed``, ``final_norm``,
 ``layers`` a dict of Mamba2 leaves stacked [num_layers, ...], and
 ``shared`` = {in_proj, ln1, attn, ln2, mlp, out_proj [apps, d, d]}).
@@ -30,7 +34,7 @@ import torch
 from repro_torch.core.problem import GOAL_NAMES, GoalWeights, Problem
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.model import empty_model
-from repro_torch.models.transformer import group_windows
+from repro_torch.models.transformer import group_windows, num_prefix
 
 _CURVES = ("util_knee", "util_slope", "util_weight")
 
@@ -71,6 +75,8 @@ def to_numpy(problem: Problem) -> dict:
 
 _ATTN = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 _MLP = ("w_gate", "w_up", "w_down")
+_MOE = ("router", "w_gate", "w_up", "w_down")
+_NORMS = ("ln1", "ln2", "ln1_post", "ln2_post")
 _MAMBA = ("norm", "in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias", "gate_norm",
           "out_proj")
 
@@ -86,9 +92,10 @@ def _norm_params(norm) -> dict:
 
 
 def _layer_tensors(block) -> dict:
-    """(reference path) -> port tensor for one block."""
+    """(reference path) -> port tensor for one block; a norm's weight array
+    is (name, "")."""
     out = {}
-    for name in ("ln1", "ln2", "ln1_post", "ln2_post"):
+    for name in _NORMS:
         if hasattr(block, name):
             for key, t in _norm_params(getattr(block, name)).items():
                 out[(name, key)] = t
@@ -96,14 +103,24 @@ def _layer_tensors(block) -> dict:
         t = getattr(block.attn, name)
         if t is not None:
             out[("attn", name)] = t
-    for name in _MLP:
-        out[("mlp", name)] = getattr(block.mlp, name)
+    if block.is_moe:
+        for name in _MOE:
+            out[("moe", name)] = getattr(block.moe, name)
+        if block.moe.shared is not None:
+            for name in _MLP:
+                out[("moe", "shared", name)] = getattr(block.moe.shared, name)
+    else:
+        for name in _MLP:
+            out[("mlp", name)] = getattr(block.mlp, name)
     return out
 
 
 def _get(tree, path):
-    node = tree[path[0]]
-    return node if path[1] == "" else node[path[1]]
+    for key in path:
+        if key == "":
+            break
+        tree = tree[key]
+    return tree
 
 
 def _put(t, value) -> None:
@@ -143,9 +160,10 @@ def lm_from_reference(cfg, params_np: dict, device=DEFAULT_DEVICE):
         for path, t in _shared_tensors(model.shared).items():
             _put(t, _get(params_np["shared"], path))
         return model
-    if "prefix" in params_np:
-        raise NotImplementedError("unrolled prefix layers belong to MoE configs, "
-                                  "which are not ported yet")
+    P = num_prefix(cfg)
+    prefix = params_np.get("prefix", [])
+    if len(prefix) != P:
+        raise ValueError(f"{len(prefix)} prefix layers for a plan of {P}")
     groups = params_np["layers"]
     G = len(group_windows(cfg))
     if len(groups) != G:
@@ -157,14 +175,17 @@ def lm_from_reference(cfg, params_np: dict, device=DEFAULT_DEVICE):
         _put(model.lm_head, params_np["lm_head"])
     for i, block in enumerate(model.blocks):
         for path, t in _layer_tensors(block).items():
-            _put(t, _get(groups[i % G], path)[i // G])
+            if i < P:
+                _put(t, _get(prefix[i], path))
+            else:
+                _put(t, _get(groups[(i - P) % G], path)[(i - P) // G])
     return model
 
 
 def lm_to_numpy(model) -> dict:
     """The inverse of ``lm_from_reference``: the reference's params pytree
-    with numpy leaves (stacked [num_layers / G, ...] in G groups; f32 for
-    bf16 weights)."""
+    with numpy leaves (the prefix's blocks unstacked, the rest stacked
+    [(num_layers - P) / G, ...] in G groups; f32 for bf16 weights)."""
     if model.cfg.family == "hybrid":
         shared = {}
         for (sub, name), t in _shared_tensors(model.shared).items():
@@ -185,25 +206,38 @@ def lm_to_numpy(model) -> dict:
             return {"scale": values["scale"], "bias": values["bias"]}
         return None
 
+    def block_tree(blocks, stack: bool) -> dict:
+        """The reference's tree of ``blocks``: each leaf stacked over them,
+        or the one block's own."""
+        per_layer = [_layer_tensors(b) for b in blocks]
+
+        def leaf(path):
+            values = [_arr(layer[path]) for layer in per_layer]
+            return np.stack(values) if stack else values[0]
+
+        tree = {}
+        for name in _NORMS:
+            if hasattr(blocks[0], name):
+                norm = getattr(blocks[0], name)
+                tree[name] = norm_tree(norm, {key: leaf((name, key)) for key in _norm_params(norm)})
+        for path in per_layer[0]:
+            if path[0] not in _NORMS:
+                node = tree
+                for key in path[:-1]:
+                    node = node.setdefault(key, {})
+                node[path[-1]] = leaf(path)
+        return tree
+
     out = {"embed": _arr(model.embed),
            "final_norm": norm_tree(model.final_norm, {k: _arr(t) for k, t in
                                                       _norm_params(model.final_norm).items()})}
     if model.lm_head is not None:
         out["lm_head"] = _arr(model.lm_head)
+    P = num_prefix(model.cfg)
+    if P:
+        out["prefix"] = [block_tree([b], stack=False) for b in model.blocks[:P]]
     G = len(group_windows(model.cfg))
-    first = model.blocks[0]
-    out["layers"] = []
-    for j in range(G):                  # group j stacks blocks j, G + j, 2 G + j, ...
-        per_layer = [_layer_tensors(b) for b in model.blocks[j::G]]
-        group = {}
-        for name in ("ln1", "ln2", "ln1_post", "ln2_post"):
-            if hasattr(first, name):
-                norm = getattr(first, name)
-                group[name] = norm_tree(norm, {
-                    key: np.stack([_arr(layer[(name, key)]) for layer in per_layer])
-                    for key in _norm_params(norm)})
-        for sub, names in (("attn", _ATTN), ("mlp", _MLP)):
-            group[sub] = {name: np.stack([_arr(layer[(sub, name)]) for layer in per_layer])
-                          for name in names if (sub, name) in per_layer[0]}
-        out["layers"].append(group)
+    scanned = model.blocks[P:]
+    # group j stacks scanned blocks j, G + j, 2 G + j, ...
+    out["layers"] = [block_tree(scanned[j::G], stack=True) for j in range(G)]
     return out

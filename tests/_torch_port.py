@@ -245,3 +245,18 @@ def assert_same_route(dt, dj, what: str) -> None:
     assert dt.cooperation.timings["rounds"] == dj.cooperation.timings["rounds"]
     assert_rel(dt.solve.objective, dj.solve.objective, 1e-4, f"{what} objective")
     assert_rel(dt.difference_to_balance, dj.difference_to_balance, 1e-4, f"{what} d2b")
+
+
+# --- reduced MoE configs (chip_smoke.py phase 8 and the card tests) --------
+
+def reduced_moe_configs() -> dict:
+    """name -> the reduced config of granite-moe and deepseek-v2-lite's
+    reduced config with ``mla=False`` (its shared expert and dense first
+    layer; the port's ``get_config`` refuses deepseek until MLA), both f32."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.deepseek_v2_lite_16b import config as deepseek
+    from repro_torch.models import reduce_for_smoke
+
+    return {"granite-moe-1b-a400m": reduce_for_smoke(get_config("granite-moe-1b-a400m")),
+            "deepseek-v2-lite-16b mla=False": dataclasses.replace(
+                reduce_for_smoke(deepseek()), mla=False)}

@@ -31,6 +31,9 @@ gemma2's shape and at small odd ones, and the ring read, in the flash
 tolerances.
 The gradient compression kernels bit for bit equal to their plain versions
 (NaN compared as NaN), and ``GradCompressor`` on the card to the CPU's.
+The MoE dispatch and combine kernels bit for bit equal to their plain
+versions at the shared edge cases (``kernels.moe.MOE_CASES``), and reduced
+granite and deepseek (mla=False) on the card to the CPU within 1e-4.
 """
 import dataclasses
 
@@ -44,11 +47,13 @@ from repro_torch.core.means import tier_mean
 from repro_torch.kernels import ops
 from repro_torch.kernels import optimal_round as K_round
 from repro_torch.kernels.compress import compress_edge_cases
+from repro_torch.kernels.moe import MOE_CASES, moe_case
 from repro_torch.kernels.optimal_round import ROUND_KINDS, round_case, round_edge_cases
 from repro_torch.kernels.pack import pack_edge_cases, pack_ffd, pack_ffd_tiers
 from repro_torch.kernels.ref import (commit_topk_batched_ref, commit_topk_ref,
                                     compress_bf16_ref, compress_int8_ref,
                                     decompress_int8_ref, flash_attention_ref, flash_decode_ref,
+                                    moe_combine_ref, moe_dispatch_ref,
                                     move_eval_best_batched_ref, optimal_round_ref,
                                     pack_ffd_tiers_ref, random_problem_arrays,
                                     random_shard_batch, ssd_chunk_ref, tier_stats_ref)
@@ -56,7 +61,8 @@ from repro_torch.kernels.ref import (commit_topk_batched_ref, commit_topk_ref,
 from _bits import same_bits
 from _torch_port import (SERVICE_APPS, SERVICE_COOLDOWN, SERVICE_SEED,  # noqa: F401
                          SERVICE_TICKS, SERVICE_TIMEOUT_S, SHED_TARGET, assert_rel, cuda_device,
-                         host, overload_demand, run_control, service_events)
+                         host, overload_demand, reduced_moe_configs, run_control,
+                         service_events)
 
 torch.set_num_threads(1)
 
@@ -1465,3 +1471,84 @@ def test_grad_compressor_on_the_card_equals_the_cpu(cuda_device, mode):
     name = "compress_int8" if mode == "int8" else "compress_bf16"
     assert ops.launch_counts[name] == 3 * 4
     assert ops.launch_counts["decompress_int8"] == (3 * 4 if mode == "int8" else 0)
+
+
+MOE_OUTPUTS = ("idx", "gates", "slot", "counts", "buf")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(MOE_CASES))
+def test_moe_dispatch_kernel_matches_plain_version(cuda_device, name):
+    """idx, gates, slot, counts and the expert buffer bit for bit against
+    the plain version on the same card inputs, one launch, at the shared
+    edge cases (granite's prefill and decode, drops, ties, deepseek's
+    widths, one token, ragged T, rows of no whole 16 bytes)."""
+    case = moe_case(name, seed=2, device=cuda_device)
+    args = (case["probs"], case["x"], case["k"], case["capacity"])
+    ops.reset_launch_counts()
+    got = ops.moe_dispatch(*args)
+    assert ops.launch_counts["moe_dispatch"] == 1
+    want = moe_dispatch_ref(*args)
+    for what, a, b in zip(MOE_OUTPUTS, got, want):
+        assert same_bits(a.cpu(), b.cpu())[0], (name, what)
+    slot = got[2].cpu().numpy()
+    if name in ("granite_prefill", "drops", "ties", "ragged"):
+        assert (slot < 0).any(), name
+    if name == "ties":
+        assert (got[0].cpu().numpy() == np.arange(case["k"])).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [False, True], ids=["no_shared", "shared"])
+@pytest.mark.parametrize("name", sorted(MOE_CASES))
+def test_moe_combine_kernel_matches_plain_version(cuda_device, name, shared):
+    """y bit for bit against the plain version, in h's dtype, with and
+    without a shared expert's output, one launch."""
+    case = moe_case(name, seed=3, device=cuda_device)
+    idx, gates, slot, _, _ = moe_dispatch_ref(case["probs"], case["x"], case["k"],
+                                              case["capacity"])
+    h, extra = case["h"], case["shared"] if shared else None
+    ops.reset_launch_counts()
+    got = ops.moe_combine(h, idx, slot, gates, extra)
+    assert ops.launch_counts["moe_combine"] == 1
+    want = moe_combine_ref(h, idx, slot, gates, extra)
+    assert got.dtype == h.dtype and same_bits(got.cpu(), want.cpu())[0], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(reduced_moe_configs()))
+def test_reduced_moe_models_on_the_card_match_the_cpu(cuda_device, arch):
+    """Reduced granite and deepseek (mla=False) in f32: a prefill and four
+    decode steps on the card give the CPU plain path's logits within 1e-4
+    of scale, through one dispatch and one combine launch an MoE layer a
+    call, and the card's forward_train the CPU's aux loss."""
+    import copy
+
+    from repro_torch.models import build_model
+
+    cfg = reduced_moe_configs()[arch]
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(11))
+    card = copy.deepcopy(cpu).to(cuda_device)
+    toks = torch.as_tensor(np.random.default_rng(11).integers(0, cfg.vocab_size, (2, 16)))
+    outs = {}
+    for where, model in (("cpu", cpu), ("card", card)):
+        ops.reset_launch_counts()
+        cache = model.init_cache(2, 20)
+        logits, cache = model.prefill({"tokens": toks[:, :12].to(model.device)}, cache)
+        got = [logits.cpu()]
+        for s in range(12, 16):
+            logits, cache = model.decode_step(toks[:, s:s + 1].to(model.device), cache)
+            got.append(logits.cpu())
+        _, aux = model.forward_train({"tokens": toks.to(model.device)})
+        outs[where] = (got, float(aux), dict(ops.launch_counts))
+    moe_layers = sum(b.is_moe for b in cpu.blocks)
+    assert outs["card"][2]["moe_dispatch"] == outs["card"][2]["moe_combine"] == moe_layers * 6
+    for a, b in zip(outs["card"][0], outs["cpu"][0]):
+        assert_rel_scale(a, b, 1e-4)
+    assert abs(outs["card"][1] - outs["cpu"][1]) <= 1e-6
+
+
+def assert_rel_scale(got: torch.Tensor, want: torch.Tensor, rel: float) -> None:
+    """max |got - want| within ``rel`` of max |want|."""
+    err = float((got.double() - want.double()).abs().max())
+    assert err <= rel * float(want.double().abs().max()), err

@@ -189,8 +189,37 @@ def test_bf16_model_on_the_cpu_follows_the_f32_one():
 
 
 # Variants the port now serves (``local_global_pattern`` and ``ring_cache``,
-# gemma2's) keep their cases here and check the route they take instead.
-PORTED_VARIANTS = ("local_global_pattern", "ring_cache")
+# gemma2's; MoE, granite's) keep their cases here and check the route they
+# take instead.
+PORTED_VARIANTS = ("local_global_pattern", "ring_cache", "MoE")
+
+
+def _moe_route(cfg):
+    """Build ``cfg`` with experts: every block holds an MoE; prefill and
+    decode give the teacher-forced logits (dropless at the reduced capacity
+    factor) and ``ServeEngine`` serves three requests on the CPU."""
+    from repro_torch.launch.serve import Request, RequestQueue, ServeEngine, serve_all
+
+    m = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    assert all(b.is_moe and not hasattr(b, "mlp") for b in m.blocks)
+    toks = torch.as_tensor(np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 16)))
+    full, aux = m.forward_train({"tokens": toks})
+    assert float(aux) > 0.0
+    cache = m.init_cache(2, 20)
+    pre, cache = m.prefill({"tokens": toks[:, :12]}, cache)
+    assert _scaled_err(pre[:, 0].numpy(), full[:, 11].numpy()) <= REL
+    for s in range(12, 16):
+        dec, cache = m.decode_step(toks[:, s:s + 1], cache)
+        assert _scaled_err(dec[:, 0].numpy(), full[:, s].numpy()) <= REL, s
+    queue = RequestQueue()
+    rng = np.random.default_rng(7)
+    for i in range(3):
+        queue.push(Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, 5 + i).astype(np.int32),
+                           slo=i % 2, max_new_tokens=4))
+    done = serve_all(ServeEngine(m, slots=2, max_seq=16, device="cpu"), queue)
+    assert sorted(r.rid for r in done) == [0, 1, 2]
+    assert all(len(r.tokens) == 4 and all(0 <= t < cfg.vocab_size for t in r.tokens)
+               for r in done)
 
 
 def _windowed_route(cfg, B: int = 2, P: int = 12, S: int = 16, max_seq: int = 20):
@@ -226,8 +255,12 @@ def _windowed_route(cfg, B: int = 2, P: int = 12, S: int = 16, max_seq: int = 20
 ])
 def test_unported_variants_raise(change, match):
     """Unported variants raise naming themselves; the two gemma2 brings
-    (alternating local/global windows, ring caches) take their route."""
+    (alternating local/global windows, ring caches) and MoE layers take
+    their route."""
     cfg = dataclasses.replace(reduce_for_smoke(get_config("smollm-360m")), **change)
+    if match == "MoE":
+        _moe_route(cfg)
+        return
     if match in PORTED_VARIANTS:
         m = _windowed_route(cfg)
         if match == "local_global_pattern":
@@ -241,16 +274,18 @@ def test_unported_variants_raise(change, match):
 
 def test_window_with_a_cache_raises_and_unported_archs_name_their_item():
     """A sliding window with a KV cache now serves (windowed prefill and
-    decode on a full cache match the teacher-forced forward); gemma2-9b is
-    ported, and an architecture still unported names its ROADMAP item."""
+    decode on a full cache match the teacher-forced forward); gemma2-9b and
+    granite-moe-1b-a400m are ported, and an architecture still unported
+    names its ROADMAP item (deepseek-v2-lite, MLA's)."""
     cfg = dataclasses.replace(reduce_for_smoke(get_config("smollm-360m")), window=8)
     m = _windowed_route(cfg)
     toks = torch.zeros((1, 4), dtype=torch.int64)
     logits, _ = m.forward_train({"tokens": toks})          # no cache: windowed flash attention
     assert torch.isfinite(logits).all()
     assert get_config("gemma2-9b").local_global_pattern
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8b"):
-        get_config("granite-moe-1b-a400m")
+    assert get_config("granite-moe-1b-a400m").num_experts == 32
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8c"):
+        get_config("deepseek-v2-lite-16b")
 
 
 def test_attn_batch_shard_matches_reference(pair):

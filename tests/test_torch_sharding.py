@@ -1,7 +1,7 @@
 """The partition-spec rules (``distributed/sharding.py``) in the port vs the
 live reference, on the CPU.
 
-Held: ``param_spec`` over the reference's parameter trees of the four
+Held: ``param_spec`` over the reference's parameter trees of the five
 ported configs at reduced size, spec for spec as tuples; ``sanitize`` and
 the specs of ``params_shardings``, ``opt_state_shardings`` (with and
 without ``zero1``), ``batch_shardings``, ``cache_shardings`` (``kv_shard``
@@ -28,7 +28,7 @@ from repro_torch.distributed import tree as PT
 
 torch.set_num_threads(1)
 
-ARCHS = ("qwen2.5-3b", "smollm-360m", "olmo-1b", "zamba2-2.7b")
+ARCHS = ("qwen2.5-3b", "smollm-360m", "olmo-1b", "zamba2-2.7b", "granite-moe-1b-a400m")
 MESHES = {"1x1": ((1, 1), ("data", "model")), "2x4": ((2, 4), ("data", "model")),
           "pod2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
 
