@@ -262,12 +262,33 @@ Phases (each raises on failure, so the script exits non-zero):
      on the inputs it gave them; wave 1's first decode logits within 2^-4
      of the largest logit of a ``prefill`` over the padded prompts plus that
      token, on every slot that lost no assignment in either run (slot 0 at
-     least; the skipped slots printed); reduced granite and deepseek
-     (mla=False) in f32 on the card and the CPU within 1e-4 of scale.
-  9. A ``{"kernels": [...]}`` line (the flash kernels' launches summed over
-     the serving runs, gemma2's full and ring ones and granite's included,
-     with gemma2's and granite's shapes beside each; the MoE kernels'
-     over phase 8's serve, timed at granite's prefill and its decode; the
+     least; the skipped slots printed); reduced granite and deepseek (with
+     MLA, and with mla=False) in f32 on the card and the CPU within 1e-4 of
+     scale.
+  9. deepseek-v2-lite-16b at full width (granite freed first): both flash
+     kernels with K's head dim 192 and V's 128 (MLA) against their plain
+     versions at deepseek's prefill (B=8, S of wave 1, H=KV=16, bf16, on
+     the tensor-core body) and decode (Smax 1,088, kv_len 1, 17, 1,000,
+     Smax and the serve's, on the SIMT body), in f32, at an odd length,
+     with a window and softcap, and at the reduced (24, 16) in f32, the
+     prefill and decode timed beside their plain versions, bounds and SDPA
+     (which takes a value dim of its own); then full-width
+     deepseek-v2-lite-16b in bf16 (15.7 B parameters drawn on the card from
+     a seeded generator, caches of 1,088 slots) serves the 16 requests of
+     phase 4 in 2 waves of 8 through ``ServeEngine``, the counts zeroed just
+     before (``flash_attention`` 27 x waves, all on the tensor-core body;
+     ``flash_decode`` 27 x steps; ``moe_dispatch`` and ``moe_combine`` 26 x
+     (waves + steps)); TTFT and decode ms a step per wave beside the step's
+     bytes bound (``mla_step_bound_ms``), peak memory, a repeat with the
+     same tokens, one profiled prefill and decode step, drops by layer and
+     slot, the serve's own MoE launches held bit for bit to the plain
+     versions, and phase 8's teacher-forced check on the slots without
+     drops (slot 0 at least).
+ 10. A ``{"kernels": [...]}`` line (the flash kernels' launches summed over
+     the serving runs, gemma2's full and ring ones, granite's and
+     deepseek's included, with gemma2's, granite's and deepseek's shapes
+     beside each; the MoE kernels' over phases 8 and 9's serves, timed at
+     granite's prefill and its decode; the
      scheduling kernels' over the balance pass, the
      control loop, the service, the simulator's two pairs and the stream
      router's path, the shard-batched ones' over the measured fleet pass,
@@ -275,6 +296,11 @@ Phases (each raises on failure, so the script exits non-zero):
      sweeps, the compression kernels' over phase 6's six compressor steps),
      then the card line again, then the final ``{"ok": true, "device":
      {...}}`` line.
+
+``python3 chip_smoke.py --flash-probe SRC`` runs only the flash kernels of
+the ``repro_torch`` package under SRC at the serving phases' equal head
+dims and prints one JSON line of times and output digests (see
+``flash_probe``).
 
 ``python3 chip_smoke.py --probe SRC`` runs only the balancing slice of the
 ``repro_torch`` package under SRC, with the rounding kernel on the main
@@ -505,14 +531,29 @@ COMPRESS_SRC = "src/repro_torch/kernels/csrc/compress.cu"
 # same 16 requests as phase 4 (DENSE_SPEC).  The MoE kernels are held to
 # their plain versions at every kernels.moe.MOE_CASES case and timed at
 # MOE_TIMED (granite's prefill and decode shapes); reduced granite and
-# deepseek (mla=False) run on card and CPU for MOE_SMALL = (B, prompt,
-# decode steps, max_seq).
+# deepseek (with MLA, and with mla=False) run on card and CPU for MOE_SMALL =
+# (B, prompt, decode steps, max_seq).
 MOE_ARCH = "granite-moe-1b-a400m"
 MOE_SRC = "src/repro_torch/kernels/csrc/moe.cu"
 MOE_REPLACES = {"moe_dispatch": "src/repro/models/moe.py:71",
                 "moe_combine": "src/repro/models/moe.py:115"}
 MOE_TIMED = ("granite_prefill", "granite_decode")
 MOE_SMALL = (2, 12, 4, 20)
+# The MLA serving slice (phase 9): full-width deepseek-v2-lite-16b serves the
+# same 16 requests as phase 4 with caches of MLA_SPEC.max_seq = 1,088 slots
+# (17 whole 64-row tiles), its attention with K's head dim 192 (128 + 64
+# rope dims) and V's 128.  The flash kernels are held to their plain
+# versions at those dims (and the reduced 24 and 16) at its prefill and
+# decode shapes, an odd length, a window with a softcap and in f32.
+# An expert's capacity at its prefill (955 at wave 1) is below the longest
+# prompts, so slot 0's own tokens can overflow an expert and phase 8's
+# teacher-forced rule may hold no slot; the teacher-forced check then runs
+# again with nothing dropped (every capacity raised past T), in bf16 at full
+# depth holding slot 0, and in f32 at MLA_F32_LAYERS layers holding every
+# slot (TEACHER_F32_TOL).
+MLA_ARCH = "deepseek-v2-lite-16b"
+MLA_SPEC = ServeSpec(((PROMPT_MIN, PROMPT_MAX),), 1088)
+MLA_F32_LAYERS = 4
 COMPRESS_REPLACES = {"compress_int8": "src/repro/distributed/compress.py:57",
                      "compress_bf16": "src/repro/distributed/compress.py:53",
                      "decompress_int8": "src/repro/distributed/compress.py:85"}
@@ -1201,6 +1242,14 @@ MOE_DECODE_PHASES = {
 }
 
 
+# A deepseek-v2-lite decode step adds MLA's expansion of its compressed cache.
+MLA_DECODE_PHASES = {
+    **MOE_DECODE_PHASES,
+    "MLA cache expansion (wk_up, wv_up, concat)": lambda f, n: (n == "expand"
+                                                                and f.endswith("attention.py")),
+}
+
+
 # A Zamba2 decode step adds the Mamba2 layers' one-step forms.
 HYBRID_DECODE_PHASES = {
     **DECODE_PHASES,
@@ -1233,10 +1282,13 @@ def host_profile(fn, phases=SOLVER_PHASES) -> tuple[float, dict]:
     return wall, out
 
 
-def attention_work(B, Sq, Skv, H, KV, D, itemsize, causal=True, window=None) -> tuple[float, float]:
+def attention_work(B, Sq, Skv, H, KV, D, itemsize, causal=True, window=None,
+                   dv=None) -> tuple[float, float]:
     """(bytes, operations) flash attention needs: q, k, v read once and the
-    output written once; 4 D operations (the q.k and p.v products) for
-    every (query, key) pair the masks leave visible."""
+    output written once; 2 D + 2 Dv operations (the q.k and p.v products;
+    Dv, V's head dim, defaults to D) for every (query, key) pair the masks
+    leave visible."""
+    dv = D if dv is None else dv
     import numpy as np
 
     i = np.arange(Sq)[:, None]
@@ -1246,16 +1298,18 @@ def attention_work(B, Sq, Skv, H, KV, D, itemsize, causal=True, window=None) -> 
         visible &= j <= i
     if window is not None:
         visible &= j > i - window
-    nbytes = (2 * B * Sq * H * D + 2 * B * Skv * KV * D) * itemsize
-    return float(nbytes), float(4 * D * B * H * int(visible.sum()))
+    nbytes = (B * Sq * H * (D + dv) + B * Skv * KV * (D + dv)) * itemsize
+    return float(nbytes), float(2 * (D + dv) * B * H * int(visible.sum()))
 
 
-def decode_work(B, kv_len, H, KV, D, itemsize) -> tuple[float, float]:
+def decode_work(B, kv_len, H, KV, D, itemsize, dv=None) -> tuple[float, float]:
     """(bytes, operations) one decode step's attention needs: the written
-    cache rows of k and v, the query and the output, kv_len; 4 D
-    operations for every visible cache position of every query head."""
-    nbytes = (2 * B * H * D + 2 * B * kv_len * KV * D) * itemsize + 4
-    return float(nbytes), float(4 * D * B * H * kv_len)
+    cache rows of k and v, the query and the output, kv_len; 2 D + 2 Dv
+    operations (Dv defaults to D) for every visible cache position of every
+    query head."""
+    dv = D if dv is None else dv
+    nbytes = (B * H * (D + dv) + B * kv_len * KV * (D + dv)) * itemsize + 4
+    return float(nbytes), float(2 * (D + dv) * B * H * kv_len)
 
 
 def flash_bound_ms(nbytes: float, nops: float, dtype) -> tuple[float, str]:
@@ -1307,32 +1361,39 @@ def sdpa_decode(q, k, v, kv_len: int):
 
 
 def check_flash_attention(label, shape, dtype, dev, gen, record, *, window=None, softcap=None,
-                          timed=False) -> dict:
+                          timed=False, dv=None, body=None) -> dict:
     """Hold the flash_attention kernel against its plain version on the
     card (FLASH_TOL); with ``timed``, time the kernel, the plain version
-    and, for the causal no-window no-softcap case, SDPA."""
+    and, for the causal no-window no-softcap case, SDPA.  ``dv``: V's head
+    dim (default D; the scale is then D ** -0.5 all the same, MLA's);
+    ``body``: the kernel body the call must take."""
     import torch
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import body_launches, flash_attention_cuda
     from repro_torch.kernels.ref import flash_attention_ref
 
     B, S, H, KV, D = shape
+    dv = D if dv is None else dv
     q = seeded_normal((B, S, H, D), dtype, dev, gen)
     k = seeded_normal((B, S, KV, D), dtype, dev, gen)
-    v = seeded_normal((B, S, KV, D), dtype, dev, gen)
+    v = seeded_normal((B, S, KV, dv), dtype, dev, gen)
     kw = dict(window=window, softcap=softcap)
+    before = dict(body_launches)
     got = flash_attention_cuda(q, k, v, **kw)
     want = flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     ok, err = flash_close(got, want)
-    if not ok:
+    if not ok or tuple(got.shape) != (B, S, H, dv):
         raise AssertionError(f"flash_attention {label}: max abs err {err:.3e} beyond "
-                             f"{tol_text(dtype)}")
+                             f"{tol_text(dtype)}, or shape {tuple(got.shape)}")
+    if body is not None and body_launches[body] != before[body] + 1:
+        raise AssertionError(f"flash_attention {label}: not on the {body} body")
     record["flash_attention"]["max_abs_err"] = max(record["flash_attention"]["max_abs_err"], err)
     line = f"flash_attention {label:>40}: max abs err {err:.3e} ({tol_text(dtype)})"
     out = {}
     if timed:
         itemsize = torch.finfo(dtype).bits // 8
-        b, by = flash_bound_ms(*attention_work(B, S, S, H, KV, D, itemsize, window=window), dtype)
+        b, by = flash_bound_ms(*attention_work(B, S, S, H, KV, D, itemsize, window=window, dv=dv),
+                               dtype)
         out = {"ms": time_ms(lambda: flash_attention_cuda(q, k, v, **kw)),
                "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v, **kw), reps=5),
                "bound_ms": b, "bound_by": by, "library_ms": None}
@@ -1345,7 +1406,7 @@ def check_flash_attention(label, shape, dtype, dev, gen, record, *, window=None,
                                      "the kernel")
             out["library_ms"] = time_ms(lambda: sdpa_prefill(q, k, v))
             line += f", SDPA err vs plain {lib_err:.3e} (control, outside the bound)"
-        nbytes, nops = attention_work(B, S, S, H, KV, D, itemsize, window=window)
+        nbytes, nops = attention_work(B, S, S, H, KV, D, itemsize, window=window, dv=dv)
         line += (f" | kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, SDPA "
                  f"{out['library_ms']} ms, bound {b:.4f} ms ({by}); kernel "
                  f"{nops / out['ms'] / 1e9:.1f} TFLOP/s of the function's {nops / 1e9:.3f} "
@@ -1357,29 +1418,31 @@ def check_flash_attention(label, shape, dtype, dev, gen, record, *, window=None,
 
 
 def check_flash_decode(label, shape, dtype, dev, gen, record, kv_lens, *, softcap=None,
-                       timed_len=None) -> dict:
+                       timed_len=None, dv=None, window=None) -> dict:
     """Hold the flash_decode kernel against its plain version on the card
     at each kv_len (an int32 on the card); with ``timed_len``, time the
     kernel, the plain version and SDPA over the written positions there,
     each launch on another copy of the cache (L2_FLUSH_BYTES in all), so
-    that it reads the cache from HBM as the serve path does."""
+    that it reads the cache from HBM as the serve path does.  ``dv``: V's
+    head dim (default D); ``window``: only with no ``timed_len``."""
     import torch
     from repro_torch.kernels.flash_decode import flash_decode_cuda
     from repro_torch.kernels.ref import flash_decode_ref
 
     B, Smax, H, KV, D = shape
+    dv = D if dv is None else dv
     q = seeded_normal((B, 1, H, D), dtype, dev, gen)
     k = seeded_normal((B, Smax, KV, D), dtype, dev, gen)
-    v = seeded_normal((B, Smax, KV, D), dtype, dev, gen)
+    v = seeded_normal((B, Smax, KV, dv), dtype, dev, gen)
     errs = []
     for n in kv_lens:
         n_dev = torch.tensor(n, dtype=torch.int32, device=dev)
-        got = flash_decode_cuda(q, k, v, n_dev, softcap=softcap)
-        want = flash_decode_ref(q, k, v, n_dev, softcap=softcap)
+        got = flash_decode_cuda(q, k, v, n_dev, softcap=softcap, window=window)
+        want = flash_decode_ref(q, k, v, n_dev, softcap=softcap, window=window)
         torch.cuda.synchronize()
         ok, err = flash_close(got, want)
         errs.append(err)
-        if not ok:
+        if not ok or tuple(got.shape) != (B, 1, H, dv):
             raise AssertionError(f"flash_decode {label} kv_len={n}: max abs err {err:.3e} "
                                  f"beyond {tol_text(dtype)}")
     record["flash_decode"]["max_abs_err"] = max(record["flash_decode"]["max_abs_err"], *errs)
@@ -1389,8 +1452,8 @@ def check_flash_decode(label, shape, dtype, dev, gen, record, kv_lens, *, softca
     if timed_len is not None:
         n_dev = torch.tensor(timed_len, dtype=torch.int32, device=dev)
         itemsize = torch.finfo(dtype).bits // 8
-        b, by = flash_bound_ms(*decode_work(B, timed_len, H, KV, D, itemsize), dtype)
-        copies = max(1, math.ceil(L2_FLUSH_BYTES / (2 * k.nbytes)))
+        b, by = flash_bound_ms(*decode_work(B, timed_len, H, KV, D, itemsize, dv=dv), dtype)
+        copies = max(1, math.ceil(L2_FLUSH_BYTES / (k.nbytes + v.nbytes)))
         caches = itertools.cycle([(k.clone(), v.clone()) for _ in range(copies)])
 
         def rotated(fn):
@@ -1410,7 +1473,7 @@ def check_flash_decode(label, shape, dtype, dev, gen, record, kv_lens, *, softca
             out["library_ms"] = time_ms(rotated(lambda kc, vc: sdpa_decode(q, kc, vc,
                                                                            timed_len)))
             line += f", SDPA err vs plain {lib_err:.3e}"
-        nbytes, _ = decode_work(B, timed_len, H, KV, D, itemsize)
+        nbytes, _ = decode_work(B, timed_len, H, KV, D, itemsize, dv=dv)
         line += (f" | at kv_len {timed_len}, over {copies} cache copies (L2 cold): kernel "
                  f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, SDPA "
                  f"{out['library_ms']} ms, bound {b:.6f} ms ({by}); kernel "
@@ -1484,15 +1547,10 @@ def wave_stats(finished, t0: float, slots: int = SERVE_SLOTS) -> list[dict]:
     return waves
 
 
-def teacher_forced_check(model, reqs, dev, spec: ServeSpec = DENSE_SPEC,
-                         against: str = "forward_train") -> dict:
-    """The wave's padded prompts through ``prefill`` and one ``decode_step``
-    of its first generated tokens, against ``forward_train`` over the
-    padded prompts plus those tokens (the reference's own check,
-    tests/test_models.py:63), or, with ``against="prefill"``, against the
-    last logits of a ``prefill`` over them on a fresh cache (the same
-    function without [B, S, vocab] f32 logits); returns the errors and the
-    decode logits of the wave's rows (f32, on the host)."""
+def padded_wave(reqs, dev, spec: ServeSpec = DENSE_SPEC):
+    """(the wave's prompts left-padded with 0 to the longest, as
+    ``ServeEngine`` admits them, [slots, maxlen]; each request's first
+    generated token [slots, 1]), int32 on ``dev``."""
     import numpy as np
     import torch
 
@@ -1502,8 +1560,21 @@ def teacher_forced_check(model, reqs, dev, spec: ServeSpec = DENSE_SPEC,
     for i, r in enumerate(reqs):
         batch[i, maxlen - len(r.prompt):] = r.prompt
         first[i, 0] = r.tokens[0]
-    tokens = torch.as_tensor(batch, device=dev)
-    tok0 = torch.as_tensor(first, device=dev)
+    return torch.as_tensor(batch, device=dev), torch.as_tensor(first, device=dev)
+
+
+def teacher_forced_check(model, reqs, dev, spec: ServeSpec = DENSE_SPEC,
+                         against: str = "forward_train") -> dict:
+    """The wave's padded prompts through ``prefill`` and one ``decode_step``
+    of its first generated tokens, against ``forward_train`` over the
+    padded prompts plus those tokens (the reference's own check,
+    tests/test_models.py:63), or, with ``against="prefill"``, against the
+    last logits of a ``prefill`` over them on a fresh cache (the same
+    function without [B, S, vocab] f32 logits); returns the errors and the
+    decode logits of the wave's rows (f32, on the host)."""
+    import torch
+
+    tokens, tok0 = padded_wave(reqs, dev, spec)
     cache = model.init_cache(spec.slots, spec.max_seq)
     pre, cache = model.prefill({"tokens": tokens}, cache)
     dec, cache = model.decode_step(tok0, cache)
@@ -1523,7 +1594,7 @@ def teacher_forced_check(model, reqs, dev, spec: ServeSpec = DENSE_SPEC,
            "mean_abs_err": float((got - want).abs().mean()),
            "argmax_agree": int((got.argmax(-1) == want.argmax(-1))[:n].sum()),
            "prefill_tokens_agree": int((pre[:n, -1].argmax(-1).cpu().numpy()
-                                        == first[:n, 0]).sum()),
+                                        == tok0[:n, 0].cpu().numpy()).sum()),
            "rows": n, "decode_logits": got[:n].cpu()}
     del full
     return out
@@ -1642,7 +1713,8 @@ def serve_slice(cfg, dev, expected_launches, phases, spec: ServeSpec = DENSE_SPE
                       "per step" for w in wave_stats(again, t0, spec.slots)), flush=True)
     if not same:
         raise AssertionError(f"a second {arch} serve of the same requests gave other tokens")
-    cache_slots = [layer["k"].shape[1] for layer in engine.cache.get("layers", [])]
+    cache_slots = [next(iter(layer.values())).shape[1]
+                   for layer in engine.cache.get("layers", [])]
     engine.cache = None                    # the teacher-forced passes take their own caches
     torch.cuda.empty_cache()
     teachers = []
@@ -2365,25 +2437,22 @@ def check_captured_moe(tap: MoeTap, record) -> None:
               "assignments dropped", flush=True)
 
 
-def moe_teacher_check(model, reqs, dev, spec: ServeSpec = DENSE_SPEC) -> dict:
+def moe_teacher_check(model, reqs, dev, spec: ServeSpec = DENSE_SPEC,
+                      require_slot0: bool = True) -> dict:
     """Wave 1's first decode logits against the last logits of a ``prefill``
     over its padded prompts plus those tokens, row by row.  The two runs
     prefill different lengths, so their capacities differ and a slot can
     lose assignments in one and not the other (the reference's semantics:
     left pads route alike and fill their experts, and the stable sort keeps
     the earlier slots' entries); a slot is held to TEACHER_TOL only when it
-    lost none in either run (slot 0 never does: its entries come first)."""
-    import numpy as np
+    lost none in either run.  Slot 0 never does when an expert's capacity
+    holds a whole prompt (its entries come first), and must then be held;
+    with ``require_slot0`` False (a capacity below the prompt length, where
+    slot 0's own tokens can overflow an expert) it is held only if it lost
+    none."""
     import torch
 
-    maxlen = max(len(r.prompt) for r in reqs)
-    batch = np.zeros((spec.slots, maxlen), np.int32)
-    first = np.zeros((spec.slots, 1), np.int32)
-    for i, r in enumerate(reqs):
-        batch[i, maxlen - len(r.prompt):] = r.prompt
-        first[i, 0] = r.tokens[0]
-    tokens = torch.as_tensor(batch, device=dev)
-    tok0 = torch.as_tensor(first, device=dev)
+    tokens, tok0 = padded_wave(reqs, dev, spec)
     taps = [MoeTap(spec.slots), MoeTap(spec.slots)]
     taps[0].install(model)
     cache = model.init_cache(spec.slots, spec.max_seq)
@@ -2400,7 +2469,7 @@ def moe_teacher_check(model, reqs, dev, spec: ServeSpec = DENSE_SPEC) -> dict:
     n = len(reqs)
     checked = [i for i in range(n) if drops[0][i] == 0 and drops[1][i] == 0]
     skipped = {i: (drops[0][i], drops[1][i]) for i in range(n) if i not in checked}
-    rows = torch.tensor(checked, device=dev)
+    rows = torch.tensor(checked, dtype=torch.long, device=dev)
     err = (got - want).abs().max(dim=1).values
     scale = float(want[rows].abs().max()) if checked else float("nan")
     out = {"checked": checked, "skipped": skipped,
@@ -2418,19 +2487,93 @@ def moe_teacher_check(model, reqs, dev, spec: ServeSpec = DENSE_SPEC) -> dict:
           + "; every row's err " + ", ".join(f"{e:.4f}" for e in out["row_err"]), flush=True)
     if not out["finite"]:
         raise AssertionError("non-finite logits at full width (MoE)")
-    if 0 not in checked:
+    if 0 not in checked and require_slot0:
         raise AssertionError("slot 0 lost assignments: its entries come first in the flat "
                              "order and cannot be dropped")
-    if not out["max_abs_err"] <= TEACHER_TOL * scale:
+    if checked and not out["max_abs_err"] <= TEACHER_TOL * scale:
         raise AssertionError("MoE decode logits part from the teacher-forced prefill on a slot "
                              "that lost no assignment")
     del full, dec
     return out
 
+def dropless_teacher_check(model, reqs, dev, spec: ServeSpec, *, tol: float, hold) -> dict:
+    """``moe_teacher_check`` with every MoE layer's capacity raised past
+    what a call can route (capacity factor E / k + 1: capacity > T), so that
+    neither run drops an assignment and the two differ only by their
+    arithmetic: wave 1's first decode logits against the last logits of a
+    prefill over the padded prompts plus those tokens, the rows ``hold``
+    (slot indices) within ``tol`` of the largest logit; each slot's error
+    and the MoE layers whose top-k experts for that token differ between the
+    runs (near ties that the two paths' roundings decide otherwise) are
+    printed.  The model's MoE configs are put back after."""
+    import torch
+    from repro_torch.kernels import ops
+
+    cfg = model.cfg
+    moes = [b.moe for b in model.blocks if b.is_moe]
+    saved = [m.cfg for m in moes]
+    factor = cfg.num_experts / cfg.top_k + 1
+    calls = []                                     # (idx [T, k], assignments dropped)
+    dispatch = ops.moe_dispatch
+
+    def tapped(probs, x, k, capacity):
+        out = dispatch(probs, x, k, capacity)
+        calls.append((out[0], (out[2] < 0).sum()))
+        return out
+
+    tokens, tok0 = padded_wave(reqs, dev, spec)
+    try:
+        for m in moes:
+            m.cfg = dataclasses.replace(m.cfg, capacity_factor=factor)
+        ops.moe_dispatch = tapped
+        cache = model.init_cache(spec.slots, spec.max_seq)
+        _, cache = model.prefill({"tokens": tokens}, cache)
+        dec, cache = model.decode_step(tok0, cache)
+        del cache
+        full, _ = model.prefill({"tokens": torch.cat([tokens, tok0], dim=1)},
+                                model.init_cache(spec.slots, spec.max_seq))
+    finally:
+        ops.moe_dispatch = dispatch
+        for m, c in zip(moes, saved):
+            m.cfg = c
+    n, L, k = len(reqs), len(moes), cfg.top_k
+    dropped = int(sum(int(d) for _, d in calls))
+    decode_idx = [idx for idx, _ in calls[L:2 * L]]
+    teacher_idx = [idx.reshape(spec.slots, -1, k)[:, -1] for idx, _ in calls[2 * L:]]
+    differs = {i: [l for l in range(L)
+                   if not torch.equal(decode_idx[l][i].sort().values,
+                                      teacher_idx[l][i].sort().values)] for i in range(n)}
+    got, want = dec[:, 0].float(), full[:, -1].float()
+    err = (got - want).abs().max(dim=1).values[:n].tolist()
+    scale = float(want[:n].abs().max())
+    held = max(err[i] for i in hold)
+    out = {"factor": factor, "dropped": dropped, "row_err": err, "scale": scale,
+           "held": list(hold), "max_abs_err": held, "differs": differs,
+           "argmax_agree": int((got.argmax(-1) == want.argmax(-1))[:n].sum()),
+           "finite": bool(torch.isfinite(dec).all() and torch.isfinite(full).all())}
+    print(f"dropless teacher-forced check {cfg.arch_id} {str(model.dtype)[6:]} at "
+          f"{cfg.num_layers} layers (wave 1, capacity factor {factor:.4f}, {dropped} "
+          f"assignments dropped in {len(calls)} dispatches): decode vs prefill over the padded "
+          f"prompt + token, rows held {list(hold)} max abs err {held:.3e} of max |logit| "
+          f"{scale:.4f} (tol {tol:g} x scale); every row's err "
+          + ", ".join(f"{e:.3e}" for e in err)
+          + "; MoE layers whose top-k set differs, by slot: "
+          + ", ".join(f"slot {i} {v}" for i, v in differs.items() if v)
+          + f"; argmax agree {out['argmax_agree']}/{n}, all finite {out['finite']}", flush=True)
+    if dropped or len(calls) != 3 * L:
+        raise AssertionError(f"dropless check: {dropped} dropped, {len(calls)} dispatches")
+    if not out["finite"]:
+        raise AssertionError(f"non-finite logits at full width ({cfg.arch_id})")
+    if not held <= tol * scale:
+        raise AssertionError(f"{cfg.arch_id} decode logits part from the teacher-forced prefill "
+                             f"on rows {list(hold)} with nothing dropped")
+    del full, dec
+    return out
+
 
 def moe_small_card_vs_cpu(dev) -> list[dict]:
-    """Phase 8e: reduced granite and deepseek (mla=False) in f32 on the card
-    and on the CPU's plain path: a prefill and decode steps within
+    """Phase 8e: reduced granite and deepseek (with MLA, and with mla=False)
+    in f32 on the card and on the CPU's plain path: a prefill and decode steps within
     SMALL_REL of scale, one dispatch and one combine launch an MoE layer a
     call on the card, and forward_train's aux loss within 1e-6."""
     import copy
@@ -2483,7 +2626,8 @@ def moe_phase(dev, record) -> dict:
     """Phase 8: the MoE kernels at the shared cases (timed at granite's
     prefill and decode shapes) and the flash kernels at granite's heads,
     then full-width granite-moe-1b-a400m serves the slice's requests, then
-    reduced granite and deepseek (mla=False) on card and CPU."""
+    reduced granite and deepseek (with MLA, and with mla=False) on card and
+    CPU."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.moe import MOE_CASES, reference_capacity
@@ -2553,6 +2697,125 @@ def moe_phase(dev, record) -> dict:
     launches = {k: run["launches"][k] for k in expected(0, 0)}
     print(f"phase 8 ({MOE_ARCH}): {time.perf_counter() - t0:.1f} s", flush=True)
     return {"times": times, "run": run, "launches": launches, "small": small}
+
+def mla_step_bound_ms(cfg, param_bytes: int, kv_len: int,
+                      spec: ServeSpec = MLA_SPEC) -> tuple[float, float]:
+    """(bytes, ms at the HBM rate) one MLA decode step at kv_len moves as the
+    port computes it (the reference's baseline, the whole cache expanded a
+    step): every weight once (all 64 experts of every MoE layer: the
+    experts' bmm reads them all) and in each layer the compressed cache
+    [B, Smax, kv_lora + rope] read by the expansion, the expanded K and V
+    [B, Smax, H, D + Dv] written by it, and their rows < kv_len read by
+    ``flash_decode``."""
+    B, Smax, H = spec.slots, spec.max_seq, cfg.num_heads
+    width = cfg.qk_nope_dim + cfg.qk_rope_dim + cfg.v_head_dim
+    per_layer = (B * Smax * (cfg.kv_lora_rank + cfg.qk_rope_dim) + B * Smax * H * width
+                 + B * kv_len * H * width) * 2
+    nbytes = param_bytes + cfg.num_layers * per_layer
+    return float(nbytes), nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def mla_phase(dev, record) -> dict:
+    """Phase 9: the flash kernels with a V head dim of their own at
+    deepseek-v2-lite's shapes, then full-width deepseek-v2-lite-16b serves
+    the slice's requests (MLA over its compressed cache, the MoE kernels at
+    E=64, k=6, d=2,048)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_decode import choose_body
+    from repro_torch.kernels.moe import reference_capacity
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False     # the f32 plain versions in full f32
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = get_config(MLA_ARCH)
+    H, D, dv = cfg.num_heads, cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    Smax = MLA_SPEC.max_seq
+
+    # -- 9a. flash_attention, 9b. flash_decode with K of D = 192 and V of 128
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 4)
+    wave_lens = wave_lengths(cfg, MLA_SPEC)
+    times = {"prefill_attention": check_flash_attention(
+        f"deepseek B=8 S={wave_lens[0]} H=KV={H} D={D} Dv={dv} bf16",
+        (SERVE_SLOTS, wave_lens[0], H, H, D), bf16, dev, gen, record, timed=True, dv=dv,
+        body="wgmma")}
+    check_flash_attention(f"deepseek odd B=3 S=333 D={D} Dv={dv} bf16", (3, 333, H, H, D), bf16,
+                          dev, gen, record, dv=dv, body="wgmma")
+    check_flash_attention(f"deepseek window 64 softcap 50 B=2 S=300 Dv={dv} bf16",
+                          (2, 300, H, H, D), bf16, dev, gen, record, dv=dv, window=64,
+                          softcap=50.0, body="wgmma")
+    check_flash_attention(f"deepseek B=2 S=300 D={D} Dv={dv} f32", (2, 300, H, H, D), f32, dev,
+                          gen, record, dv=dv, body="simt")
+    check_flash_attention("reduced MLA odd B=2 S=77 H=KV=4 D=24 Dv=16 f32", (2, 77, 4, 4, 24),
+                          f32, dev, gen, record, dv=16, body="simt")
+    main_len = wave_lens[0] + SERVE_NEW - 1
+    dshape = (SERVE_SLOTS, Smax, H, H, D)
+    if choose_body(bf16, 1, D, dv) != "simt":
+        raise AssertionError("MLA's decode is not on the SIMT body")
+    times["decode_attention"] = check_flash_decode(
+        f"deepseek B=8 Smax={Smax} D={D} Dv={dv} bf16", dshape, bf16, dev, gen, record,
+        (1, 17, 1000, Smax, main_len), timed_len=main_len, dv=dv)
+    check_flash_decode(f"deepseek B=8 Smax={Smax} D={D} Dv={dv} f32", dshape, f32, dev, gen,
+                       record, (1, 17, 1000, Smax), dv=dv)
+    check_flash_decode(f"deepseek window 256 softcap 50 Dv={dv} bf16", dshape, bf16, dev, gen,
+                       record, (1, 300, 1000, Smax), dv=dv, window=256, softcap=50.0)
+    check_flash_decode("reduced MLA odd B=3 Smax=130 D=24 Dv=16 f32", (3, 130, 4, 4, 24), f32,
+                       dev, gen, record, (1, 17, 64, 65, 130), dv=16)
+
+    # -- 9c. the slice, its checks -------------------------------------------------
+    tap = MoeTap()
+    moe_layers = cfg.num_layers - cfg.first_dense_layers
+
+    def expected(waves, steps):
+        return {"flash_attention": cfg.num_layers * waves, "flash_decode": cfg.num_layers * steps,
+                "moe_dispatch": moe_layers * (waves + steps),
+                "moe_combine": moe_layers * (waves + steps)}
+
+    def checks(model, finished):
+        check_captured_moe(tap, record)
+        wave1 = finished[:SERVE_SLOTS]
+        return {"by_rule": moe_teacher_check(model, wave1, dev, MLA_SPEC, require_slot0=False),
+                "dropless": dropless_teacher_check(model, wave1, dev, MLA_SPEC, tol=TEACHER_TOL,
+                                                   hold=[0])}
+
+    run = serve_slice(cfg, dev, expected, MLA_DECODE_PHASES, MLA_SPEC, teacher_waves=0,
+                      hooks=(tap.install, tap.remove), checks=checks)
+    t = time.perf_counter()
+    cut = dataclasses.replace(cfg, param_dtype="float32", num_layers=MLA_F32_LAYERS)
+    small = build_model(cut, device=dev, generator=torch.Generator(device=dev).manual_seed(
+        SERVE_SEED))
+    run["checks"]["f32"] = dropless_teacher_check(small, run["wave1"], dev, MLA_SPEC,
+                                                  tol=TEACHER_F32_TOL, hold=range(SERVE_SLOTS))
+    del small
+    torch.cuda.empty_cache()
+    print(f"f32 dropless check {MLA_ARCH} at {MLA_F32_LAYERS} layers: "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    if run["cache_slots"] != [Smax] * cfg.num_layers:
+        raise AssertionError(f"{MLA_ARCH} cache slots {run['cache_slots']}")
+    for w in range(len(tap.prefills)):
+        by_layer, by_slot = tap.slot_drops(w)
+        _, slot, B = tap.prefills[w][0]
+        T = slot.shape[0]
+        capacity = reference_capacity(T, cfg.top_k, cfg.num_experts, cfg.capacity_factor, T // B)
+        print(f"moe drops {MLA_ARCH} prefill {w + 1} (T={T}, capacity {capacity}): "
+              f"{sum(by_layer)} of {slot.numel() * len(by_layer)} assignments dropped; by layer "
+              f"{by_layer}; by slot {by_slot}", flush=True)
+    run["drops"] = [tap.slot_drops(w) for w in range(len(tap.prefills))]
+    for i, w in enumerate(run["waves"]):
+        mid = w["prompt_len"] + w["steps"] // 2
+        nbytes, b = mla_step_bound_ms(cfg, run["param_bytes"], mid)
+        w["step_bound_ms"] = b
+        print(f"decode step bound {MLA_ARCH} wave {i + 1}: at kv_len {mid} (mid-wave) "
+              f"{nbytes / 1e9:.4f} GB (every weight, all 64 experts' included, and each layer's "
+              f"compressed cache read, K and V expanded over Smax={Smax} and read to kv_len), "
+              f"{b:.4f} ms at the HBM rate; measured {w['decode_ms_per_step']:.4f} ms a step "
+              f"({b / w['decode_ms_per_step']:.3f} of the bound's rate)", flush=True)
+    tap.captured.clear()
+    torch.cuda.empty_cache()
+    launches = {k: run["launches"][k] for k in expected(0, 0)}
+    print(f"phase 9 ({MLA_ARCH}): {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"times": times, "run": run, "launches": launches}
 
 
 def optimal_phase(cluster, pp, obj0: float, record, dev, *, clock_mhz) -> dict:
@@ -4528,6 +4791,69 @@ def probe(src: str) -> int:
     return 0
 
 
+# ``--flash-probe``'s cases: the flash kernels at the serving phases' equal
+# head dims, (name, (B, S, H, KV, D), dtype, keyword arguments) for the
+# prefill and (name, (B, Smax, H, KV, D), dtype, kv_len, keyword arguments)
+# for the decode: both bodies of each kernel, a window and a softcap.
+FLASH_PROBE_PREFILL = (
+    ("qwen", (8, 1019, 16, 2, 128), "bfloat16", {}),
+    ("granite", (8, 1019, 16, 8, 64), "bfloat16", {}),
+    ("zamba2", (8, 1019, 32, 32, 80), "bfloat16", {}),
+    ("gemma2", (2, 1024, 16, 8, 256), "bfloat16", {"window": 512, "softcap": 50.0}),
+    ("simt f32", (2, 333, 15, 5, 64), "float32", {}),
+    ("simt f32 D=256", (2, 129, 4, 2, 256), "float32", {}),
+    ("simt bf16 D=72", (2, 129, 4, 2, 72), "bfloat16", {"window": 37}))
+FLASH_PROBE_DECODE = (
+    ("qwen", (8, 1064, 16, 2, 128), "bfloat16", 1050, {}),
+    ("granite", (8, 1064, 16, 8, 64), "bfloat16", 1050, {}),
+    ("zamba2", (8, 1064, 32, 32, 80), "bfloat16", 1050, {}),
+    ("gemma2", (8, 8192, 16, 8, 256), "bfloat16", 8000, {"window": 4096, "softcap": 50.0}),
+    ("qwen f32", (8, 1064, 16, 2, 128), "float32", 1050, {}))
+
+
+def flash_probe(src: str) -> int:
+    """``--flash-probe SRC``: the flash kernels of the ``repro_torch``
+    package under SRC at ``FLASH_PROBE_PREFILL`` and ``FLASH_PROBE_DECODE``
+    (inputs drawn from fixed CPU seeds), so that two trees are compared on
+    one card in one call.  Prints one JSON line: per case the median ms a
+    launch (``time_ms``) and a digest of the output's bytes, equal between
+    two trees exactly when their outputs are bit for bit equal."""
+    sys.path.insert(0, os.path.abspath(src))
+    import hashlib
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --flash-probe: needs a card", file=sys.stderr)
+        return 2
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_decode import flash_decode_cuda
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def normal(shape, dtype, seed):
+        g = torch.Generator().manual_seed(seed)
+        return torch.randn(shape, generator=g).to(getattr(torch, dtype)).to(dev)
+
+    def entry(fn):
+        y = fn()
+        digest = hashlib.sha256(y.cpu().contiguous().view(torch.uint8).numpy().tobytes())
+        return {"ms": time_ms(fn), "digest": digest.hexdigest()[:16]}
+
+    out = {}
+    for i, (name, (B, S, H, KV, D), dtype, kw) in enumerate(FLASH_PROBE_PREFILL):
+        q, k, v = (normal(shape, dtype, 10 * i + j)
+                   for j, shape in enumerate(((B, S, H, D), (B, S, KV, D), (B, S, KV, D))))
+        out[f"prefill {name}"] = entry(lambda: flash_attention_cuda(q, k, v, **kw))
+    for i, (name, (B, S, H, KV, D), dtype, n, kw) in enumerate(FLASH_PROBE_DECODE):
+        q, k, v = (normal(shape, dtype, 100 + 10 * i + j)
+                   for j, shape in enumerate(((B, 1, H, D), (B, S, KV, D), (B, S, KV, D))))
+        kv_len = torch.tensor(n, dtype=torch.int32, device=dev)
+        out[f"decode {name}"] = entry(lambda: flash_decode_cuda(q, k, v, kv_len, **kw))
+    print(json.dumps({"src": src, "card": card_line(), "flash": out}), flush=True)
+    return 0
+
+
 def probe_round(pp, dev) -> dict:
     """``--probe``'s rounding times: the kernel's wrapper on fresh copies of
     x and the loads, at the main path's P and at every kind of
@@ -4910,16 +5236,25 @@ def main() -> int:
     print(f"before phase 8: {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated on the "
           "card", flush=True)
     moe = moe_phase(dev, record)
-    flash_launches = {name: flash_launches[name] + moe["launches"][name]
+
+    # -- 9. deepseek-v2-lite-16b at full width: MLA, V's own head dim ---------------
+    del moe["run"]                         # every granite tensor is freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"before phase 9: {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated on the "
+          "card", flush=True)
+    mla = mla_phase(dev, record)
+    flash_launches = {name: flash_launches[name] + moe["launches"][name] + mla["launches"][name]
                       for name in ("flash_attention", "flash_decode")}
     flash_by_path = {name: {SERVE_ARCH: serving["launches"][name],
                             HYBRID_ARCH: hybrid["launches"][name],
                             GEMMA2_ARCH: gemma2_launches["full"][name],
                             f"{GEMMA2_ARCH} ring_cache": gemma2_launches["ring"][name],
-                            MOE_ARCH: moe["launches"][name]}
+                            MOE_ARCH: moe["launches"][name],
+                            MLA_ARCH: mla["launches"][name]}
                      for name in ("flash_attention", "flash_decode")}
 
-    # -- 9. result lines --------------------------------------------------------
+    # -- 10. result lines -------------------------------------------------------
     kernels = [
         {"name": "move_eval_best", "route": "cuda", "source": MOVE_EVAL_SRC,
          "replaces": "src/repro/kernels/move_eval.py:275",
@@ -4983,7 +5318,8 @@ def main() -> int:
          "ms": fa["ms"], "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"],
          "bound_by": fa["bound_by"], "library_ms": fa["library_ms"],
          "gemma2": {k: gemma2_times[k] for k in ("prefill_local", "prefill_global")},
-         "granite": moe["times"]["prefill_attention"]},
+         "granite": moe["times"]["prefill_attention"],
+         "deepseek": mla["times"]["prefill_attention"]},
         {"name": "flash_decode", "route": "cuda", "source": FLASH_DECODE_SRC,
          "replaces": "src/repro/kernels/flash_decode.py:108",
          "launches": flash_launches["flash_decode"],
@@ -4992,7 +5328,8 @@ def main() -> int:
          "ms": fd["ms"], "plain_ms": fd["plain_ms"], "bound_ms": fd["bound_ms"],
          "bound_by": fd["bound_by"], "library_ms": fd["library_ms"],
          "gemma2": gemma2_times["decode_window"],
-         "granite": moe["times"]["decode_attention"]},
+         "granite": moe["times"]["decode_attention"],
+         "deepseek": mla["times"]["decode_attention"]},
         {"name": "ssd_chunk", "route": "cuda", "source": SSD_CHUNK_SRC,
          "replaces": "src/repro/kernels/mamba_scan.py:71",
          "launches": hybrid["launches"]["ssd_chunk"],
@@ -5059,7 +5396,10 @@ def main() -> int:
         t, d = moe["times"]["granite_prefill"][name], moe["times"]["granite_decode"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": MOE_SRC, "replaces": replaces,
-            "launches": moe["launches"][name], "max_abs_err": record[name]["max_abs_err"],
+            "launches": moe["launches"][name] + mla["launches"][name],
+            "launches_by_path": {MOE_ARCH: moe["launches"][name],
+                                 MLA_ARCH: mla["launches"][name]},
+            "max_abs_err": record[name]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "decode": {k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}})
@@ -5073,4 +5413,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--probe":
         sys.exit(probe(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--flash-probe":
+        sys.exit(flash_probe(sys.argv[2]))
     sys.exit(main())

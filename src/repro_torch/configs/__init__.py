@@ -1,11 +1,12 @@
 """Architecture registry of the port: the dense configs (gemma2's
-alternating local/global layers among them), the MoE one (granite-moe) and
-the hybrid (Zamba2) one it serves so far.
+alternating local/global layers among them), the MoE ones (granite-moe,
+and deepseek-v2-lite with MLA attention) and the hybrid (Zamba2) one it
+serves so far.
 
 ``get_config(arch_id)`` returns the exact published config (the same
 numbers as the reference's ``repro.configs``); the CLI aliases are the
-reference's.  The other four architectures come with their families in
-later slices of the port (ROADMAP.md, Queue 1 item 8).
+reference's.  The other three architectures come with their families in
+later slices of the port (ROADMAP.md, Queue 1 item 8d).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ ARCHS = (
     "zamba2_2p7b",
     "gemma2_9b",
     "granite_moe_1b",
+    "deepseek_v2_lite_16b",
 )
 
 # The reference's CLI aliases, all ten (--arch accepts either form).
@@ -36,7 +38,6 @@ ALIASES = {
 
 # Where each architecture not yet ported stands in ROADMAP.md.
 NOT_YET_PORTED = {
-    "deepseek_v2_lite_16b": "Queue 1 item 8c (MLA)",
     "phi3_vision_4p2b": "Queue 1 item 8d (VLM, audio and xLSTM families)",
     "hubert_xlarge": "Queue 1 item 8d (VLM, audio and xLSTM families)",
     "xlstm_125m": "Queue 1 item 8d (VLM, audio and xLSTM families)",

@@ -4,9 +4,8 @@
 (qk_nope=128, qk_rope=64, v=128), 64 routed experts top-6 + 2 shared,
 first layer dense (d_ff=10944) [arXiv:2405.04434; hf].
 
-``get_config`` refuses it until MLA is ported (ROADMAP.md Queue 1 item 8c);
-its MoE parts (shared experts, the dense first layer) run with
-``mla=False`` at reduced size, in the parity tests and on the card.
+Its attention is ``models.attention.MLAttention``; its MoE layers, shared
+experts and dense first layer are ``models.moe.MoE`` and the prefix block.
 """
 from repro_torch.models.config import ModelConfig
 

@@ -62,10 +62,10 @@ SIGNATURES = {
         "pack_ffd_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P],
     },
     "flash_attention": {
-        "flash_attention_launch": [_I] * 8 + [_F, _I, _I, _F] + [_P] * 5,
+        "flash_attention_launch": [_I] * 9 + [_F, _I, _I, _F] + [_P] * 5,
     },
     "flash_decode": {
-        "flash_decode_launch": [_I] * 11 + [_F, _F] + [_P] * 8,
+        "flash_decode_launch": [_I] * 12 + [_F, _F] + [_P] * 8,
     },
     "ssd_chunk": {
         "ssd_chunk_launch": [_I] * 7 + [_P] * 9,

@@ -14,6 +14,7 @@
 //   logit = softcap * tanh(logit / softcap)     when softcap > 0
 //   logit = -1e30 unless j < Skv, (causal) j <= i, (window) j > i - window
 //   out_i = sum_j exp(logit - m) v_j / max(sum_j exp(logit - m), 1e-20)
+// with q_i, k_j of D dims and v_j, out_i of DV <= D dims.
 // with an online softmax over key blocks, and a key block skipped exactly
 // when no key of it is visible to any row of the 64-row query block (a
 // warpgroup's rows in the tensor-core body; causal: k0 <= q0 + 63; window:
@@ -27,7 +28,9 @@
 // the causal work is 4*D per visible (query, key) pair, 34 GFLOP, 35 us at
 // the bf16 tensor-core peak, while q, k, v and out (~46 MB) take 14 us: the
 // function is operation-bound.  At Zamba2's shared block (H=KV=32, D=80) the
-// bytes (~167 MB, 50 us) bound it.
+// bytes (~167 MB, 50 us) bound it, and at deepseek's MLA prefill (H=KV=16,
+// D=192, DV=128; 2 (D + DV) operations a pair, 42.6 GFLOP, 43 us) the bytes
+// too (~167 MB, 50 us).
 //
 // Tensor-core body (what the design does about the operation bound).  One
 // CTA = two warpgroups of 128 threads, each with its own 64 query rows, per
@@ -58,8 +61,14 @@
 //     one is consumed.  Both warpgroups share each tile, which halves the
 //     tiles read from L2 against one warpgroup a CTA; each warpgroup skips
 //     the blocks that none of its own 64 rows sees.
-//   * BK = 64 keys for D <= 128, 32 above (the O accumulator of D = 256 is
+//   * BK = 64 keys for DV <= 128, 32 above (the O accumulator of DV = 256 is
 //     128 registers a thread).
+//   * V's head dim DV may be smaller than D (MLA: K 192 = 128 + 64 rope
+//     dims, V 128).  O and the output are DV wide; a V tile is copied in
+//     its own [BK, DV] core-matrix layout into a slot sized for a K tile,
+//     and P.V runs over DV columns, so V is read once at its own width
+//     (zero-padding it to D would read 1.5x its bytes at MLA's shape).  The
+//     body is a template on (D, DV): every D = DV, and (192, 128).
 // Left for a later redesign: the two warpgroups run in lock step (one
 // barrier a tile), so a warpgroup's softmax does not overlap the products;
 // warp specialisation (a producer warp, consumer warpgroups in ping-pong),
@@ -68,9 +77,11 @@
 //
 // SIMT body: one CTA of 256 threads per (64 query rows, head, batch); Q
 // (scaled), K and V tiles of 64 rows in shared memory as f32 with rows
-// padded to D + 1 floats; a 16 x 16 thread grid computes the 64 x 64 logit
-// tile, probabilities go through shared memory, f32 FMAs.  It serves the f32
-// contract (3e-5), which rules out bf16 and TF32 tensor cores.
+// padded to D + 1 (V: DV + 1) floats; a 16 x 16 thread grid computes the
+// 64 x 64 logit tile, probabilities go through shared memory, f32 FMAs.  It
+// serves the f32 contract (3e-5), which rules out bf16 and TF32 tensor
+// cores.  DV < D is an instantiation of its own (NARROW), so equal dims
+// keep their code.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -93,18 +104,22 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
-template <typename T, int NJ>
+// NARROW: V's head dim dv < D (MLA).  The other instantiation takes DV = D,
+// so the body for equal dims is the one it was before V had a width of its
+// own (same code, same bits, same time).
+template <typename T, int NJ, bool NARROW>
 __global__ void __launch_bounds__(SIMT_NT)
-flash_attention_simt_kernel(int Sq, int Skv, int H, int KV, int D, float scale, int causal,
-                       int window, float softcap, const T* __restrict__ q,
+flash_attention_simt_kernel(int Sq, int Skv, int H, int KV, int D, int dv, float scale,
+                       int causal, int window, float softcap, const T* __restrict__ q,
                        const T* __restrict__ k, const T* __restrict__ v,
                        T* __restrict__ out) {
   extern __shared__ float smem[];
-  const int DP = D + 1;
+  const int DV = NARROW ? dv : D;
+  const int DP = D + 1, DVP = DV + 1;
   float* Qs = smem;                   // [SIMT_BQ][DP]
   float* Ks = Qs + SIMT_BQ * DP;      // [SIMT_BK][DP]
-  float* Vs = Ks + SIMT_BK * DP;      // [SIMT_BK][DP]
-  float* Ps = Vs + SIMT_BK * DP;      // [SIMT_BQ][SIMT_BK + 1]
+  float* Vs = Ks + SIMT_BK * DP;      // [SIMT_BK][DVP]
+  float* Ps = Vs + SIMT_BK * DVP;     // [SIMT_BQ][SIMT_BK + 1]
   const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -135,16 +150,28 @@ flash_attention_simt_kernel(int Sq, int Skv, int H, int KV, int D, float scale, 
     if (!relevant) continue;
 
     __syncthreads();                     // Q staged; last block's K/V/P readers done
-    for (int e = tid; e < SIMT_BK * D; e += SIMT_NT) {
-      const int c = e / D, d = e - c * D, kj = k0 + c;
-      float kv_k = 0.0f, kv_v = 0.0f;
-      if (kj < Skv) {
-        const size_t off = (((size_t)b * Skv + kj) * KV + kvh) * D + d;
-        kv_k = to_f32(k[off]);
-        kv_v = to_f32(v[off]);
+    if constexpr (NARROW) {
+      for (int e = tid; e < SIMT_BK * D; e += SIMT_NT) {
+        const int c = e / D, d = e - c * D, kj = k0 + c;
+        Ks[c * DP + d] = kj < Skv ? to_f32(k[(((size_t)b * Skv + kj) * KV + kvh) * D + d]) : 0.0f;
       }
-      Ks[c * DP + d] = kv_k;
-      Vs[c * DP + d] = kv_v;
+      for (int e = tid; e < SIMT_BK * DV; e += SIMT_NT) {
+        const int c = e / DV, d = e - c * DV, kj = k0 + c;
+        Vs[c * DVP + d] =
+            kj < Skv ? to_f32(v[(((size_t)b * Skv + kj) * KV + kvh) * DV + d]) : 0.0f;
+      }
+    } else {
+      for (int e = tid; e < SIMT_BK * D; e += SIMT_NT) {
+        const int c = e / D, d = e - c * D, kj = k0 + c;
+        float kv_k = 0.0f, kv_v = 0.0f;
+        if (kj < Skv) {
+          const size_t off = (((size_t)b * Skv + kj) * KV + kvh) * D + d;
+          kv_k = to_f32(k[off]);
+          kv_v = to_f32(v[off]);
+        }
+        Ks[c * DP + d] = kv_k;
+        Vs[c * DP + d] = kv_v;
+      }
     }
     __syncthreads();
 
@@ -208,7 +235,7 @@ flash_attention_simt_kernel(int Sq, int Skv, int H, int KV, int D, float scale, 
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int d = tx + 16 * j;
-        const float vv = (d < D) ? Vs[c * DP + d] : 0.0f;
+        const float vv = (d < DV) ? Vs[c * DVP + d] : 0.0f;
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
       }
@@ -220,42 +247,45 @@ flash_attention_simt_kernel(int Sq, int Skv, int H, int KV, int D, float scale, 
     const int qi = q0 + ty + 16 * i;
     if (qi >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-20f);
-    T* o = out + (((size_t)b * Sq + qi) * H + h) * D;
+    T* o = out + (((size_t)b * Sq + qi) * H + h) * DV;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = tx + 16 * j;
-      if (d < D) o[d] = from_f32<T>(acc[i][j] / denom);
+      if (d < DV) o[d] = from_f32<T>(acc[i][j] / denom);
     }
   }
 }
 
-template <typename T, int NJ>
-static int launch_simt(int B, int Sq, int Skv, int H, int KV, int D, float scale, int causal,
-                  int window, float softcap, const void* q, const void* k, const void* v,
-                  void* out, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(SIMT_BQ * (D + 1) + 2 * SIMT_BK * (D + 1) + SIMT_BQ * (SIMT_BK + 1)) *
-      sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_simt_kernel<T, NJ>,
+template <typename T, int NJ, bool NARROW>
+static int launch_simt(int B, int Sq, int Skv, int H, int KV, int D, int DV, float scale,
+                       int causal, int window, float softcap, const void* q, const void* k,
+                       const void* v, void* out, cudaStream_t stream) {
+  const size_t smem = (size_t)(SIMT_BQ * (D + 1) + SIMT_BK * (D + 1) + SIMT_BK * (DV + 1) +
+                               SIMT_BQ * (SIMT_BK + 1)) *
+                      sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_simt_kernel<T, NJ, NARROW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + SIMT_BQ - 1) / SIMT_BQ, H, B);
-  flash_attention_simt_kernel<T, NJ><<<grid, SIMT_NT, smem, stream>>>(
-      Sq, Skv, H, KV, D, scale, causal, window, softcap, (const T*)q, (const T*)k,
+  flash_attention_simt_kernel<T, NJ, NARROW><<<grid, SIMT_NT, smem, stream>>>(
+      Sq, Skv, H, KV, D, DV, scale, causal, window, softcap, (const T*)q, (const T*)k,
       (const T*)v, (T*)out);
   return (int)cudaGetLastError();
 }
 
+// NJ: the output columns a thread holds, 16 apart (V's DV columns).
 template <typename T>
-static int dispatch_d(int B, int Sq, int Skv, int H, int KV, int D, float scale, int causal,
-                      int window, float softcap, const void* q, const void* k, const void* v,
-                      void* out, cudaStream_t stream) {
-  const int nj = (D + 15) / 16;
-#define FA_CASE(N)                                                                         \
-  if (nj <= N)                                                                             \
-    return launch_simt<T, N>(B, Sq, Skv, H, KV, D, scale, causal, window, softcap, q, k, v, \
-                             out, stream);
+static int dispatch_d(int B, int Sq, int Skv, int H, int KV, int D, int DV, float scale,
+                      int causal, int window, float softcap, const void* q, const void* k,
+                      const void* v, void* out, cudaStream_t stream) {
+  const int nj = (DV + 15) / 16;
+#define FA_CASE(N)                                                                          \
+  if (nj <= N)                                                                              \
+    return DV == D ? launch_simt<T, N, false>(B, Sq, Skv, H, KV, D, DV, scale, causal, window, \
+                                              softcap, q, k, v, out, stream)                   \
+                   : launch_simt<T, N, true>(B, Sq, Skv, H, KV, D, DV, scale, causal, window,  \
+                                             softcap, q, k, v, out, stream);
   FA_CASE(1) FA_CASE(2) FA_CASE(4) FA_CASE(8) FA_CASE(16)
 #undef FA_CASE
   return (int)cudaErrorInvalidValue;
@@ -415,16 +445,20 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const __nv_bfloat16* g, 
   }
 }
 
-template <int D, int BK>
+// D: q's and K's head dim; DV (<= D): V's and the output's.  A K tile and
+// a V tile share the slot size of a K tile.
+template <int D, int DV, int BK>
 __global__ void __launch_bounds__(NT)
 flash_attention_wgmma_kernel(int Sq, int Skv, int H, int KV, float scale, int causal, int window,
                              float softcap, const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
                              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out) {
-  static_assert(D % 16 == 0 && D <= 256 && BK % 16 == 0, "shape");
-  constexpr int QBYTES = BQ * D * 2, TBYTES = BK * D * 2;   // Q; one K or V tile
-  constexpr int TCHUNKS = BK * D / 8;                        // 16-byte chunks a tile
+  static_assert(D % 16 == 0 && D <= 256 && DV % 16 == 0 && DV <= D && BK % 16 == 0, "shape");
+  constexpr int QBYTES = BQ * D * 2, TBYTES = BK * D * 2;   // Q; one K tile (a slot)
+  constexpr int TCHUNKS = BK * D / 8;                        // 16-byte chunks a K tile
   constexpr int TPT = (TCHUNKS + NT - 1) / NT;               // of them a thread copies
+  constexpr int VCHUNKS = BK * DV / 8;                       // the same for a V tile
+  constexpr int VPT = (VCHUNKS + NT - 1) / NT;
   extern __shared__ __align__(128) uint8_t smem[];
   const uint32_t sq = smem_addr(smem);           // Q | NSLOT tile slots
   const int h = blockIdx.x, b = blockIdx.y;
@@ -452,17 +486,27 @@ flash_attention_wgmma_kernel(int Sq, int Skv, int H, int KV, float scale, int ca
 
   const __nv_bfloat16* qg = q + ((size_t)b * Sq * H + h) * D;
   const __nv_bfloat16* kg = k + ((size_t)b * Skv * KV + kvh) * D;
-  const __nv_bfloat16* vg = v + ((size_t)b * Skv * KV + kvh) * D;
-  const size_t qstride = (size_t)H * D, kvstride = (size_t)KV * D;
+  const __nv_bfloat16* vg = v + ((size_t)b * Skv * KV + kvh) * DV;
+  const size_t qstride = (size_t)H * D, kvstride = (size_t)KV * D, vstride = (size_t)KV * DV;
 
-  // This thread's chunks of every K or V tile: row in the tile and element
-  // offset from the tile's first row, computed once.
+  // This thread's chunks of every K tile (and V tile, when DV = D): row in
+  // the tile and element offset from the tile's first row, computed once;
+  // with DV < D, those of a V tile apart.
   int c_row[TPT], c_off[TPT];
 #pragma unroll
   for (int i = 0; i < TPT; ++i) {
     const int e = tid + i * NT;
     c_row[i] = chunk_row<D>(e);
     c_off[i] = c_row[i] * (int)kvstride + 8 * chunk_col<D>(e);
+  }
+  int v_row[DV == D ? 1 : VPT], v_off[DV == D ? 1 : VPT];
+  if constexpr (DV != D) {
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int e = tid + i * NT;
+      v_row[i] = chunk_row<DV>(e);
+      v_off[i] = v_row[i] * (int)vstride + 8 * chunk_col<DV>(e);
+    }
   }
 
   // Tiles stream through a ring of NSLOT slots in the order K_0, V_0, K_1,
@@ -474,14 +518,25 @@ flash_attention_wgmma_kernel(int Sq, int Skv, int H, int KV, float scale, int ca
   auto issue_tile = [&](int j) {
     if (j < ntiles) {
       const int r0 = (kb_lo + j / 2) * BK;
-      const __nv_bfloat16* g = ((j & 1) ? vg : kg) + (size_t)r0 * kvstride;
       const uint32_t dst = sq + QBYTES + (j % NSLOT) * TBYTES;
+      if (DV == D || !(j & 1)) {
+        const __nv_bfloat16* g = ((j & 1) ? vg : kg) + (size_t)r0 * kvstride;
 #pragma unroll
-      for (int i = 0; i < TPT; ++i) {
-        const int e = tid + i * NT;
-        if (TCHUNKS % NT != 0 && e >= TCHUNKS) break;
-        const bool ok = r0 + c_row[i] < Skv;
-        cp_async16(dst + 16 * e, g + (ok ? c_off[i] : 0), ok);
+        for (int i = 0; i < TPT; ++i) {
+          const int e = tid + i * NT;
+          if (TCHUNKS % NT != 0 && e >= TCHUNKS) break;
+          const bool ok = r0 + c_row[i] < Skv;
+          cp_async16(dst + 16 * e, g + (ok ? c_off[i] : 0), ok);
+        }
+      } else if constexpr (DV != D) {
+        const __nv_bfloat16* g = vg + (size_t)r0 * vstride;
+#pragma unroll
+        for (int i = 0; i < VPT; ++i) {
+          const int e = tid + i * NT;
+          if (VCHUNKS % NT != 0 && e >= VCHUNKS) break;
+          const bool ok = r0 + v_row[i] < Skv;
+          cp_async16(dst + 16 * e, g + (ok ? v_off[i] : 0), ok);
+        }
       }
     }
     cp_async_commit();                           // an empty group past the end
@@ -495,9 +550,9 @@ flash_attention_wgmma_kernel(int Sq, int Skv, int H, int KV, float scale, int ca
   const int row1 = row0 + 8;
   const int col_in = 2 * (lane & 3);
 
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int j = 0; j < D / 2; ++j) o[j] = 0.0f;
+  for (int j = 0; j < DV / 2; ++j) o[j] = 0.0f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.0f, l1 = 0.0f;   // log2 domain; partial sums
   const float scale_log2 = scale * LOG2E;
 
@@ -569,7 +624,7 @@ flash_attention_wgmma_kernel(int Sq, int Skv, int H, int KV, float scale, int ca
       l0 *= a0;
       l1 *= a1;
 #pragma unroll
-      for (int j = 0; j < D / 2; ++j) o[j] *= (j & 2) ? a1 : a0;
+      for (int j = 0; j < DV / 2; ++j) o[j] *= (j & 2) ? a1 : a0;
 
       // p in f32, and its two bf16 terms as the A fragments of P.V: keys
       // 16 kk .. 16 kk + 15 are s[8 kk .. 8 kk + 7], in A's register order.
@@ -598,19 +653,19 @@ flash_attention_wgmma_kernel(int Sq, int Skv, int H, int KV, float scale, int ca
 
     if (mine) {
       // O += P_hi V + P_lo V.  V's descriptor is MN-major: LBO (next 8 keys)
-      // 16 D bytes, SBO (next 8 columns) 128 bytes; 16 keys further = 32 D
+      // 16 DV bytes, SBO (next 8 columns) 128 bytes; 16 keys further = 32 DV
       // bytes.
-      const uint64_t dv = make_desc(sq + QBYTES + ((jk + 1) % NSLOT) * TBYTES, 16 * D, 128);
+      const uint64_t dv = make_desc(sq + QBYTES + ((jk + 1) % NSLOT) * TBYTES, 16 * DV, 128);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        pv_product<D>(o, ph[kk], dv + 2 * D * kk);
-        pv_product<D>(o, pl[kk], dv + 2 * D * kk);
+        pv_product<DV>(o, ph[kk], dv + 2 * DV * kk);
+        pv_product<DV>(o, pl[kk], dv + 2 * DV * kk);
       }
       wg_commit();
       wg_wait0();
 #pragma unroll
-      for (int j = 0; j < D / 2; ++j) fence_reg(o[j]);
+      for (int j = 0; j < DV / 2; ++j) fence_reg(o[j]);
     }
   }
   cp_async_wait<0>();
@@ -626,22 +681,24 @@ flash_attention_wgmma_kernel(int Sq, int Skv, int H, int KV, float scale, int ca
     const int row = half ? row1 : row0;
     if (row >= Sq) continue;
     const float inv = half ? inv1 : inv0;
-    __nv_bfloat16* orow = out + (((size_t)b * Sq + row) * H + h) * D + col_in;
+    __nv_bfloat16* orow = out + (((size_t)b * Sq + row) * H + h) * DV + col_in;
 #pragma unroll
-    for (int nb = 0; nb < D / 8; ++nb) {
+    for (int nb = 0; nb < DV / 8; ++nb) {
       const float x0 = o[4 * nb + 2 * half] * inv, x1 = o[4 * nb + 2 * half + 1] * inv;
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * nb) = __floats2bfloat162_rn(x0, x1);
     }
   }
 }
 
-template <int D>
+// BK: 64 keys a tile while the O accumulator (DV / 2 floats a thread)
+// leaves the registers for it, 32 above DV = 128.
+template <int D, int DV>
 static int launch_wgmma(int B, int Sq, int Skv, int H, int KV, float scale, int causal,
                         int window, float softcap, const void* q, const void* k, const void* v,
                         void* out, cudaStream_t stream) {
-  constexpr int BKD = D <= 128 ? 64 : 32;
+  constexpr int BKD = DV <= 128 ? 64 : 32;
   const size_t smem = (size_t)(BQ + NSLOT * BKD) * D * 2;
-  auto kernel = flash_attention_wgmma_kernel<D, BKD>;
+  auto kernel = flash_attention_wgmma_kernel<D, DV, BKD>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -652,14 +709,20 @@ static int launch_wgmma(int B, int Sq, int Skv, int H, int KV, float scale, int 
   return (int)cudaGetLastError();
 }
 
-static int dispatch_wgmma(int B, int Sq, int Skv, int H, int KV, int D, float scale, int causal,
-                          int window, float softcap, const void* q, const void* k,
+// Every D = DV that is a multiple of 16 up to 256, and (D, DV) = (192, 128),
+// MLA's (deepseek-v2-lite); any other pair is refused.
+static int dispatch_wgmma(int B, int Sq, int Skv, int H, int KV, int D, int DV, float scale,
+                          int causal, int window, float softcap, const void* q, const void* k,
                           const void* v, void* out, cudaStream_t stream) {
+  if (D == 192 && DV == 128)
+    return launch_wgmma<192, 128>(B, Sq, Skv, H, KV, scale, causal, window, softcap, q, k, v,
+                                  out, stream);
+  if (DV != D) return (int)cudaErrorInvalidValue;
   switch (D) {
-#define FA_TC_CASE(N)                                                                      \
-  case N:                                                                                  \
-    return launch_wgmma<N>(B, Sq, Skv, H, KV, scale, causal, window, softcap, q, k, v, out, \
-                           stream);
+#define FA_TC_CASE(N)                                                                         \
+  case N:                                                                                     \
+    return launch_wgmma<N, N>(B, Sq, Skv, H, KV, scale, causal, window, softcap, q, k, v, out, \
+                              stream);
     FA_TC_CASE(16) FA_TC_CASE(32) FA_TC_CASE(48) FA_TC_CASE(64) FA_TC_CASE(80)
     FA_TC_CASE(96) FA_TC_CASE(112) FA_TC_CASE(128) FA_TC_CASE(144) FA_TC_CASE(160)
     FA_TC_CASE(176) FA_TC_CASE(192) FA_TC_CASE(208) FA_TC_CASE(224) FA_TC_CASE(240)
@@ -674,27 +737,28 @@ static int dispatch_wgmma(int B, int Sq, int Skv, int H, int KV, int D, float sc
 
 // dtype: 0 = float32, 1 = bfloat16; body: 0 = SIMT, 1 = tensor cores (bf16,
 // D % 16 == 0 only).  window <= 0: none; softcap <= 0: none.
-// q [B, Sq, H, D], k/v [B, Skv, KV, D], out [B, Sq, H, D], all contiguous
-// (16-byte aligned for the tensor-core body), D <= 256 and H a multiple of
-// KV (the wrapper checks).
-extern "C" int flash_attention_launch(int B, int Sq, int Skv, int H, int KV, int D, int dtype,
-                                      int body, float scale, int causal, int window,
+// q [B, Sq, H, D], k [B, Skv, KV, D], v [B, Skv, KV, DV], out [B, Sq, H, DV],
+// all contiguous (16-byte aligned for the tensor-core body), DV <= D <= 256
+// and H a multiple of KV (the wrapper checks).
+extern "C" int flash_attention_launch(int B, int Sq, int Skv, int H, int KV, int D, int DV,
+                                      int dtype, int body, float scale, int causal, int window,
                                       float softcap, const void* q, const void* k,
                                       const void* v, void* out, void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return 0;
+  if (DV <= 0 || DV > D) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (body == 1) {
     if (dtype != 1 || D % 16 != 0) return (int)cudaErrorInvalidValue;
-    return tc::dispatch_wgmma(B, Sq, Skv, H, KV, D, scale, causal, window, softcap, q, k, v,
-                              out, s);
+    return tc::dispatch_wgmma(B, Sq, Skv, H, KV, D, DV, scale, causal, window, softcap, q, k,
+                              v, out, s);
   }
   if (body != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch_d<float>(B, Sq, Skv, H, KV, D, scale, causal, window, softcap, q, k, v,
+    return dispatch_d<float>(B, Sq, Skv, H, KV, D, DV, scale, causal, window, softcap, q, k, v,
                              out, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(B, Sq, Skv, H, KV, D, scale, causal, window, softcap, q,
-                                     k, v, out, s);
+    return dispatch_d<__nv_bfloat16>(B, Sq, Skv, H, KV, D, DV, scale, causal, window, softcap,
+                                     q, k, v, out, s);
   return (int)cudaErrorInvalidValue;
 }
 

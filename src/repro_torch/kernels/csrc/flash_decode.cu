@@ -9,6 +9,7 @@
 // or max(0, kv_len - window) for a sliding window (gemma2's local layers):
 //   logit = (q * scale) . k_j,  softcap * tanh(logit / softcap) when softcap > 0
 //   out = sum_{lo <= j < kv_len} exp(logit - m) v_j / max(sum exp(logit - m), 1e-20)
+// with q and k_j of D dims and v_j and out of DV <= D (MLA: 192 and 128).
 // Positions outside [lo, kv_len) are never read.  (The Pallas kernel masks
 // those >= kv_len to -1e30 inside a visited block, where they weigh
 // exp(-1e30 - m) = 0: the same sums.  It has no window: the reference runs
@@ -54,7 +55,10 @@
 //     its row's lanes by shuffles and the softmax bookkeeping is done once
 //     a step and head, spread over the warp's lanes; a query group is cut
 //     into sets of at most 4 heads, one CTA a set, so a lane holds few
-//     heads.
+//     heads.  With DV < D (MLA's decode, D = 192, DV = 128; an
+//     instantiation of its own, so equal dims keep their code) the lanes
+//     that read a K row's D dims read its V row's DV, at V's own row
+//     stride, and take zeros past DV: V is read once at its width.
 // The CTA's partial (m, l, acc[G, D]) goes to an f32 scratch; then a
 // __threadfence() and a ticket (atomicAdd on an int32 per (b, kv head,
 // head set)): the CTA that draws the last ticket merges the nsplit
@@ -63,11 +67,11 @@
 // (finish_cta).  With one range the CTA writes out directly.  Ranges that
 // start at or past kv_len contribute (m = -inf, l = 0, acc = 0) and read
 // nothing; no range starts before lo, so no row before it is read or masked.
-// Left for a later redesign: the tensor-core body at D = 256, a shorter
-// chain of dependent memory round trips around the rows (q, partials,
-// fence, ticket, merge), fewer instructions a row in the SIMT body, a
-// persistent grid sized to the card, fusing the cache write of the new
-// token, fp8 caches.
+// Left for a later redesign: the tensor-core body at D = 256 and at MLA's
+// (192, 128), a shorter chain of dependent memory round trips around the
+// rows (q, partials, fence, ticket, merge), fewer instructions a row in the
+// SIMT body, a persistent grid sized to the card, fusing the cache write of
+// the new token, fp8 caches.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -119,7 +123,8 @@ __device__ __forceinline__ uint4 load_chunk(const T* row, int c, int D, bool vec
 
 // The CTA's result for heads g0 .. g0 + gn - 1 of its group: the DWARPS
 // warps' running max and sum (wm, wl [DWARPS][hstride]) and accumulators
-// (red [DWARPS][hstride][D]) in shared memory merge with weights
+// (red [DWARPS][hstride][D], D here the output's width, V's) in shared
+// memory merge with weights
 // e^(m_w - M).  With one range (nsplit == 1) the CTA writes out (at
 // out_base, the group's first head) directly; else it writes its partial
 // (m, l, acc) at range pidx, and the CTA that draws the last ticket merges
@@ -251,10 +256,12 @@ struct RowsAtOnce {
   static constexpr int value = raw < 1 ? 1 : (raw > 4 ? 4 : raw);
 };
 
-// CPL chunks of VEC elements a lane, up to GC query heads a CTA.
-template <typename T, int CPL, int GC>
+// CPL chunks of VEC elements a lane, up to GC query heads a CTA.  NARROW:
+// V's head dim dv < D (MLA); the other instantiation takes DV = D, so the
+// body for equal dims is the one it was before V had a width of its own.
+template <typename T, int CPL, int GC, bool NARROW>
 __global__ void __launch_bounds__(DNT)
-flash_decode_kernel(int Smax, int KV, int G, int D, int lpr, int hsplit, int split_len,
+flash_decode_kernel(int Smax, int KV, int G, int D, int dv, int lpr, int hsplit, int split_len,
                     int window, float scale, float softcap, const T* __restrict__ q,
                     const T* __restrict__ k, const T* __restrict__ v,
                     const int* __restrict__ kv_len_ptr,
@@ -262,6 +269,7 @@ flash_decode_kernel(int Smax, int KV, int G, int D, int lpr, int hsplit, int spl
   constexpr int VEC = 16 / sizeof(T);
   constexpr int E = CPL * VEC;                           // dims a lane holds
   constexpr int U = RowsAtOnce<CPL, GC, VEC>::value;
+  const int DV = NARROW ? dv : D;
   extern __shared__ float smem[];
   const int rpw = 32 / lpr;                              // rows a warp reads at once
   const int wrows = rpw * U;                             // rows a warp step
@@ -269,8 +277,8 @@ flash_decode_kernel(int Smax, int KV, int G, int D, int lpr, int hsplit, int spl
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   float* lgw = smem + warp * wrows * GC;                 // [wrows][GC] the warp's logits, then p
   float* alw = smem + DWARPS * wrows * GC + warp * GC;   // [GC] the warp's rescale
-  float* red = smem + DWARPS * (wrows + 1) * GC;         // [DWARPS][GC][D] accumulators
-  float* wm = red + DWARPS * GC * D;                     // [DWARPS][GC] running max, then weight
+  float* red = smem + DWARPS * (wrows + 1) * GC;         // [DWARPS][GC][DV] accumulators
+  float* wm = red + DWARPS * GC * DV;                    // [DWARPS][GC] running max, then weight
   float* wl = wm + DWARPS * GC;                          // [DWARPS][GC] running sum
 
   // blockIdx.x = (b KV + kv head) hsplit + head set: the group's G heads
@@ -288,10 +296,10 @@ flash_decode_kernel(int Smax, int KV, int G, int D, int lpr, int hsplit, int spl
   const int lo = window > 0 ? max(0, kv_len - window) : 0;   // the window's first row
   const int s0 = lo + split * split_len;
   const int s1 = min(s0 + split_len, kv_len);
-  const bool vec_ok = D % VEC == 0;
-  const size_t row_stride = (size_t)KV * D;
+  const bool vec_ok = D % VEC == 0, vvec_ok = NARROW ? DV % VEC == 0 : vec_ok;
+  const size_t row_stride = (size_t)KV * D, vrow_stride = NARROW ? (size_t)KV * DV : row_stride;
   const T* kbase = k + ((size_t)b * Smax * KV + kvh) * D;
-  const T* vbase = v + ((size_t)b * Smax * KV + kvh) * D;
+  const T* vbase = v + ((size_t)b * Smax * KV + kvh) * DV;
   const size_t pidx = (size_t)bkv * nsplit + split;
 
   float qf[GC][E];
@@ -331,7 +339,7 @@ flash_decode_kernel(int Smax, int KV, int G, int D, int lpr, int hsplit, int spl
       for (int i = 0; i < CPL; ++i) {
         if (row < s1) {
           kn[u][i] = load_chunk(kbase + row * row_stride, sub + lpr * i, D, vec_ok);
-          vn[u][i] = load_chunk(vbase + row * row_stride, sub + lpr * i, D, vec_ok);
+          vn[u][i] = load_chunk(vbase + row * vrow_stride, sub + lpr * i, DV, vvec_ok);
         } else {
           kn[u][i] = make_uint4(0, 0, 0, 0);
           vn[u][i] = make_uint4(0, 0, 0, 0);
@@ -444,36 +452,36 @@ flash_decode_kernel(int Smax, int KV, int G, int D, int lpr, int hsplit, int spl
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
           const int d = (sub + lpr * i) * VEC + e;
-          if (g < gn && d < D) red[(warp * GC + g) * D + d] = acc[g][i * VEC + e];
+          if (g < gn && d < DV) red[(warp * GC + g) * DV + d] = acc[g][i * VEC + e];
         }
   }
   if (lane < GC) {
     wm[warp * GC + lane] = m_run;
     wl[warp * GC + lane] = l_run;
   }
-  finish_cta(smem, red, wm, wl, GC, g0, gn, G, D, ((size_t)b * H + kvh * G) * D, pidx,
+  finish_cta(smem, red, wm, wl, GC, g0, gn, G, DV, ((size_t)b * H + kvh * G) * DV, pidx,
              (size_t)bkv * nsplit, nparts, part, tickets + blockIdx.x, out);
 }
 
-template <typename T, int CPL, int GC>
-static int launch(int B, int Smax, int H, int KV, int D, int lpr, int hsplit, int nsplit,
+template <typename T, int CPL, int GC, bool NARROW>
+static int launch(int B, int Smax, int H, int KV, int D, int DV, int lpr, int hsplit, int nsplit,
                   int split_len, int window, float scale, float softcap, const void* q,
                   const void* k, const void* v, const void* kv_len, void* part, void* tickets,
                   void* out, cudaStream_t stream) {
   const int G = H / KV;
   const int wrows = (32 / lpr) * RowsAtOnce<CPL, GC, 16 / sizeof(T)>::value;
-  const int pass_floats = DWARPS * (wrows + 1) * GC + DWARPS * GC * D + 2 * DWARPS * GC;
+  const int pass_floats = DWARPS * (wrows + 1) * GC + DWARPS * GC * DV + 2 * DWARPS * GC;
   const int merge_floats = 2 * nsplit * GC + GC;
   const size_t smem =
       (size_t)(pass_floats > merge_floats ? pass_floats : merge_floats) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_decode_kernel<T, CPL, GC>,
+  cudaError_t err = cudaFuncSetAttribute(flash_decode_kernel<T, CPL, GC, NARROW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * KV * hsplit, nsplit);
-  flash_decode_kernel<T, CPL, GC><<<grid, DNT, smem, stream>>>(
-      Smax, KV, G, D, lpr, hsplit, split_len, window, scale, softcap, (const T*)q, (const T*)k,
-      (const T*)v, (const int*)kv_len, (float*)part, (int*)tickets, (T*)out);
+  flash_decode_kernel<T, CPL, GC, NARROW><<<grid, DNT, smem, stream>>>(
+      Smax, KV, G, D, DV, lpr, hsplit, split_len, window, scale, softcap, (const T*)q,
+      (const T*)k, (const T*)v, (const int*)kv_len, (float*)part, (int*)tickets, (T*)out);
   return (int)cudaGetLastError();
 }
 
@@ -481,8 +489,10 @@ static int launch(int B, int Smax, int H, int KV, int D, int lpr, int hsplit, in
 // flight) whose chunks, rounded up to a compiled CPL (1, 2, 4, 5), keep the
 // lane's accumulators within ACC_BUDGET floats; else one chunk a lane, or
 // at most 32 lanes a row (f32 rows of more than 128 values take 2 chunks).
+// A lane's chunks are those of K's rows (D); a V row (DV <= D) is read by
+// the same lanes, its chunks past DV as zeros that nothing reads.
 template <typename T>
-static int dispatch(int B, int Smax, int H, int KV, int D, int hsplit, int nsplit,
+static int dispatch(int B, int Smax, int H, int KV, int D, int DV, int hsplit, int nsplit,
                     int split_len, int window, float scale, float softcap, const void* q,
                     const void* k, const void* v, const void* kv_len, void* part, void* tickets,
                     void* out, cudaStream_t stream) {
@@ -496,10 +506,14 @@ static int dispatch(int B, int Smax, int H, int KV, int D, int hsplit, int nspli
     cpl = need <= 1 ? 1 : need <= 2 ? 2 : need <= 4 ? 4 : need <= 5 ? 5 : 0;
     if (lpr == 32 || cpl == 1 || (cpl > 0 && gc * cpl * VEC <= ACC_BUDGET)) break;
   }
-#define FD_CASE(C, N)                                                                     \
-  if (cpl == C && gc == N)                                                                \
-    return launch<T, C, N>(B, Smax, H, KV, D, lpr, hsplit, nsplit, split_len, window, scale, \
-                           softcap, q, k, v, kv_len, part, tickets, out, stream);
+#define FD_CASE(C, N)                                                                       \
+  if (cpl == C && gc == N)                                                                  \
+    return DV == D ? launch<T, C, N, false>(B, Smax, H, KV, D, DV, lpr, hsplit, nsplit,       \
+                                            split_len, window, scale, softcap, q, k, v, kv_len, \
+                                            part, tickets, out, stream)                         \
+                   : launch<T, C, N, true>(B, Smax, H, KV, D, DV, lpr, hsplit, nsplit,        \
+                                           split_len, window, scale, softcap, q, k, v, kv_len,  \
+                                           part, tickets, out, stream);
   FD_CASE(1, 1) FD_CASE(1, 2) FD_CASE(1, 4) FD_CASE(2, 1) FD_CASE(2, 2) FD_CASE(4, 1)
   FD_CASE(5, 1)
   if constexpr (VEC == 4) {             // f32: 4 values a chunk, so larger CPL fit
@@ -775,23 +789,25 @@ static int dispatch_mma(int B, int Smax, int H, int KV, int D, int nsplit, int s
 }  // namespace tcd
 
 // dtype: 0 = float32, 1 = bfloat16; body: 0 = SIMT, 1 = tensor cores (bf16,
-// G <= 16, D = 64, 80 or 128, hsplit = 1); softcap <= 0: none; window <= 0:
-// none, else the rows [max(0, kv_len - window), kv_len).  q/out
-// [B, 1, H, D], k/v [B, Smax, KV, D], all contiguous; kv_len one int32 on the
-// card; part f32: m and l (B * KV * nsplit * G each), then acc (B * KV *
-// nsplit * G * D); tickets int32[B * KV * hsplit], all 0 on entry and left 0;
-// the G query heads of a kv head in hsplit sets of at most 4 (SIMT);
-// nsplit * split_len >= Smax, or >= window with a window; D <= 256.
-extern "C" int flash_decode_launch(int B, int Smax, int H, int KV, int D, int dtype, int body,
-                                   int hsplit, int nsplit, int split_len, int window, float scale,
-                                   float softcap, const void* q, const void* k, const void* v,
-                                   const void* kv_len, void* part, void* tickets, void* out,
-                                   void* stream) {
+// G <= 16, D = DV = 64, 80 or 128, hsplit = 1); softcap <= 0: none; window
+// <= 0: none, else the rows [max(0, kv_len - window), kv_len).  q
+// [B, 1, H, D], k [B, Smax, KV, D], v [B, Smax, KV, DV], out [B, 1, H, DV],
+// all contiguous; kv_len one int32 on the card; part f32: m and l (B * KV *
+// nsplit * G each), then acc (B * KV * nsplit * G * DV); tickets
+// int32[B * KV * hsplit], all 0 on entry and left 0; the G query heads of a
+// kv head in hsplit sets of at most 4 (SIMT); nsplit * split_len >= Smax, or
+// >= window with a window; DV <= D <= 256.
+extern "C" int flash_decode_launch(int B, int Smax, int H, int KV, int D, int DV, int dtype,
+                                   int body, int hsplit, int nsplit, int split_len, int window,
+                                   float scale, float softcap, const void* q, const void* k,
+                                   const void* v, const void* kv_len, void* part, void* tickets,
+                                   void* out, void* stream) {
   if (B == 0 || H == 0) return 0;
-  if (D > 256 || D <= 0 || KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  if (D > 256 || D <= 0 || DV <= 0 || DV > D || KV <= 0 || H % KV != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (body == 1) {
-    if (dtype != 1 || hsplit != 1 || H / KV > tcd::MH)
+    if (dtype != 1 || hsplit != 1 || H / KV > tcd::MH || DV != D)
       return (int)cudaErrorInvalidValue;
     return tcd::dispatch_mma(B, Smax, H, KV, D, nsplit, split_len, window, scale, softcap, q,
                              k, v, kv_len, part, tickets, out, s);
@@ -799,11 +815,11 @@ extern "C" int flash_decode_launch(int B, int Smax, int H, int KV, int D, int dt
   if (body != 0 || hsplit <= 0 || hsplit > H / KV || 4 * hsplit < H / KV)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch<float>(B, Smax, H, KV, D, hsplit, nsplit, split_len, window, scale, softcap,
-                           q, k, v, kv_len, part, tickets, out, s);
+    return dispatch<float>(B, Smax, H, KV, D, DV, hsplit, nsplit, split_len, window, scale,
+                           softcap, q, k, v, kv_len, part, tickets, out, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(B, Smax, H, KV, D, hsplit, nsplit, split_len, window, scale,
-                                   softcap, q, k, v, kv_len, part, tickets, out, s);
+    return dispatch<__nv_bfloat16>(B, Smax, H, KV, D, DV, hsplit, nsplit, split_len, window,
+                                   scale, softcap, q, k, v, kv_len, part, tickets, out, s);
   return (int)cudaErrorInvalidValue;
 }
 

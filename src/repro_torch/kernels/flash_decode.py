@@ -2,7 +2,8 @@
 
 Replaces the Pallas TPU kernel ``flash_decode`` of
 ``repro/kernels/flash_decode.py``: one query token per sequence over an
-append-only KV cache [B, Smax, KV, D], positions < kv_len.  ``kv_len`` is an
+append-only KV cache (k [B, Smax, KV, D], v [B, Smax, KV, Dv] with
+Dv <= D: MLA's 192 and 128), positions < kv_len.  ``kv_len`` is an
 int32 on the card that the kernel reads there (the Pallas kernel's SMEM
 scalar), so a decode step never waits on the host for it.  Nothing is
 padded (no D to 128 lanes, no G to 8 sublanes).  A sliding ``window`` (which
@@ -13,10 +14,11 @@ card.
 The kernel splits the cache over CTAs (split-KV); the CTA that finishes
 last for a (sequence, kv head, head set) merges the partial softmaxes, so a
 call is one launch.  ``choose_body`` picks one of its two bodies from the
-dtype, the group size and D: bf16 query groups of up to 16 heads at D = 64,
-80 or 128 (qwen2.5, smollm, Zamba2's shared block) run on the tensor cores,
-the group's heads as the rows of ``mma.sync``; the rest (f32, other D, such
-as gemma2's 256) on the SIMT units, a group cut into sets of at most
+dtype, the group size and the head dims: bf16 query groups of up to 16
+heads at D = Dv = 64, 80 or 128 (qwen2.5, smollm, Zamba2's shared block) run
+on the tensor cores, the group's heads as the rows of ``mma.sync``; the
+rest (f32, other D, such as gemma2's 256, and MLA's unequal 192 and 128) on
+the SIMT units, a group cut into sets of at most
 HEADS_PER_CTA heads, one CTA a set.  The wrapper sizes the split from the
 rows a call can read (Smax, or the window when it is shorter: the ranges
 then start at the window's first row) and the card's SM count (both looked
@@ -59,11 +61,12 @@ def split_plan(B: int, KV: int, rows: int, num_sms: int) -> tuple[int, int]:
 BODY_CODES = {"simt": 0, "mma": 1}
 
 
-def choose_body(dtype: torch.dtype, G: int, head_dim: int) -> str:
+def choose_body(dtype: torch.dtype, G: int, head_dim: int, v_dim: Optional[int] = None) -> str:
     """The kernel body for a query group of G heads: "mma" (the group's heads
     as the rows of bf16 tensor-core products) for bf16 with G <= 16 and
-    head_dim 64, 80 or 128, else "simt"."""
-    if dtype == torch.bfloat16 and G <= 16 and head_dim in (64, 80, 128):
+    head_dim = v_dim (default head_dim) 64, 80 or 128, else "simt"."""
+    v_dim = head_dim if v_dim is None else v_dim
+    if dtype == torch.bfloat16 and G <= 16 and head_dim in (64, 80, 128) and v_dim == head_dim:
         return "mma"
     return "simt"
 
@@ -74,31 +77,32 @@ def head_split(G: int) -> int:
     return -(-G // HEADS_PER_CTA)
 
 
-def scratch_key(device: torch.device, B: int, KV: int, G: int, D: int,
+def scratch_key(device: torch.device, B: int, KV: int, G: int, Dv: int,
                 nsplit: int) -> tuple:
     """The scratch cache's key: one entry per device and per shape whose
-    partials or tickets differ in size or layout."""
-    return (device.type, device.index, B, KV, G, D, nsplit)
+    partials or tickets differ in size or layout (the partials hold V's
+    head dim Dv, the output's)."""
+    return (device.type, device.index, B, KV, G, Dv, nsplit)
 
 
-def scratch_sizes(B: int, KV: int, G: int, D: int, nsplit: int) -> tuple[int, int]:
+def scratch_sizes(B: int, KV: int, G: int, Dv: int, nsplit: int) -> tuple[int, int]:
     """(f32 values, int32 tickets): m and l per (b, kv head, range, query
-    head of the group), acc of D values each; one ticket per (b, kv head,
-    head set)."""
+    head of the group), acc of Dv values each (V's head dim); one ticket
+    per (b, kv head, head set)."""
     parts = B * KV * nsplit * G
-    return parts * (2 + D), B * KV * head_split(G)
+    return parts * (2 + Dv), B * KV * head_split(G)
 
 
 _SCRATCH: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def scratch(device: torch.device, B: int, KV: int, G: int, D: int, nsplit: int):
+def scratch(device: torch.device, B: int, KV: int, G: int, Dv: int, nsplit: int):
     """The (partials, tickets) of this shape, allocated at its first call
     (tickets zeroed) and reused after."""
-    key = scratch_key(device, B, KV, G, D, nsplit)
+    key = scratch_key(device, B, KV, G, Dv, nsplit)
     entry = _SCRATCH.get(key)
     if entry is None:
-        n_part, n_tickets = scratch_sizes(B, KV, G, D, nsplit)
+        n_part, n_tickets = scratch_sizes(B, KV, G, Dv, nsplit)
         entry = (torch.empty((n_part,), dtype=torch.float32, device=device),
                  torch.zeros((n_tickets,), dtype=torch.int32, device=device))
         _SCRATCH[key] = entry
@@ -117,9 +121,9 @@ def kv_len_tensor(kv_len, device) -> torch.Tensor:
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len, *,
                       scale: Optional[float] = None, softcap: Optional[float] = None,
                       window: Optional[int] = None) -> torch.Tensor:
-    """q [B, 1, H, D], k/v [B, Smax, KV, D], kv_len (int or int32 on the
-    card) -> [B, 1, H, D] in q's dtype; with ``window``, over the positions
-    [max(0, kv_len - window), kv_len) only."""
+    """q [B, 1, H, D], k [B, Smax, KV, D], v [B, Smax, KV, Dv], kv_len (int
+    or int32 on the card) -> [B, 1, H, Dv] in q's dtype; with ``window``,
+    over the positions [max(0, kv_len - window), kv_len) only."""
     check_qkv(q, k, v)
     if q.shape[1] != 1:
         raise ValueError(f"decode takes one query token, got {q.shape[1]}")
@@ -128,7 +132,7 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len,
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     B, _, H, D = q.shape
-    Smax, KV = k.shape[1], k.shape[2]
+    Smax, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // KV
     scale = scale if scale is not None else D ** -0.5
     if window is not None and window >= Smax:
@@ -137,12 +141,12 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len,
     q, k, v = aligned16(q), aligned16(k), aligned16(v)
     n_len = kv_len_tensor(kv_len, dev)
     nsplit, split_len = split_plan(B, KV, window or Smax, sm_count(dev.index))
-    part, tickets = scratch(dev, B, KV, G, D, nsplit)
-    out = torch.empty_like(q)
+    part, tickets = scratch(dev, B, KV, G, Dv, nsplit)
+    out = q.new_empty((B, 1, H, Dv))
     lib = load_library("flash_decode")
-    body = choose_body(q.dtype, G, D)
+    body = choose_body(q.dtype, G, D, Dv)
     code = lib.flash_decode_launch(
-        B, Smax, H, KV, D, DTYPE_CODES[q.dtype], BODY_CODES[body],
+        B, Smax, H, KV, D, Dv, DTYPE_CODES[q.dtype], BODY_CODES[body],
         head_split(G) if body == "simt" else 1, nsplit, split_len, int(window or 0), float(scale),
         float(softcap or 0.0), q.data_ptr(), k.data_ptr(), v.data_ptr(), n_len.data_ptr(),
         part.data_ptr(), tickets.data_ptr(), out.data_ptr(),

@@ -144,8 +144,8 @@ def pack_ffd_tiers(demand_sorted, capacity, hosts_per_tier, *, num_hosts_pad: in
 
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None, scale: Optional[float] = None):
-    """Causal GQA attention, q [B, Sq, H, D], k/v [B, Skv, KV, D] ->
-    [B, Sq, H, D]; see kernels.ref.flash_attention_ref."""
+    """Causal GQA attention, q [B, Sq, H, D], k [B, Skv, KV, D], v
+    [B, Skv, KV, Dv] -> [B, Sq, H, Dv]; see kernels.ref.flash_attention_ref."""
     if q.is_cuda:
         from repro_torch.kernels.flash_attention import flash_attention_cuda
         out = flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap,
@@ -159,8 +159,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
 def flash_decode(q, k, v, kv_len, *, scale: Optional[float] = None,
                  softcap: Optional[float] = None, window: Optional[int] = None):
     """One query token over the cache positions < kv_len (and, with a
-    ``window``, >= kv_len - window), q [B, 1, H, D], k/v [B, Smax, KV, D] ->
-    [B, 1, H, D]; see kernels.ref.flash_decode_ref."""
+    ``window``, >= kv_len - window), q [B, 1, H, D], k [B, Smax, KV, D], v
+    [B, Smax, KV, Dv] -> [B, 1, H, Dv]; see kernels.ref.flash_decode_ref."""
     if q.is_cuda:
         from repro_torch.kernels.flash_decode import flash_decode_cuda
         out = flash_decode_cuda(q, k, v, kv_len, scale=scale, softcap=softcap, window=window)

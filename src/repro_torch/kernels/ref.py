@@ -198,7 +198,7 @@ def _flash_softmax_pv(logits: torch.Tensor, mask: torch.Tensor, v: torch.Tensor,
                       softcap: Optional[float]) -> torch.Tensor:
     """Softcap, mask with -1e30, softmax and P.V, all in f32 (the flash
     kernels' arithmetic).  logits [B, KV, G, Sq, Skv]; mask broadcasts
-    to it; v [B, Skv, KV, D] -> [B, Sq, KV, G, D] f32."""
+    to it; v [B, Skv, KV, Dv] -> [B, Sq, KV, G, Dv] f32."""
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     logits = torch.where(mask, logits, torch.full((), NEG_INF, device=logits.device))
@@ -210,8 +210,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
                         softcap: Optional[float] = None,
                         scale: Optional[float] = None) -> torch.Tensor:
-    """Plain version of the flash attention kernel: q [B, Sq, H, D], k/v
-    [B, Skv, KV, D] -> [B, Sq, H, D] in q's dtype.  Top-left positions
+    """Plain version of the flash attention kernel: q [B, Sq, H, D], k
+    [B, Skv, KV, D], v [B, Skv, KV, Dv] -> [B, Sq, H, Dv] in q's dtype.  Top-left positions
     (query i is position i, key j position j); q is scaled in f32 before the
     dot and the probabilities stay f32 (reference ``kernels/ref.py:21``)."""
     B, Sq, H, D = q.shape
@@ -228,14 +228,15 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window is not None:
         mask &= k_pos > q_pos - window
     out = _flash_softmax_pv(logits, mask, v, softcap)
-    return out.reshape(B, Sq, H, D).to(q.dtype)
+    return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
 
 
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len, *,
                      scale: Optional[float] = None, softcap: Optional[float] = None,
                      window: Optional[int] = None) -> torch.Tensor:
     """Plain version of the flash decode kernel: q [B, 1, H, D] over cache
-    positions < kv_len of k/v [B, Smax, KV, D] -> [B, 1, H, D] in q's dtype.
+    positions < kv_len of k [B, Smax, KV, D] and v [B, Smax, KV, Dv] ->
+    [B, 1, H, Dv] in q's dtype.
     ``kv_len`` is an int or a one-value tensor (compared on its device, never
     read on the host).  With a ``window`` the query (position kv_len - 1)
     sees only positions >= kv_len - window, the reference's mask
@@ -260,7 +261,7 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len, 
     if window is not None:
         mask &= pos >= kv_len - window
     out = _flash_softmax_pv(logits, mask, v, softcap)
-    return out.reshape(B, 1, H, D).to(q.dtype)
+    return out.reshape(B, 1, H, v.shape[-1]).to(q.dtype)
 
 
 def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,

@@ -1,4 +1,6 @@
-"""Standard GQA attention (the reference's ``models/attention.py:25-132``).
+"""Attention blocks: standard GQA (the reference's
+``models/attention.py:25-132``) and MLA, deepseek-v2's multi-head latent
+attention (``:139-215``).
 
 ``GQAttention.forward(x, rope=(cos, sin), cache=None, cache_pos=None,
 window=None) -> y``, ``window`` the layer's sliding window (gemma2's local
@@ -31,9 +33,19 @@ cache every step as the functional reference does.
 ``attn_batch_shard`` runs the cache-free attention between the
 reference's two activation constraints (``distributed.sharding.constrain``:
 x over ("dpm", None, None), y over ("dp", None, None)); on one card both are
-identities, so the flag changes nothing there.  MLA raises
-``NotImplementedError`` naming its ROADMAP item: it has no path on the card
-yet.
+identities, so the flag changes nothing there.
+
+``MLAttention`` (same forward) keeps a compressed cache {"c_kv" [B, Smax,
+kv_lora_rank], "k_pe" [B, Smax, qk_rope_dim]} (``mla_cache_shape``) and
+expands it to per-head K (qk_nope + qk_rope = 192 dims at deepseek-v2-lite)
+and V (v_head_dim, 128) through ``wk_up`` and ``wv_up``, so its attention
+runs with a V head dim of its own: ``ops.flash_attention`` over the S new
+tokens without a cache or at a prefill (which writes c_kv and k_pe at
+[0, S)), and at a decode step, after writing at ``cache_pos``, the whole
+cache [0, Smax) expanded (the reference's baseline; the absorbed form is
+later work) and ``ops.flash_decode`` over the rows < kv_len.  Its rope
+tables are at ``qk_rope_dim`` (``rope_width``), its scale ``query_scale``
+or (qk_nope + qk_rope) ** -0.5.
 """
 from __future__ import annotations
 
@@ -47,16 +59,18 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 
-def check_supported(cfg) -> None:
-    """Raise for the attention variants the port has not ported yet."""
-    if cfg.mla:
-        raise NotImplementedError("MLA attention is not ported yet: ROADMAP.md Queue 1 item 8c")
+def rope_width(cfg) -> int:
+    """The width of the rope tables an attention block of ``cfg`` rotates
+    with: MLA's ``qk_rope_dim`` (the reference's ``apply_rope`` over q_pe
+    and k_pe whole), else ``rope_dim`` or the head dim."""
+    return cfg.qk_rope_dim if cfg.mla else (cfg.rope_dim or cfg.resolved_head_dim)
 
 
 class GQAttention(nn.Module):
+    PARAMS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+
     def __init__(self, cfg, *, dtype, device):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         D = cfg.resolved_head_dim
         kw = dict(dtype=dtype, device=device)
@@ -148,3 +162,84 @@ def gqa_cache_shape(cfg, batch: int, max_seq: int, window: Optional[int] = None)
     s = max_seq if window is None else min(max_seq, window)
     shape = (batch, s, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"k": shape, "v": shape}
+
+
+class MLAttention(nn.Module):
+    """Multi-head latent attention (the reference's ``mla_init`` and
+    ``mla_apply``): queries uncompressed (``wq``), keys and values from a
+    joint compression ``c_kv = rmsnorm(x wkv_down, kv_norm)`` (``kv_norm``
+    f32, as the reference keeps it) and a decoupled rope key
+    ``k_pe = rope(x wk_rope)`` shared by the heads."""
+
+    PARAMS = ("wq", "wkv_down", "kv_norm", "wk_rope", "wk_up", "wv_up", "wo")
+
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        H, r = cfg.num_heads, cfg.kv_lora_rank
+        qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+        kw = dict(dtype=dtype, device=device)
+
+        def param(*shape, **opts):
+            return nn.Parameter(torch.empty(*shape, **(opts or kw)), requires_grad=False)
+
+        self.wq = param(cfg.d_model, H * qk)
+        self.wkv_down = param(cfg.d_model, r)
+        self.kv_norm = param(r, dtype=torch.float32, device=device)
+        self.wk_rope = param(cfg.d_model, cfg.qk_rope_dim)
+        self.wk_up = param(r, H * cfg.qk_nope_dim)
+        self.wv_up = param(r, H * cfg.v_head_dim)
+        self.wo = param(H * cfg.v_head_dim, cfg.d_model)
+
+    def reset(self, generator: torch.Generator) -> None:
+        for w in (self.wq, self.wkv_down, self.wk_rope, self.wk_up, self.wv_up):
+            L.dense_init_(w.data, generator)
+        L.dense_init_(self.wo.data, generator, scale=0.5)
+        self.kv_norm.data.fill_(1.0)
+
+    def expand(self, c_kv: torch.Tensor, k_pe: torch.Tensor):
+        """The compressed (c_kv [B, S, r], k_pe [B, S, rope]) -> per-head
+        k [B, S, H, nope + rope] (k_pe broadcast over the heads) and
+        v [B, S, H, v_head_dim] (the reference's ``_mla_expand``)."""
+        cfg = self.cfg
+        B, S, _ = c_kv.shape
+        H = cfg.num_heads
+        k_nope = L.linear(c_kv, self.wk_up).reshape(B, S, H, cfg.qk_nope_dim)
+        v = L.linear(c_kv, self.wv_up).reshape(B, S, H, cfg.v_head_dim)
+        k = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, cfg.qk_rope_dim)], dim=-1)
+        return k, v
+
+    def forward(self, x: torch.Tensor, *, rope, cache: Optional[dict] = None, cache_pos=None,
+                kv_len: Optional[torch.Tensor] = None, window: Optional[int] = None):
+        """As ``GQAttention.forward``, with ``rope`` the tables at
+        ``qk_rope_dim`` and the cache this layer's {"c_kv", "k_pe"}."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        H, nope = cfg.num_heads, cfg.qk_nope_dim
+        q = L.linear(x, self.wq).reshape(B, S, H, nope + cfg.qk_rope_dim)
+        q = torch.cat([q[..., :nope], L.rotate(q[..., nope:], rope)], dim=-1)
+        c_kv = L.rmsnorm(L.linear(x, self.wkv_down), self.kv_norm)
+        k_pe = L.rotate(L.linear(x, self.wk_rope)[:, :, None, :], rope)[:, :, 0, :]
+        scale = cfg.query_scale or (nope + cfg.qk_rope_dim) ** -0.5
+
+        if cache is None or S > 1:                      # no cache, or prefill from 0
+            k, v = self.expand(c_kv, k_pe)
+            out = ops.flash_attention(q, k, v, causal=cfg.causal, window=window,
+                                      softcap=cfg.attn_softcap, scale=scale)
+            if cache is not None:
+                cache["c_kv"][:, :S] = c_kv
+                cache["k_pe"][:, :S] = k_pe
+        else:
+            cache["c_kv"].index_copy_(1, cache_pos, c_kv)
+            cache["k_pe"].index_copy_(1, cache_pos, k_pe)
+            k, v = self.expand(cache["c_kv"], cache["k_pe"])
+            out = ops.flash_decode(q, k, v, kv_len, softcap=cfg.attn_softcap, scale=scale,
+                                   window=window)
+        return L.linear(out.reshape(B, S, H * cfg.v_head_dim), self.wo)
+
+
+def mla_cache_shape(cfg, batch: int, max_seq: int, window: Optional[int] = None) -> dict:
+    """Compressed-cache shape of one MLA layer (the reference's
+    ``mla_cache_shape``; a window does not cap it)."""
+    return {"c_kv": (batch, max_seq, cfg.kv_lora_rank),
+            "k_pe": (batch, max_seq, cfg.qk_rope_dim)}

@@ -2,9 +2,9 @@
 weights on the card (the reference's ``build_model`` plus its ``init``).
 
 The dense and MoE families (``TransformerLM``; MoE blocks hold
-``moe.MoE``) and the hybrid family (``Zamba2``, Mamba2 layers plus a shared
-attention block) are ported so far; the others raise, naming their ROADMAP
-items (MLA attention too, in ``attention.py``).
+``moe.MoE``, MLA configs ``attention.MLAttention``) and the hybrid family
+(``Zamba2``, Mamba2 layers plus a shared attention block) are ported so
+far; the others raise, naming their ROADMAP items.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Decoder-only transformer LM of the dense and MoE families (qwen2.5,
-smollm, olmo, gemma2; granite-moe, deepseek-v2-lite's MoE layers).
+smollm, olmo, gemma2; granite-moe, deepseek-v2-lite with MLA attention).
 
 The port of ``repro/models/transformer.py``: an ``nn.ModuleList`` of blocks
 takes the place of the reference's unrolled prefix and its stacked and
@@ -9,7 +9,8 @@ scanned layer i, which its scan keeps as group i % G, position i // G of a
 group of G layers (``layer_windows``: gemma2's ``local_global_pattern``
 groups a local layer, with ``cfg.window``, and a global one, without, and
 has no prefix).  With ``num_experts > 0`` every scanned block holds a
-``moe.MoE`` where a dense one holds its MLP.  Entry points, as the
+``moe.MoE`` where a dense one holds its MLP; with ``mla`` every block's
+attention is ``attention.MLAttention``.  Entry points, as the
 reference's (the parameters live in the module):
 
     model.forward_train(batch) -> (logits [B, S, V] f32, aux: 0.0, or the
@@ -19,9 +20,12 @@ reference's (the parameters live in the module):
     model.decode_step(token [B, 1], cache) -> (logits [B, 1, V], cache)
 
 The cache is {"pos": int32 scalar on the device, "layers": [{"k", "v"}]},
-one entry a block; with ``ring_cache`` a windowed layer's holds
-min(window, max_seq) slots.  Prefill and decode update it in place and
-return it.  A decode step never reads the position on the host.
+one entry a block (the reference's ``prefix`` entries first, then its
+scanned layers'); with ``ring_cache`` a windowed layer's holds
+min(window, max_seq) slots.  An MLA block's entry is its compressed
+{"c_kv", "k_pe"} (``attention.mla_cache_shape``).  Prefill and decode
+update it in place and return it.  A decode step never reads the position
+on the host.
 
 ``post_block_norms``, ``embed_scale``, ``final_softcap``, the attention
 softcap and the query scale are honoured.  Prefill and decode ignore the aux
@@ -37,7 +41,8 @@ import torch
 from torch import nn
 
 from repro_torch.models import layers as L
-from repro_torch.models.attention import GQAttention, gqa_cache_shape
+from repro_torch.models.attention import (GQAttention, MLAttention, gqa_cache_shape,
+                                          mla_cache_shape, rope_width)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import MoE
 
@@ -84,7 +89,7 @@ class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, *, dtype, device, is_moe: bool = False):
         super().__init__()
         self.ln1 = L.Norm(cfg, device)
-        self.attn = GQAttention(cfg, dtype=dtype, device=device)
+        self.attn = (MLAttention if cfg.mla else GQAttention)(cfg, dtype=dtype, device=device)
         self.ln2 = L.Norm(cfg, device)
         if is_moe:
             self.moe = MoE(cfg, dtype=dtype, device=device)
@@ -158,11 +163,13 @@ class TransformerLM(nn.Module):
     def init_cache(self, batch: int, max_seq: int) -> dict:
         """A zeroed cache in the parameters' dtype, the k/v dtype; with
         ``ring_cache`` a windowed layer holds min(window, max_seq) slots
-        (the reference's ``init_cache``)."""
+        (the reference's ``init_cache``); MLA blocks hold
+        ``mla_cache_shape``'s two tensors."""
         ring = self.cfg.ring_cache
+        shape_fn = mla_cache_shape if self.cfg.mla else gqa_cache_shape
         layers = [{name: torch.zeros(shape, dtype=self.dtype, device=self.device)
-                   for name, shape in gqa_cache_shape(self.cfg, batch, max_seq,
-                                                      w if ring else None).items()}
+                   for name, shape in shape_fn(self.cfg, batch, max_seq,
+                                               w if ring else None).items()}
                   for w in self.windows]
         return {"pos": torch.zeros((), dtype=torch.int32, device=self.device), "layers": layers}
 
@@ -187,8 +194,8 @@ class TransformerLM(nn.Module):
         """-> (x, the summed aux loss of the MoE blocks: 0.0 without them or
         unless ``with_aux``)."""
         cfg = self.cfg
-        rope = (L.rope_tables(positions, cfg.rope_dim or cfg.resolved_head_dim, cfg.rope_theta)
-                if cfg.use_rope else None)
+        rope = (L.rope_tables(positions, rope_width(cfg), cfg.rope_theta)
+                if cfg.use_rope or cfg.mla else None)
         aux_total = 0.0
         for i, (block, window) in enumerate(zip(self.blocks, self.windows)):
             c = cache["layers"][i] if cache is not None else None

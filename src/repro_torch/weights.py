@@ -16,7 +16,9 @@ leaves are stacked [(num_layers - P) / G, ...]: one group, or gemma2's two,
 local and global, whose leaf g of group j is the port's block P + G g + j;
 an MoE block's ``moe`` holds ``router``, ``w_gate``, ``w_up``, ``w_down``
 stacked [E, ...] and, with shared experts, ``shared`` = {w_gate, w_up,
-w_down});
+w_down}; a block's ``attn`` holds its attention's ``PARAMS``, MLA's
+``wq``, ``wkv_down``, ``kv_norm`` (f32), ``wk_rope``, ``wk_up``, ``wv_up``
+and ``wo`` under ``mla``);
 for the hybrid ``Zamba2`` its ``init``'s (``embed``, ``final_norm``,
 ``layers`` a dict of Mamba2 leaves stacked [num_layers, ...], and
 ``shared`` = {in_proj, ln1, attn, ln2, mlp, out_proj [apps, d, d]}).
@@ -73,7 +75,6 @@ def to_numpy(problem: Problem) -> dict:
     return out
 
 
-_ATTN = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 _MLP = ("w_gate", "w_up", "w_down")
 _MOE = ("router", "w_gate", "w_up", "w_down")
 _NORMS = ("ln1", "ln2", "ln1_post", "ln2_post")
@@ -99,7 +100,7 @@ def _layer_tensors(block) -> dict:
         if hasattr(block, name):
             for key, t in _norm_params(getattr(block, name)).items():
                 out[(name, key)] = t
-    for name in _ATTN:
+    for name in block.attn.PARAMS:
         t = getattr(block.attn, name)
         if t is not None:
             out[("attn", name)] = t
@@ -138,7 +139,7 @@ def _arr(t) -> np.ndarray:
 def _shared_tensors(shared) -> dict:
     """(reference path under ``shared``) -> port tensor of Zamba2's block."""
     out = {(name, ""): getattr(shared, name) for name in ("in_proj", "ln1", "ln2", "out_proj")}
-    for name in _ATTN:
+    for name in shared.attn.PARAMS:
         t = getattr(shared.attn, name)
         if t is not None:
             out[("attn", name)] = t

@@ -250,13 +250,13 @@ def assert_same_route(dt, dj, what: str) -> None:
 # --- reduced MoE configs (chip_smoke.py phase 8 and the card tests) --------
 
 def reduced_moe_configs() -> dict:
-    """name -> the reduced config of granite-moe and deepseek-v2-lite's
-    reduced config with ``mla=False`` (its shared expert and dense first
-    layer; the port's ``get_config`` refuses deepseek until MLA), both f32."""
+    """name -> the reduced config of granite-moe, of deepseek-v2-lite (MLA)
+    and of deepseek-v2-lite with ``mla=False`` (its shared expert and dense
+    first layer under GQA attention), all f32."""
     from repro_torch.configs import get_config
-    from repro_torch.configs.deepseek_v2_lite_16b import config as deepseek
     from repro_torch.models import reduce_for_smoke
 
+    deepseek = reduce_for_smoke(get_config("deepseek-v2-lite-16b"))
     return {"granite-moe-1b-a400m": reduce_for_smoke(get_config("granite-moe-1b-a400m")),
-            "deepseek-v2-lite-16b mla=False": dataclasses.replace(
-                reduce_for_smoke(deepseek()), mla=False)}
+            "deepseek-v2-lite-16b": deepseek,
+            "deepseek-v2-lite-16b mla=False": dataclasses.replace(deepseek, mla=False)}

@@ -33,7 +33,9 @@ The gradient compression kernels bit for bit equal to their plain versions
 (NaN compared as NaN), and ``GradCompressor`` on the card to the CPU's.
 The MoE dispatch and combine kernels bit for bit equal to their plain
 versions at the shared edge cases (``kernels.moe.MOE_CASES``), and reduced
-granite and deepseek (mla=False) on the card to the CPU within 1e-4.
+granite and deepseek (with MLA, and with mla=False) on the card to the CPU
+within 1e-4.  Both flash kernels with a V head dim of its own (MLA's 192
+and 128, the reduced 24 and 16) in the flash tolerances.
 """
 import dataclasses
 
@@ -443,6 +445,67 @@ def test_flash_decode_back_to_back_calls_switch_shape_and_length(cuda_device):
                                    err_msg=f"shape {shapes[i]} kv_len {n}",
                                    **_flash_tol(q.dtype))
     assert len({key for key in FD._SCRATCH if key[1] == cuda_device.index}) >= 3
+    for _, tickets in FD._SCRATCH.values():
+        assert int(tickets.abs().sum()) == 0
+
+
+# V of its own head dim: MLA's K of 192 (128 + 64 rope dims) and V of 128,
+# and the reduced config's 24 and 16.
+NARROW_V = [(torch.bfloat16, 192, 128), (torch.float32, 192, 128), (torch.float32, 24, 16),
+            (torch.bfloat16, 24, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,Dv", NARROW_V)
+@pytest.mark.parametrize("B,Sq,Skv,H,KV", [(2, 63, 63, 4, 4), (1, 129, 129, 4, 2),
+                                           (2, 200, 200, 16, 16), (1, 40, 72, 4, 2)])
+def test_flash_attention_with_a_narrower_v(cuda_device, dtype, D, Dv, B, Sq, Skv, H, KV):
+    """v [.., Dv] with Dv < D: the output is [B, Sq, H, Dv] and within the
+    flash tolerances of the plain version at ragged lengths, causal and
+    not, with a window, with a window and a softcap; bf16 at (192, 128) on
+    the tensor-core body, the rest on the SIMT body."""
+    from repro_torch.kernels.flash_attention import body_launches
+
+    q = _normal((B, Sq, H, D), dtype, cuda_device, 40)
+    k = _normal((B, Skv, KV, D), dtype, cuda_device, 41)
+    v = _normal((B, Skv, KV, Dv), dtype, cuda_device, 42)
+    kws = (dict(scale=D ** -0.5), dict(causal=False), dict(window=37),
+           dict(window=40, softcap=30.0))
+    ops.reset_launch_counts()
+    for kw in kws:
+        assert tuple(ops.flash_attention(q, k, v, **kw).shape) == (B, Sq, H, Dv)
+        _flash_case(q, k, v, kw)
+    body = "wgmma" if dtype == torch.bfloat16 and D % 16 == 0 else "simt"
+    assert body_launches[body] == 2 * len(kws) == ops.launch_counts["flash_attention"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,Dv", NARROW_V)
+@pytest.mark.parametrize("B,Smax,H,KV", [(8, 1088, 16, 16), (2, 130, 4, 2)])
+def test_flash_decode_with_a_narrower_v(cuda_device, dtype, D, Dv, B, Smax, H, KV):
+    """v [.., Dv] with Dv < D on the SIMT body: kv_len at 1, at the 64-row
+    tile edges and at Smax - 1 and Smax, plain, with a softcap and a window;
+    one launch a call; the scratch keyed by Dv."""
+    from repro_torch.kernels import flash_decode as FD
+
+    q = _normal((B, 1, H, D), dtype, cuda_device, 43)
+    k = _normal((B, Smax, KV, D), dtype, cuda_device, 44)
+    v = _normal((B, Smax, KV, Dv), dtype, cuda_device, 45)
+    assert FD.choose_body(dtype, H // KV, D, Dv) == "simt"
+    lens = (1, 17, 63, 64, 65, Smax - 1, Smax)
+    kws = (dict(), dict(softcap=50.0), dict(window=40, scale=D ** -0.5 / 2))
+    ops.reset_launch_counts()
+    for kw in kws:
+        for kv_len in lens:
+            n = torch.tensor(kv_len, dtype=torch.int32, device=cuda_device)
+            got = ops.flash_decode(q, k, v, n, **kw)
+            want = flash_decode_ref(q, k, v, n, **kw)
+            torch.cuda.synchronize()
+            assert tuple(got.shape) == (B, 1, H, Dv)
+            np.testing.assert_allclose(host(got.float()), host(want.float()),
+                                       err_msg=f"kv_len={kv_len} {kw}", **_flash_tol(dtype))
+    assert ops.launch_counts["flash_decode"] == len(kws) * len(lens)
+    assert any(key[5] == Dv for key in FD._SCRATCH if key[1] == cuda_device.index)
     for _, tickets in FD._SCRATCH.values():
         assert int(tickets.abs().sum()) == 0
 
@@ -1518,8 +1581,8 @@ def test_moe_combine_kernel_matches_plain_version(cuda_device, name, shared):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", sorted(reduced_moe_configs()))
 def test_reduced_moe_models_on_the_card_match_the_cpu(cuda_device, arch):
-    """Reduced granite and deepseek (mla=False) in f32: a prefill and four
-    decode steps on the card give the CPU plain path's logits within 1e-4
+    """Reduced granite and deepseek (MLA, and mla=False) in f32: a prefill
+    and four decode steps on the card give the CPU plain path's logits within 1e-4
     of scale, through one dispatch and one combine launch an MoE layer a
     call, and the card's forward_train the CPU's aux loss."""
     import copy

@@ -189,9 +189,9 @@ def test_bf16_model_on_the_cpu_follows_the_f32_one():
 
 
 # Variants the port now serves (``local_global_pattern`` and ``ring_cache``,
-# gemma2's; MoE, granite's) keep their cases here and check the route they
-# take instead.
-PORTED_VARIANTS = ("local_global_pattern", "ring_cache", "MoE")
+# gemma2's; MoE, granite's; MLA, deepseek's) keep their cases here and check
+# the route they take instead.
+PORTED_VARIANTS = ("local_global_pattern", "ring_cache", "MoE", "MLA")
 
 
 def _moe_route(cfg):
@@ -222,6 +222,26 @@ def _moe_route(cfg):
                for r in done)
 
 
+def _mla_route(cfg):
+    """Build ``cfg`` with MLA: every block's attention is ``MLAttention``
+    with a compressed cache, and a prefill and decode steps give the
+    teacher-forced logits of ``forward_train``."""
+    from repro_torch.models.attention import MLAttention
+
+    m = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    assert all(isinstance(b.attn, MLAttention) for b in m.blocks)
+    toks = torch.as_tensor(np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 16)))
+    full, _ = m.forward_train({"tokens": toks})
+    cache = m.init_cache(2, 20)
+    assert all(set(layer) == {"c_kv", "k_pe"} for layer in cache["layers"])
+    assert tuple(cache["layers"][0]["c_kv"].shape) == (2, 20, cfg.kv_lora_rank)
+    pre, cache = m.prefill({"tokens": toks[:, :12]}, cache)
+    assert _scaled_err(pre[:, 0].numpy(), full[:, 11].numpy()) <= REL
+    for s in range(12, 16):
+        dec, cache = m.decode_step(toks[:, s:s + 1], cache)
+        assert _scaled_err(dec[:, 0].numpy(), full[:, s].numpy()) <= REL, s
+
+
 def _windowed_route(cfg, B: int = 2, P: int = 12, S: int = 16, max_seq: int = 20):
     """Build ``cfg`` (a window of 8 where it has none); each layer's window
     follows the layer plan, each cache has the plan's slots, and a windowed
@@ -249,17 +269,20 @@ def _windowed_route(cfg, B: int = 2, P: int = 12, S: int = 16, max_seq: int = 20
 @pytest.mark.parametrize("change,match", [
     (dict(num_experts=4, top_k=2, d_ff_expert=32), "MoE"),
     (dict(local_global_pattern=True, window=8), "local_global_pattern"),
-    (dict(mla=True, kv_lora_rank=32), "MLA"),
+    (dict(mla=True, kv_lora_rank=32, qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16), "MLA"),
     (dict(ring_cache=True), "ring_cache"),
     (dict(family="ssm"), "ssm"),
 ])
 def test_unported_variants_raise(change, match):
     """Unported variants raise naming themselves; the two gemma2 brings
-    (alternating local/global windows, ring caches) and MoE layers take
-    their route."""
+    (alternating local/global windows, ring caches), MoE layers and MLA
+    (at the reference's reduced MLA widths) take their route."""
     cfg = dataclasses.replace(reduce_for_smoke(get_config("smollm-360m")), **change)
     if match == "MoE":
         _moe_route(cfg)
+        return
+    if match == "MLA":
+        _mla_route(cfg)
         return
     if match in PORTED_VARIANTS:
         m = _windowed_route(cfg)
@@ -274,9 +297,10 @@ def test_unported_variants_raise(change, match):
 
 def test_window_with_a_cache_raises_and_unported_archs_name_their_item():
     """A sliding window with a KV cache now serves (windowed prefill and
-    decode on a full cache match the teacher-forced forward); gemma2-9b and
-    granite-moe-1b-a400m are ported, and an architecture still unported
-    names its ROADMAP item (deepseek-v2-lite, MLA's)."""
+    decode on a full cache match the teacher-forced forward); gemma2-9b,
+    granite-moe-1b-a400m and deepseek-v2-lite-16b (the reference's MLA
+    config) are ported, and an architecture still unported names its
+    ROADMAP item (phi-3-vision, item 8d's)."""
     cfg = dataclasses.replace(reduce_for_smoke(get_config("smollm-360m")), window=8)
     m = _windowed_route(cfg)
     toks = torch.zeros((1, 4), dtype=torch.int64)
@@ -284,8 +308,13 @@ def test_window_with_a_cache_raises_and_unported_archs_name_their_item():
     assert torch.isfinite(logits).all()
     assert get_config("gemma2-9b").local_global_pattern
     assert get_config("granite-moe-1b-a400m").num_experts == 32
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8c"):
-        get_config("deepseek-v2-lite-16b")
+    deepseek = get_config("deepseek-v2-lite-16b")
+    assert deepseek.mla and (deepseek.qk_nope_dim + deepseek.qk_rope_dim,
+                             deepseek.v_head_dim) == (192, 128)
+    assert (dataclasses.asdict(deepseek)
+            == dataclasses.asdict(ref_get_config("deepseek-v2-lite-16b")))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8d"):
+        get_config("phi-3-vision-4.2b")
 
 
 def test_attn_batch_shard_matches_reference(pair):

@@ -66,8 +66,8 @@ def _scaled_err(got, want) -> float:
 
 def _reduced(arch: str, **change):
     """(reference config, the same as the port's): the reference's
-    reduce_for_smoke of ``arch`` with ``change``, MLA off for deepseek (the
-    port's ``get_config`` refuses deepseek until item 8c)."""
+    reduce_for_smoke of ``arch`` with ``change``, MLA off for deepseek (this
+    file holds its MoE parts; ``test_torch_mla.py`` holds MLA)."""
     if arch == DEEPSEEK:
         change = {"mla": False, **change}
     rcfg = dataclasses.replace(ref_reduce(ref_get_config(arch)), **change)
@@ -252,12 +252,15 @@ def test_configs_are_the_references():
     full = get_config(GRANITE)
     assert (full.family, full.num_experts, full.top_k, full.d_ff_expert) == ("moe", 32, 8, 512)
     assert layer_moe(full) == [True] * 24 and layer_windows(full) == [None] * 24
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8c"):
-        get_config(DEEPSEEK)
+    assert dataclasses.asdict(get_config(DEEPSEEK)) == dataclasses.asdict(ref_get_config(DEEPSEEK))
+    assert (dataclasses.asdict(reduce_for_smoke(get_config(DEEPSEEK)))
+            == dataclasses.asdict(ref_reduce(ref_get_config(DEEPSEEK))))
     assert dataclasses.asdict(deepseek_config()) == dataclasses.asdict(ref_get_config(DEEPSEEK))
     reduced = reduced_moe_configs()
     assert [dataclasses.asdict(c) for c in reduced.values()] == [
-        dataclasses.asdict(_reduced(arch)[1]) for arch in (GRANITE, DEEPSEEK)]
+        dataclasses.asdict(_reduced(GRANITE)[1]),
+        dataclasses.asdict(ModelConfig(**dataclasses.asdict(ref_reduce(ref_get_config(DEEPSEEK))))),
+        dataclasses.asdict(_reduced(DEEPSEEK)[1])]
 
 
 def test_param_spec_over_the_ports_tree(pair):
