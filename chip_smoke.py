@@ -284,9 +284,44 @@ Phases (each raises on failure, so the script exits non-zero):
      slot, the serve's own MoE launches held bit for bit to the plain
      versions, and phase 8's teacher-forced check on the slots without
      drops (slot 0 at least).
- 10. A ``{"kernels": [...]}`` line (the flash kernels' launches summed over
-     the serving runs, gemma2's full and ring ones, granite's and
-     deepseek's included, with gemma2's, granite's and deepseek's shapes
+ 10. phi-3-vision-4.2b at full width (deepseek freed first): both flash
+     kernels at its D = 96 with H = KV = 32 against their plain versions
+     (``flash_attention`` at B=8, S=1,024 in bf16 on the tensor-core body
+     and in f32; ``flash_decode`` at B=8, Smax 1,088, kv_len 1, 17, 1,000,
+     1,056 and 1,088, G=1, in bf16 on the body ``choose_body`` names and
+     in f32, with a window and softcap, and at G=8 with odd lengths), each
+     timed beside its plain version, its bound and SDPA, the decode also on
+     the SIMT body (the wrapper's choice forced) for the choice of body;
+     then full-width phi-3-vision-4.2b in bf16 (3.8 B parameters drawn on
+     the card from a seeded generator) takes 8 sequences of 256 patch
+     embeddings (seeded normal, bf16) and 768 text tokens: one ``prefill``
+     and 32 ``decode_step``s, the counts zeroed just before
+     (``flash_attention`` 32, all on the tensor-core body; ``flash_decode``
+     32 x 32); TTFT, decode ms a step beside its bytes bound, peak memory,
+     the idle share of one profiled step, a repeat with the same tokens,
+     and the first decode logits within 2^-4 of the largest logit of
+     ``forward_train`` over patches, text and that token; then the 16
+     requests of phase 4 served text-only through ``ServeEngine`` (the
+     reference's engine takes no images) with phase 4's checks; then
+     reduced phi-3-vision in f32 on the card and the CPU within 1e-4 of
+     scale.
+ 11. hubert-xlarge at full width (phi-3 freed first): ``flash_attention``
+     bidirectional at D = 80, H = KV = 16 against its plain version at
+     S=4,096 in bf16 (tensor-core body) and f32 and at odd lengths, timed
+     there and at 32,768 beside SDPA (``is_causal=False``) and its bound;
+     then full-width hubert-xlarge in bf16 (1.26 B parameters) encodes
+     frames [2, 32,768, 1,280] (the reference's prefill_32k length, its
+     batch cut from 32 to 2 for time): a warm ``prefill``, then one with
+     the counts zeroed (48 ``flash_attention`` launches, all ``causal=False``
+     on the tensor-core body) beside its operations bound, peak memory, a
+     repeat with bit-identical logits, the forward's own layer-0 launch
+     held to the plain version on its inputs (in query chunks), the idle
+     share of a profiled forward; then reduced hubert in f32 on the card and
+     the CPU, with and without a mask, within 1e-4 of scale.
+ 12. A ``{"kernels": [...]}`` line (the flash kernels' launches summed over
+     the serving runs, gemma2's full and ring ones, granite's, deepseek's,
+     phi-3-vision's image and text runs and hubert's forward included, with
+     gemma2's, granite's, deepseek's, phi-3-vision's and hubert's shapes
      beside each; the MoE kernels' over phases 8 and 9's serves, timed at
      granite's prefill and its decode; the
      scheduling kernels' over the balance pass, the
@@ -554,6 +589,29 @@ MOE_SMALL = (2, 12, 4, 20)
 MLA_ARCH = "deepseek-v2-lite-16b"
 MLA_SPEC = ServeSpec(((PROMPT_MIN, PROMPT_MAX),), 1088)
 MLA_F32_LAYERS = 4
+# The VLM slice (phase 10): full-width phi-3-vision-4.2b; VLM_BATCH sequences,
+# each the config's 256 patch embeddings (seeded normal, bf16) and VLM_TEXT
+# text tokens, one prefill and VLM_STEPS decode steps on caches of
+# VLM_MAX_SEQ = 1,088 slots (17 whole 64-row tiles); then the 16 requests of
+# phase 4 served text-only through ServeEngine (the reference's engine takes
+# no images).
+VLM_ARCH = "phi-3-vision-4.2b"
+VLM_BATCH = 8
+VLM_TEXT = 768
+VLM_STEPS = 32
+VLM_MAX_SEQ = 1088
+# The audio slice (phase 11): full-width hubert-xlarge encodes AUDIO_BATCH x
+# AUDIO_LEN frames bidirectionally: the reference's prefill_32k length
+# (configs/shapes.py), its batch cut from 32 to 2 for time.  The bidirectional
+# kernel is held to its plain version at AUDIO_CHECK_LEN (the plain version's
+# f32 logits at 32,768 would take 137 GB), the serve's own layer-0 launch in
+# query chunks of AUDIO_CHUNK rows.
+AUDIO_ARCH = "hubert-xlarge"
+AUDIO_BATCH = 2
+AUDIO_LEN = 32768
+AUDIO_CHECK_LEN = 4096
+AUDIO_CHUNK = 1024
+REDUCED_STEPS = 4
 COMPRESS_REPLACES = {"compress_int8": "src/repro/distributed/compress.py:57",
                      "compress_bf16": "src/repro/distributed/compress.py:53",
                      "decompress_int8": "src/repro/distributed/compress.py:85"}
@@ -1291,15 +1349,18 @@ def attention_work(B, Sq, Skv, H, KV, D, itemsize, causal=True, window=None,
     dv = D if dv is None else dv
     import numpy as np
 
-    i = np.arange(Sq)[:, None]
-    j = np.arange(Skv)[None, :]
-    visible = np.ones((Sq, Skv), bool)
-    if causal:
-        visible &= j <= i
-    if window is not None:
-        visible &= j > i - window
+    if window is None:          # per query row i: every key, or keys 0..i
+        rows = np.minimum(np.arange(1, Sq + 1), Skv) if causal else np.full(Sq, Skv)
+        pairs = int(rows.sum())
+    else:
+        i = np.arange(Sq)[:, None]
+        j = np.arange(Skv)[None, :]
+        visible = j > i - window
+        if causal:
+            visible &= j <= i
+        pairs = int(visible.sum())
     nbytes = (B * Sq * H * (D + dv) + B * Skv * KV * (D + dv)) * itemsize
-    return float(nbytes), float(2 * (D + dv) * B * H * int(visible.sum()))
+    return float(nbytes), float(2 * (D + dv) * B * H * pairs)
 
 
 def decode_work(B, kv_len, H, KV, D, itemsize, dv=None) -> tuple[float, float]:
@@ -1342,13 +1403,13 @@ def seeded_normal(shape, dtype, dev, gen):
     return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
 
 
-def sdpa_prefill(q, k, v):
-    """One PyTorch call that computes the causal, no-window, no-softcap
-    case (timed as the yardstick only)."""
+def sdpa_prefill(q, k, v, causal: bool = True):
+    """One PyTorch call that computes the no-window, no-softcap case,
+    causal or bidirectional (timed as the yardstick only)."""
     import torch.nn.functional as F
 
     return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                          v.transpose(1, 2), is_causal=True,
+                                          v.transpose(1, 2), is_causal=causal,
                                           enable_gqa=True).transpose(1, 2)
 
 
@@ -1361,12 +1422,17 @@ def sdpa_decode(q, k, v, kv_len: int):
 
 
 def check_flash_attention(label, shape, dtype, dev, gen, record, *, window=None, softcap=None,
-                          timed=False, dv=None, body=None) -> dict:
+                          timed=False, dv=None, body=None, causal=True,
+                          control=True) -> dict:
     """Hold the flash_attention kernel against its plain version on the
     card (FLASH_TOL); with ``timed``, time the kernel, the plain version
-    and, for the causal no-window no-softcap case, SDPA.  ``dv``: V's head
-    dim (default D; the scale is then D ** -0.5 all the same, MLA's);
-    ``body``: the kernel body the call must take."""
+    and, for the no-window no-softcap case, SDPA, whose error in bf16 must
+    fall outside the bound (the control) unless ``control`` is False: a
+    long bidirectional row averages so many values that bf16
+    probabilities part from f32 ones by less than one bf16 ulp of the
+    output.  ``dv``: V's head dim (default D; the scale is then D ** -0.5
+    all the same, MLA's); ``body``: the kernel body the call must take;
+    ``causal`` False: bidirectional (hubert's encoder)."""
     import torch
     from repro_torch.kernels.flash_attention import body_launches, flash_attention_cuda
     from repro_torch.kernels.ref import flash_attention_ref
@@ -1376,7 +1442,7 @@ def check_flash_attention(label, shape, dtype, dev, gen, record, *, window=None,
     q = seeded_normal((B, S, H, D), dtype, dev, gen)
     k = seeded_normal((B, S, KV, D), dtype, dev, gen)
     v = seeded_normal((B, S, KV, dv), dtype, dev, gen)
-    kw = dict(window=window, softcap=softcap)
+    kw = dict(window=window, softcap=softcap, causal=causal)
     before = dict(body_launches)
     got = flash_attention_cuda(q, k, v, **kw)
     want = flash_attention_ref(q, k, v, **kw)
@@ -1392,21 +1458,23 @@ def check_flash_attention(label, shape, dtype, dev, gen, record, *, window=None,
     out = {}
     if timed:
         itemsize = torch.finfo(dtype).bits // 8
-        b, by = flash_bound_ms(*attention_work(B, S, S, H, KV, D, itemsize, window=window, dv=dv),
-                               dtype)
+        work = attention_work(B, S, S, H, KV, D, itemsize, causal=causal, window=window, dv=dv)
+        b, by = flash_bound_ms(*work, dtype)
         out = {"ms": time_ms(lambda: flash_attention_cuda(q, k, v, **kw)),
                "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v, **kw), reps=5),
                "bound_ms": b, "bound_by": by, "library_ms": None}
         if window is None and softcap is None:
-            lib_ok, lib_err = flash_close(sdpa_prefill(q, k, v), want)
-            if dtype == torch.bfloat16 and lib_ok:
+            lib_ok, lib_err = flash_close(sdpa_prefill(q, k, v, causal), want)
+            if dtype == torch.bfloat16 and lib_ok and control:
                 raise AssertionError(f"flash_attention {label}: the control (SDPA, bf16 "
                                      f"probabilities, max abs err {lib_err:.3e}) passes "
                                      f"{tol_text(dtype)}, which then cannot tell it from "
                                      "the kernel")
-            out["library_ms"] = time_ms(lambda: sdpa_prefill(q, k, v))
-            line += f", SDPA err vs plain {lib_err:.3e} (control, outside the bound)"
-        nbytes, nops = attention_work(B, S, S, H, KV, D, itemsize, window=window, dv=dv)
+            out["library_ms"] = time_ms(lambda: sdpa_prefill(q, k, v, causal))
+            line += (f", SDPA err vs plain {lib_err:.3e} "
+                     + ("(control, outside the bound)" if control else
+                        f"({'inside' if lib_ok else 'outside'} the bound; no control here)"))
+        nbytes, nops = work
         line += (f" | kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, SDPA "
                  f"{out['library_ms']} ms, bound {b:.4f} ms ({by}); kernel "
                  f"{nops / out['ms'] / 1e9:.1f} TFLOP/s of the function's {nops / 1e9:.3f} "
@@ -1636,7 +1704,7 @@ def wave_lengths(cfg, spec: ServeSpec = DENSE_SPEC) -> list[int]:
 
 def serve_slice(cfg, dev, expected_launches, phases, spec: ServeSpec = DENSE_SPEC,
                 teacher_waves: int = 1, against: str = "forward_train", hooks=None,
-                checks=None) -> dict:
+                checks=None, model=None) -> dict:
     """Full-width ``cfg`` in bf16 with seeded random weights serves the
     slice's requests (``spec``) through ``ServeEngine``, with the launch
     counters zeroed just before and read just after
@@ -1650,7 +1718,8 @@ def serve_slice(cfg, dev, expected_launches, phases, spec: ServeSpec = DENSE_SPE
     serve must have taken the tensor-core body.  ``hooks`` = (install,
     remove), each called with the model just before and just after the
     counted serve; ``checks(model, finished)``, run after the teacher-forced
-    checks, returns what ``out["checks"]`` holds."""
+    checks, returns what ``out["checks"]`` holds.  ``model``: the model to
+    serve, in place of one built here."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import body_launches
@@ -1659,8 +1728,9 @@ def serve_slice(cfg, dev, expected_launches, phases, spec: ServeSpec = DENSE_SPE
 
     arch = cfg.arch_id
     t = time.perf_counter()
-    model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(
-        SERVE_SEED))
+    if model is None:
+        model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(
+            SERVE_SEED))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
     n_params = sum(p.numel() for p in model.parameters())
@@ -2107,14 +2177,16 @@ def windowed_decode_phase(cfg, dev, gen, record) -> dict:
     return out
 
 
-def decode_step_bound_ms(cfg, param_bytes: int, kv_len: int) -> tuple[float, float]:
-    """(bytes, ms at the HBM rate) one decode step at kv_len must move: every
-    weight once (the tied embedding through the unembedding) and each layer's
-    admitted cache rows of k and v (min(kv_len, window) on a local layer,
-    kv_len on a global one; the ring holds the same rows)."""
+def decode_step_bound_ms(cfg, param_bytes: int, kv_len: int,
+                         slots: int = GEMMA2_SPEC.slots) -> tuple[float, float]:
+    """(bytes, ms at the HBM rate) one decode step of ``slots`` sequences at
+    kv_len must move: every weight once (the embedding table whole, tied or
+    not) and each layer's admitted cache rows of k and v (min(kv_len,
+    window) on a local layer, kv_len on a global one; the ring holds the
+    same rows)."""
     from repro_torch.models.transformer import layer_windows
 
-    B, KV, D = GEMMA2_SPEC.slots, cfg.num_kv_heads, cfg.resolved_head_dim
+    B, KV, D = slots, cfg.num_kv_heads, cfg.resolved_head_dim
     rows = sum(kv_len if w is None else min(kv_len, w) for w in layer_windows(cfg))
     nbytes = param_bytes + 2 * B * rows * KV * D * 2
     return float(nbytes), nbytes / HBM_BYTES_PER_S * 1e3
@@ -2816,6 +2888,423 @@ def mla_phase(dev, record) -> dict:
     launches = {k: run["launches"][k] for k in expected(0, 0)}
     print(f"phase 9 ({MLA_ARCH}): {time.perf_counter() - t0:.1f} s", flush=True)
     return {"times": times, "run": run, "launches": launches}
+
+
+def reduced_card_vs_cpu(arch: str, dev) -> dict:
+    """Reduced ``arch`` in f32 on the card and on the CPU's plain path, the
+    same weights: phi-3-vision a prefill over its patches and 12 text
+    tokens, then REDUCED_STEPS decode steps; hubert a forward with and
+    without a mask and a prefill.  Logits within SMALL_REL of their scale,
+    one flash_attention launch a layer a forward on the card."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, reduce_for_smoke
+
+    cfg = reduce_for_smoke(get_config(arch))
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(7))
+    card = copy.deepcopy(cpu).to(dev)
+    rng = np.random.default_rng(7)
+    runs = {}
+    if cfg.family == "audio":
+        frames = torch.as_tensor(rng.normal(0, 1, (2, 77, cfg.d_model)).astype(np.float32))
+        mask = torch.as_tensor(rng.random((2, 77)) < 0.3)
+        what = "forward with a mask, without, prefill (S=77)"
+        for name, model in (("cpu", cpu), ("card", card)):
+            ops.reset_launch_counts()
+            got = [model.forward_train({"frames": frames, "mask": mask})[0].cpu(),
+                   model.forward_train({"frames": frames})[0].cpu(),
+                   model.prefill({"frames": frames})[0].cpu()]
+            runs[name] = (got, dict(ops.launch_counts))
+        want = {"flash_attention": 3 * cfg.num_layers, "flash_decode": 0}
+    else:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 12 + REDUCED_STEPS)))
+        patches = torch.as_tensor(rng.normal(0, 1, (2, cfg.num_patches, cfg.d_model))
+                                  .astype(np.float32))
+        what = (f"prefill over {cfg.num_patches} patches + 12 tokens, {REDUCED_STEPS} decode "
+                "steps")
+        for name, model in (("cpu", cpu), ("card", card)):
+            ops.reset_launch_counts()
+            cache = model.init_cache(2, 40)
+            logits, cache = model.prefill({"tokens": toks[:, :12], "vision_embeds": patches},
+                                          cache)
+            got = [logits.cpu()]
+            for s in range(12, 12 + REDUCED_STEPS):
+                logits, cache = model.decode_step(toks[:, s:s + 1].to(model.device), cache)
+                got.append(logits.cpu())
+            if int(cache["pos"]) != cfg.num_patches + 12 + REDUCED_STEPS:
+                raise AssertionError(f"reduced {arch}: cache pos {int(cache['pos'])}")
+            runs[name] = (got, dict(ops.launch_counts))
+        want = {"flash_attention": cfg.num_layers, "flash_decode": REDUCED_STEPS * cfg.num_layers}
+    (cl, _), (gl, counts) = runs["cpu"], runs["card"]
+    rel = max(float((a.double() - b.double()).abs().max() / (b.double().abs().max() + 1e-30))
+              for a, b in zip(gl, cl))
+    print(f"reduced {arch} f32 ({what}): card vs CPU logits max rel {rel:.3e} (limit "
+          f"{SMALL_REL:g}), launches flash_attention {counts['flash_attention']}, flash_decode "
+          f"{counts['flash_decode']}", flush=True)
+    if not rel <= SMALL_REL:
+        raise AssertionError(f"reduced {arch}: the card parts from the CPU")
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"reduced {arch} launches {counts}, expected {want}")
+    return {"logit_rel": rel}
+
+
+def vlm_phase(dev, record) -> dict:
+    """Phase 10: the flash kernels at phi-3-vision's shapes (D = 96, H = KV
+    = 32), then full-width phi-3-vision-4.2b takes an image prefix: one
+    prefill over 256 patch embeddings and 768 text tokens a sequence, then
+    VLM_STEPS decode steps, the counts zeroed just before; a repeat, the
+    teacher-forced check, a profiled step; then the 16 requests of phase 4
+    served text-only through ``ServeEngine``; then reduced phi-3-vision
+    card against CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import body_launches
+    from repro_torch.models import build_model
+    from repro_torch.train.serve_step import greedy
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False     # the f32 plain versions in full f32
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = get_config(VLM_ARCH)
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    B, P, T, Smax, steps = VLM_BATCH, cfg.num_patches, VLM_TEXT, VLM_MAX_SEQ, VLM_STEPS
+    S = P + T
+    last = S + steps                      # kv_len at the last decode step
+    body = FD.choose_body(bf16, H // KV, D)
+
+    # -- 10a. flash_attention, 10b. flash_decode at D = 96 ----------------------------
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 5)
+    times = {"prefill_attention": check_flash_attention(
+        f"phi-3 B={B} S={S} H=KV={H} D={D} bf16", (B, S, H, KV, D), bf16, dev, gen, record,
+        timed=True, body="wgmma")}
+    check_flash_attention(f"phi-3 B={B} S={S} H=KV={H} D={D} f32", (B, S, H, KV, D), f32, dev,
+                          gen, record, body="simt")
+    check_flash_attention(f"phi-3 odd B=3 S=333 D={D} bf16", (3, 333, H, KV, D), bf16, dev, gen,
+                          record, body="wgmma")
+    dshape = (B, Smax, H, KV, D)
+    times["decode_attention"] = check_flash_decode(
+        f"phi-3 B={B} Smax={Smax} D={D} G=1 bf16 ({body})", dshape, bf16, dev, gen, record,
+        (1, 17, 1000, last, Smax), timed_len=last)
+    check_flash_decode(f"phi-3 B={B} Smax={Smax} D={D} f32", dshape, f32, dev, gen, record,
+                       (1, 17, 1000, last, Smax))
+    check_flash_decode(f"phi-3 window 256 softcap 50 D={D} bf16", dshape, bf16, dev, gen,
+                       record, (1, 300, 1000, Smax), window=256, softcap=50.0)
+    check_flash_decode(f"odd B=3 Smax=777 H=16 KV=2 D={D} bf16", (3, 777, 16, 2, D), bf16, dev,
+                       gen, record, (1, 17, 65, 333, 777))
+    # the other body at phi-3's decode, for the choice of body: the wrapper's
+    # choice forced to SIMT for these calls only
+    chosen = FD.choose_body
+    FD.choose_body = lambda *args: "simt"
+    try:
+        times["decode_attention_simt"] = check_flash_decode(
+            f"phi-3 B={B} Smax={Smax} D={D} G=1 bf16 (simt, forced)", dshape, bf16, dev, gen,
+            record, (1, 17, last), timed_len=last)
+    finally:
+        FD.choose_body = chosen
+    times["prefill_attention"]["shape"] = f"B={B} S={S} H=KV={H} D={D} causal bf16"
+    for key in ("decode_attention", "decode_attention_simt"):
+        times[key]["shape"] = f"B={B} Smax={Smax} kv_len={last} H=KV={H} D={D} bf16"
+    print(f"flash_decode at phi-3's decode: the {body} body (choose_body) "
+          f"{times['decode_attention']['ms']:.4f} ms, the SIMT body "
+          f"{times['decode_attention_simt']['ms']:.4f} ms", flush=True)
+
+    # -- 10c. the image path -------------------------------------------------------
+    t = time.perf_counter()
+    model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(
+        SERVE_SEED))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"{VLM_ARCH}: {n_params / 1e9:.4f} B parameters, {param_bytes / 1e9:.4f} GB (bf16), "
+          f"built in {time.perf_counter() - t:.3f} s", flush=True)
+    rng = np.random.default_rng(SERVE_SEED + 5)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32),
+                                       device=dev),
+             "vision_embeds": seeded_normal((B, P, cfg.d_model), bf16, dev,
+                                            torch.Generator(device=dev).manual_seed(
+                                                SERVE_SEED + 6))}
+
+    def image_run():
+        """Prefill, then ``steps`` greedy decode steps, each token read on
+        the host as ``ServeEngine`` reads it -> (tokens [B, 1 + steps],
+        TTFT s, decode ms a step, the first step's logits f32 [B, V], the
+        cache, the last token)."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cache = model.init_cache(B, Smax)
+        logits, cache = model.prefill(batch, cache)
+        tok = greedy(logits)
+        toks = [tok.cpu()]
+        ttft = time.perf_counter() - t
+        t = time.perf_counter()
+        first = None
+        for i in range(steps):
+            logits, cache = model.decode_step(tok, cache)
+            if first is None:
+                first = logits[:, 0].float()
+            tok = greedy(logits)
+            toks.append(tok.cpu())
+        ms = (time.perf_counter() - t) / steps * 1e3
+        if int(cache["pos"]) != last:
+            raise AssertionError(f"{VLM_ARCH}: cache pos {int(cache['pos'])}, expected {last}")
+        return torch.cat(toks, dim=1), ttft, ms, first, cache, tok
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    toks, ttft, step_ms, first, cache, tok = image_run()
+    launches, bodies = dict(ops.launch_counts), dict(body_launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": cfg.num_layers, "flash_decode": cfg.num_layers * steps}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"{VLM_ARCH} image path launched {launches}, expected {want}")
+    if bodies != {"simt": 0, "wgmma": cfg.num_layers}:
+        raise AssertionError(f"{VLM_ARCH} prefill took the flash_attention bodies {bodies}")
+    nbytes, bound = decode_step_bound_ms(cfg, param_bytes, S + steps // 2, slots=B)
+    print(f"image path {VLM_ARCH}: B={B}, {P} patches + {T} text tokens a sequence, prefill "
+          f"then {steps} decode steps: TTFT {ttft * 1e3:.3f} ms, decode {step_ms:.4f} ms a step "
+          f"({step_ms / B:.4f} ms a token) against a bound of {bound:.4f} ms ({nbytes / 1e9:.4f} "
+          f"GB at kv_len {S + steps // 2}: every weight and each layer's k and v rows) = "
+          f"{bound / step_ms:.3f} of it; launches flash_attention {launches['flash_attention']} "
+          f"(bodies {bodies}), flash_decode {launches['flash_decode']} on the {body} body; peak "
+          f"memory {peak / 2**30:.3f} GiB", flush=True)
+    prof = device_profile(lambda: model.decode_step(tok, cache))
+    idle = None if prof["busy_s"] is None else 1.0 - prof["busy_s"] / prof["span_s"]
+    print(solve_profile_line(f"profile {VLM_ARCH}: one decode step at kv_len {last + 1}", prof),
+          flush=True)
+    del cache
+    again, ttft2, step_ms2, _, cache, _ = image_run()
+    del cache
+    same = torch.equal(again, toks)
+    print(f"repeat image path {VLM_ARCH}: TTFT {ttft2 * 1e3:.3f} ms, {step_ms2:.4f} ms a step, "
+          f"tokens identical {same}", flush=True)
+    if not same:
+        raise AssertionError(f"a second {VLM_ARCH} image run gave other tokens")
+    full, _ = model.forward_train({"tokens": torch.cat([batch["tokens"], toks[:, :1].to(dev)], 1),
+                                   "vision_embeds": batch["vision_embeds"]})
+    want_logits = full[:, -1].float()
+    del full
+    err, scale = float((first - want_logits).abs().max()), float(want_logits.abs().max())
+    finite = bool(torch.isfinite(first).all() and torch.isfinite(want_logits).all())
+    print(f"teacher-forced check {VLM_ARCH}: the first decode logits vs forward_train over "
+          f"patches + text + that token, max abs err {err:.4f} of max |logit| {scale:.4f} (tol "
+          f"{TEACHER_TOL:g} x scale), argmax agree "
+          f"{int((first.argmax(-1) == want_logits.argmax(-1)).sum())}/{B}, all finite {finite}",
+          flush=True)
+    if not (finite and err <= TEACHER_TOL * scale):
+        raise AssertionError(f"{VLM_ARCH} decode logits part from the teacher-forced pass")
+    torch.cuda.empty_cache()
+    image = {"launches": launches, "ttft_s": ttft, "decode_ms_per_step": step_ms,
+             "step_bound_ms": bound, "idle": idle, "peak_gib": peak / 2**30,
+             "teacher_err": err, "teacher_scale": scale}
+
+    # -- 10d. text-only serve, 10e. reduced card against CPU ---------------------------
+    serve = serve_slice(cfg, dev, lambda waves, steps: {
+        "flash_attention": cfg.num_layers * waves, "flash_decode": cfg.num_layers * steps},
+        DECODE_PHASES, model=model)
+    del model
+    torch.cuda.empty_cache()
+    small = reduced_card_vs_cpu(VLM_ARCH, dev)
+    launches = {k: image["launches"][k] + serve["launches"][k]
+                for k in ("flash_attention", "flash_decode")}
+    print(f"phase 10 ({VLM_ARCH}): {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"times": times, "image": image, "serve": serve, "small": small,
+            "launches": launches,
+            "by_path": {"image": {k: image["launches"][k] for k in launches},
+                        "text": {k: serve["launches"][k] for k in launches}}}
+
+
+class AttentionTap:
+    """Wraps ``ops.flash_attention`` while a model runs (``install`` /
+    ``remove``): records each call's ``causal`` flag and keeps, by
+    reference and computing nothing on the card, the first call's inputs,
+    keyword arguments and output."""
+
+    def __init__(self):
+        self.causal: list = []
+        self.first = None
+
+    def install(self) -> None:
+        from repro_torch.kernels import ops
+
+        self._orig = ops.flash_attention
+        orig = self._orig
+
+        def tapped(q, k, v, **kw):
+            out = orig(q, k, v, **kw)
+            self.causal.append(kw.get("causal", True))
+            if self.first is None:
+                self.first = (q, k, v, kw, out)
+            return out
+
+        ops.flash_attention = tapped
+
+    def remove(self) -> None:
+        from repro_torch.kernels import ops
+
+        ops.flash_attention = self._orig
+
+
+def check_captured_attention(tap: AttentionTap, record) -> float:
+    """The encoder's own layer-0 ``flash_attention`` launch against the
+    plain version on the inputs it received, AUDIO_CHUNK query rows at a
+    time (bidirectional: a row depends on the keys alone) -> max abs err."""
+    import torch
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    q, k, v, kw, out = tap.first
+    err = 0.0
+    for i in range(0, q.shape[1], AUDIO_CHUNK):
+        want = flash_attention_ref(q[:, i:i + AUDIO_CHUNK], k, v, **kw)
+        ok, e = flash_close(out[:, i:i + AUDIO_CHUNK], want)
+        err = max(err, e)
+        if not ok:
+            raise AssertionError(f"{AUDIO_ARCH} layer-0 flash_attention rows {i}..: max abs err "
+                                 f"{e:.3e} beyond {tol_text(q.dtype)}")
+        del want
+    torch.cuda.empty_cache()
+    record["flash_attention"]["max_abs_err"] = max(record["flash_attention"]["max_abs_err"], err)
+    print(f"capture {AUDIO_ARCH}: the encoder's layer-0 flash_attention (B={q.shape[0]}, "
+          f"S={q.shape[1]}, {kw}) against the plain version on its inputs, in chunks of "
+          f"{AUDIO_CHUNK} query rows: max abs err {err:.3e} ({tol_text(q.dtype)})", flush=True)
+    return err
+
+
+def encoder_bound(cfg, B: int, S: int) -> dict:
+    """Operations one forward of the encoder over B x S frames needs, and
+    their time at the bf16 tensor-core rate: attention (every query sees
+    every key, 2 D + 2 D a pair and head), the linears (q, k, v, o and the
+    gated MLP's three, 2 a multiply-add) and the head."""
+    D, H, d = cfg.resolved_head_dim, cfg.num_heads, cfg.d_model
+    attn = cfg.num_layers * attention_work(B, S, S, H, cfg.num_kv_heads, D, 2, causal=False)[1]
+    per_token = 2 * (d * H * D * 2 + d * cfg.num_kv_heads * D * 2 + 3 * d * cfg.d_ff)
+    linears = cfg.num_layers * per_token * B * S + 2 * d * cfg.vocab_size * B * S
+    return {"attention_ms": attn / BF16_OPS_PER_S * 1e3,
+            "linears_ms": linears / BF16_OPS_PER_S * 1e3,
+            "ms": (attn + linears) / BF16_OPS_PER_S * 1e3}
+
+
+def audio_phase(dev, record) -> dict:
+    """Phase 11: the bidirectional flash_attention at hubert's D = 80, H =
+    KV = 16, then full-width hubert-xlarge encodes AUDIO_BATCH x AUDIO_LEN
+    frames (a warm forward, then one with the counts zeroed: 48
+    bidirectional launches on the tensor-core body), a repeat bit for bit,
+    the serve's layer-0 launch against the plain version, a profiled
+    forward; then reduced hubert card against CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import body_launches, flash_attention_cuda
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = get_config(AUDIO_ARCH)
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    B, S, n = AUDIO_BATCH, AUDIO_LEN, AUDIO_CHECK_LEN
+    print(f"{AUDIO_ARCH}: frames [{B}, {S}, {cfg.d_model}], the reference's prefill_32k length "
+          "with its batch cut from 32 to 2 for time", flush=True)
+
+    # -- 11a. the bidirectional kernel ------------------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 7)
+    times = {"attention_check": check_flash_attention(
+        f"hubert B={B} S={n} H=KV={H} D={D} bidirectional bf16", (B, n, H, KV, D), bf16, dev,
+        gen, record, timed=True, body="wgmma", causal=False, control=False)}
+    check_flash_attention(f"hubert B={B} S={n} D={D} bidirectional f32", (B, n, H, KV, D), f32,
+                          dev, gen, record, body="simt", causal=False)
+    check_flash_attention(f"hubert odd B=3 S=777 D={D} bidirectional bf16", (3, 777, H, KV, D),
+                          bf16, dev, gen, record, body="wgmma", causal=False)
+    q, k, v = (seeded_normal((B, S, H, D), bf16, dev, gen) for _ in range(3))
+    nbytes, nops = attention_work(B, S, S, H, KV, D, 2, causal=False)
+    b, by = flash_bound_ms(nbytes, nops, bf16)
+    main = {"ms": time_ms(lambda: flash_attention_cuda(q, k, v, causal=False), reps=5,
+                          warmup=1),
+            "plain_ms": None, "bound_ms": b, "bound_by": by,
+            "library_ms": time_ms(lambda: sdpa_prefill(q, k, v, False), reps=5, warmup=1)}
+    del q, k, v
+    times["attention_main"] = main
+    for key, length in (("attention_check", n), ("attention_main", S)):
+        times[key]["shape"] = f"B={B} S={length} H=KV={H} D={D} bidirectional bf16"
+    print(f"flash_attention hubert B={B} S={S} H=KV={H} D={D} bidirectional bf16 | kernel "
+          f"{main['ms']:.4f} ms, SDPA {main['library_ms']:.4f} ms "
+          f"({main['ms'] / main['library_ms']:.3f}x SDPA's time), bound {b:.4f} ms ({by}), "
+          f"{nops / main['ms'] / 1e9:.1f} TFLOP/s of {nops / 1e9:.1f} GFLOP; plain not measured "
+          f"(its f32 logits would take {B * H * S * S * 4 / 1e9:.0f} GB)", flush=True)
+
+    # -- 11b. the counted forward, 11c. its checks -------------------------------------
+    t = time.perf_counter()
+    model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(
+        SERVE_SEED))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"{AUDIO_ARCH}: {n_params / 1e9:.4f} B parameters, {param_bytes / 1e9:.4f} GB (bf16), "
+          f"built in {time.perf_counter() - t:.3f} s", flush=True)
+    batch = {"frames": seeded_normal((B, S, cfg.d_model), f32, dev,
+                                     torch.Generator(device=dev).manual_seed(SERVE_SEED + 8))}
+    t = time.perf_counter()
+    model.prefill(batch)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    tap = AttentionTap()
+    tap.install()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    logits, cache = model.prefill(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches, bodies = dict(ops.launch_counts), dict(body_launches)
+    tap.remove()
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.num_layers
+    if launches["flash_attention"] != L or bodies != {"simt": 0, "wgmma": L}:
+        raise AssertionError(f"{AUDIO_ARCH} forward launched {launches} (bodies {bodies})")
+    if tap.causal != [False] * L or cache is not None:
+        raise AssertionError(f"{AUDIO_ARCH} attention causal flags {set(tap.causal)}")
+    if tuple(logits.shape) != (B, S, cfg.vocab_size) or logits.dtype != f32:
+        raise AssertionError(f"{AUDIO_ARCH} logits {tuple(logits.shape)} {logits.dtype}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{AUDIO_ARCH}: non-finite logits")
+    bound = encoder_bound(cfg, B, S)
+    print(f"encode {AUDIO_ARCH}: B={B} S={S}, warm forward {warm_s:.4f} s, counted forward "
+          f"{wall:.4f} s against an operations bound of {bound['ms'] / 1e3:.4f} s (attention "
+          f"{bound['attention_ms'] / 1e3:.4f} s + linears and head "
+          f"{bound['linears_ms'] / 1e3:.4f} s at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s) = "
+          f"{bound['ms'] / 1e3 / wall:.3f} of it; launches flash_attention "
+          f"{launches['flash_attention']} (bodies {bodies}, causal {set(tap.causal)}); peak "
+          f"memory {peak / 2**30:.3f} GiB; max |logit| {float(logits.abs().max()):.4f}",
+          flush=True)
+    capture_err = check_captured_attention(tap, record)
+    tap.first = None
+    again, _ = model.prefill(batch)
+    same = torch.equal(again, logits)
+    del again
+    print(f"repeat encode {AUDIO_ARCH}: logits bit-identical {same}", flush=True)
+    if not same:
+        raise AssertionError(f"a second {AUDIO_ARCH} forward gave other logits")
+    del logits
+    prof = device_profile(lambda: model.prefill(batch))
+    idle = None if prof["busy_s"] is None else 1.0 - prof["busy_s"] / prof["span_s"]
+    print(solve_profile_line(f"profile {AUDIO_ARCH}: one forward of B={B} S={S}", prof),
+          flush=True)
+    del model, batch
+    torch.cuda.empty_cache()
+
+    # -- 11d. reduced card against CPU ---------------------------------------------------
+    small = reduced_card_vs_cpu(AUDIO_ARCH, dev)
+    print(f"phase 11 ({AUDIO_ARCH}): {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"times": times, "launches": {"flash_attention": launches["flash_attention"],
+                                         "flash_decode": 0},
+            "wall_s": wall, "bound": bound, "idle": idle, "peak_gib": peak / 2**30,
+            "capture_err": capture_err, "small": small}
 
 
 def optimal_phase(cluster, pp, obj0: float, record, dev, *, clock_mhz) -> dict:
@@ -5244,17 +5733,37 @@ def main() -> int:
     print(f"before phase 9: {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated on the "
           "card", flush=True)
     mla = mla_phase(dev, record)
+
+    # -- 10. phi-3-vision-4.2b at full width: the image prefix, D = 96 ---------------
+    del mla["run"]                         # every deepseek tensor is freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"before phase 10: {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated on the "
+          "card", flush=True)
+    vlm = vlm_phase(dev, record)
+
+    # -- 11. hubert-xlarge at full width: 32,768 frames bidirectionally ---------------
+    del vlm["serve"]                       # every phi-3 tensor is freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"before phase 11: {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated on the "
+          "card", flush=True)
+    audio = audio_phase(dev, record)
     flash_launches = {name: flash_launches[name] + moe["launches"][name] + mla["launches"][name]
+                      + vlm["launches"][name] + audio["launches"][name]
                       for name in ("flash_attention", "flash_decode")}
     flash_by_path = {name: {SERVE_ARCH: serving["launches"][name],
                             HYBRID_ARCH: hybrid["launches"][name],
                             GEMMA2_ARCH: gemma2_launches["full"][name],
                             f"{GEMMA2_ARCH} ring_cache": gemma2_launches["ring"][name],
                             MOE_ARCH: moe["launches"][name],
-                            MLA_ARCH: mla["launches"][name]}
+                            MLA_ARCH: mla["launches"][name],
+                            f"{VLM_ARCH} image": vlm["by_path"]["image"][name],
+                            f"{VLM_ARCH} text": vlm["by_path"]["text"][name],
+                            AUDIO_ARCH: audio["launches"][name]}
                      for name in ("flash_attention", "flash_decode")}
 
-    # -- 10. result lines -------------------------------------------------------
+    # -- 12. result lines -------------------------------------------------------
     kernels = [
         {"name": "move_eval_best", "route": "cuda", "source": MOVE_EVAL_SRC,
          "replaces": "src/repro/kernels/move_eval.py:275",
@@ -5319,7 +5828,10 @@ def main() -> int:
          "bound_by": fa["bound_by"], "library_ms": fa["library_ms"],
          "gemma2": {k: gemma2_times[k] for k in ("prefill_local", "prefill_global")},
          "granite": moe["times"]["prefill_attention"],
-         "deepseek": mla["times"]["prefill_attention"]},
+         "deepseek": mla["times"]["prefill_attention"],
+         "phi3": vlm["times"]["prefill_attention"],
+         "hubert": {f"S={AUDIO_CHECK_LEN}": audio["times"]["attention_check"],
+                    f"S={AUDIO_LEN}": audio["times"]["attention_main"]}},
         {"name": "flash_decode", "route": "cuda", "source": FLASH_DECODE_SRC,
          "replaces": "src/repro/kernels/flash_decode.py:108",
          "launches": flash_launches["flash_decode"],
@@ -5329,7 +5841,9 @@ def main() -> int:
          "bound_by": fd["bound_by"], "library_ms": fd["library_ms"],
          "gemma2": gemma2_times["decode_window"],
          "granite": moe["times"]["decode_attention"],
-         "deepseek": mla["times"]["decode_attention"]},
+         "deepseek": mla["times"]["decode_attention"],
+         "phi3": vlm["times"]["decode_attention"],
+         "phi3_simt_forced": vlm["times"]["decode_attention_simt"]},
         {"name": "ssd_chunk", "route": "cuda", "source": SSD_CHUNK_SRC,
          "replaces": "src/repro/kernels/mamba_scan.py:71",
          "launches": hybrid["launches"]["ssd_chunk"],

@@ -1,12 +1,13 @@
 """Architecture registry of the port: the dense configs (gemma2's
 alternating local/global layers among them), the MoE ones (granite-moe,
-and deepseek-v2-lite with MLA attention) and the hybrid (Zamba2) one it
-serves so far.
+and deepseek-v2-lite with MLA attention), the hybrid (Zamba2) one, the
+VLM (phi-3-vision, a dense trunk behind an image prefix) and the audio
+encoder (hubert-xlarge).
 
 ``get_config(arch_id)`` returns the exact published config (the same
 numbers as the reference's ``repro.configs``); the CLI aliases are the
-reference's.  The other three architectures come with their families in
-later slices of the port (ROADMAP.md, Queue 1 item 8d).
+reference's.  xlstm-125m comes with its family in a later slice of the
+port (ROADMAP.md, Queue 1 item 8d).
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ ARCHS = (
     "gemma2_9b",
     "granite_moe_1b",
     "deepseek_v2_lite_16b",
+    "phi3_vision_4p2b",
+    "hubert_xlarge",
 )
 
 # The reference's CLI aliases, all ten (--arch accepts either form).
@@ -38,9 +41,7 @@ ALIASES = {
 
 # Where each architecture not yet ported stands in ROADMAP.md.
 NOT_YET_PORTED = {
-    "phi3_vision_4p2b": "Queue 1 item 8d (VLM, audio and xLSTM families)",
-    "hubert_xlarge": "Queue 1 item 8d (VLM, audio and xLSTM families)",
-    "xlstm_125m": "Queue 1 item 8d (VLM, audio and xLSTM families)",
+    "xlstm_125m": "Queue 1 item 8d (the xLSTM family, 8d-iii)",
 }
 
 

@@ -40,9 +40,9 @@
 // rows; no barrier couples the warps until the end, where they merge with
 // weights e^(m_w - M).  Two bodies, chosen by the wrapper
 // (flash_decode.py::choose_body):
-//   * Tensor cores (bf16, a query group of up to 16 heads, D = 64, 80 or
-//     128: qwen2.5, smollm and Zamba2's shared block; gemma2's D = 256
-//     takes the SIMT body): the group's heads are the 16 rows of mma.sync
+//   * Tensor cores (bf16, a query group of up to 16 heads, D = 64, 80, 96
+//     or 128: qwen2.5, smollm, Zamba2's shared block and phi-3-vision;
+//     gemma2's D = 256 takes the SIMT body): the group's heads are the 16 rows of mma.sync
 //     m16n8k16, so q's fragments serve every head once and each loaded K
 //     row serves all G heads in one product; 16 rows a warp step (the next
 //     step's rows loaded before this step's products), S and P.V on the
@@ -524,7 +524,7 @@ static int dispatch(int B, int Smax, int H, int KV, int D, int DV, int hsplit, i
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core body: bf16, 1 <= G <= 16, D = 64, 80 or 128
+// Tensor-core body: bf16, 1 <= G <= 16, D = 64, 80, 96 or 128
 // ---------------------------------------------------------------------------
 // The query group's G heads are the 16 rows of mma.sync.m16n8k16 (rows past
 // G are zeros), so q's fragments, held once by every lane, serve all heads
@@ -779,7 +779,7 @@ static int dispatch_mma(int B, int Smax, int H, int KV, int D, int nsplit, int s
   case N:                                                                                    \
     return launch_mma<N>(B, Smax, H, KV, nsplit, split_len, window, scale, softcap, q, k, v, \
                          kv_len, part, tickets, out, stream);
-    FD_MMA_CASE(64) FD_MMA_CASE(80) FD_MMA_CASE(128)
+    FD_MMA_CASE(64) FD_MMA_CASE(80) FD_MMA_CASE(96) FD_MMA_CASE(128)
 #undef FD_MMA_CASE
     default:
       return (int)cudaErrorInvalidValue;
@@ -789,7 +789,7 @@ static int dispatch_mma(int B, int Smax, int H, int KV, int D, int nsplit, int s
 }  // namespace tcd
 
 // dtype: 0 = float32, 1 = bfloat16; body: 0 = SIMT, 1 = tensor cores (bf16,
-// G <= 16, D = DV = 64, 80 or 128, hsplit = 1); softcap <= 0: none; window
+// G <= 16, D = DV = 64, 80, 96 or 128, hsplit = 1); softcap <= 0: none; window
 // <= 0: none, else the rows [max(0, kv_len - window), kv_len).  q
 // [B, 1, H, D], k [B, Smax, KV, D], v [B, Smax, KV, DV], out [B, 1, H, DV],
 // all contiguous; kv_len one int32 on the card; part f32: m and l (B * KV *

@@ -15,10 +15,10 @@ The kernel splits the cache over CTAs (split-KV); the CTA that finishes
 last for a (sequence, kv head, head set) merges the partial softmaxes, so a
 call is one launch.  ``choose_body`` picks one of its two bodies from the
 dtype, the group size and the head dims: bf16 query groups of up to 16
-heads at D = Dv = 64, 80 or 128 (qwen2.5, smollm, Zamba2's shared block) run
-on the tensor cores, the group's heads as the rows of ``mma.sync``; the
-rest (f32, other D, such as gemma2's 256, and MLA's unequal 192 and 128) on
-the SIMT units, a group cut into sets of at most
+heads at D = Dv = 64, 80, 96 or 128 (qwen2.5, smollm, Zamba2's shared
+block, phi-3-vision) run on the tensor cores, the group's heads as the
+rows of ``mma.sync``; the rest (f32, other D, such as gemma2's 256, and
+MLA's unequal 192 and 128) on the SIMT units, a group cut into sets of at most
 HEADS_PER_CTA heads, one CTA a set.  The wrapper sizes the split from the
 rows a call can read (Smax, or the window when it is shorter: the ranges
 then start at the window's first row) and the card's SM count (both looked
@@ -59,14 +59,17 @@ def split_plan(B: int, KV: int, rows: int, num_sms: int) -> tuple[int, int]:
 
 
 BODY_CODES = {"simt": 0, "mma": 1}
+# The head dims the tensor-core body is compiled for (csrc/flash_decode.cu,
+# FD_MMA_CASE).
+MMA_HEAD_DIMS = (64, 80, 96, 128)
 
 
 def choose_body(dtype: torch.dtype, G: int, head_dim: int, v_dim: Optional[int] = None) -> str:
     """The kernel body for a query group of G heads: "mma" (the group's heads
     as the rows of bf16 tensor-core products) for bf16 with G <= 16 and
-    head_dim = v_dim (default head_dim) 64, 80 or 128, else "simt"."""
+    head_dim = v_dim (default head_dim) in MMA_HEAD_DIMS, else "simt"."""
     v_dim = head_dim if v_dim is None else v_dim
-    if dtype == torch.bfloat16 and G <= 16 and head_dim in (64, 80, 128) and v_dim == head_dim:
+    if dtype == torch.bfloat16 and G <= 16 and head_dim in MMA_HEAD_DIMS and v_dim == head_dim:
         return "mma"
     return "simt"
 

@@ -14,7 +14,10 @@ hybrid Zamba2, once per shared-block application, and every prefill runs the
 ``ssd_chunk`` kernel once per Mamba2 layer (``kernels.ops.launch_counts``).
 
 Run (reduced config, on the card; ``--arch zamba2-2.7b`` for the hybrid,
-``--arch granite-moe-1b-a400m`` for the MoE family):
+``--arch granite-moe-1b-a400m`` for the MoE family; ``--arch
+phi-3-vision-4.2b`` serves the VLM's trunk on text-only waves, as the
+reference's engine does: it takes no images; ``--arch hubert-xlarge`` exits,
+being encoder-only):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
       --requests 24 --max-new 16
 """

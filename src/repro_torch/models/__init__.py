@@ -1,4 +1,5 @@
-"""Models of the port (the dense transformer and the Zamba2 hybrid families so far)."""
+"""Models of the port: the dense, MoE and VLM transformer, the Zamba2 hybrid
+and the audio encoder families (the xLSTM family is still to come)."""
 from repro_torch.models.config import ModelConfig, reduce_for_smoke
 from repro_torch.models.model import build_model
 

@@ -1,10 +1,12 @@
 """Model builder of the port: ``build_model(cfg)`` -> a module with random
 weights on the card (the reference's ``build_model`` plus its ``init``).
 
-The dense and MoE families (``TransformerLM``; MoE blocks hold
-``moe.MoE``, MLA configs ``attention.MLAttention``) and the hybrid family
-(``Zamba2``, Mamba2 layers plus a shared attention block) are ported so
-far; the others raise, naming their ROADMAP items.
+The dense, MoE and VLM families (``TransformerLM``; MoE blocks hold
+``moe.MoE``, MLA configs ``attention.MLAttention``; the VLM's patch
+embeddings are a prefix of its batch), the hybrid family (``Zamba2``,
+Mamba2 layers plus a shared attention block) and the audio family
+(``Encoder``, a bidirectional encoder) are ported so far; the xLSTM family
+raises, naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -14,18 +16,20 @@ import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.encoder import Encoder
 from repro_torch.models.mamba2 import Zamba2
 from repro_torch.models.transformer import TransformerLM
 
 NOT_YET_PORTED = {
-    "vlm": "Queue 1 item 8d (VLM, audio and xLSTM families)",
-    "audio": "Queue 1 item 8d (VLM, audio and xLSTM families)",
-    "ssm": "Queue 1 item 8d (VLM, audio and xLSTM families)",
+    "ssm": "Queue 1 item 8d (the xLSTM family, 8d-iii)",
 }
 
 
+Model = Union[TransformerLM, Zamba2, Encoder]
+
+
 def build_model(cfg: ModelConfig, device=DEFAULT_DEVICE,
-                generator: Optional[torch.Generator] = None) -> Union[TransformerLM, Zamba2]:
+                generator: Optional[torch.Generator] = None) -> Model:
     """The model of ``cfg`` on ``device`` (default the card; raises without
     one), its weights drawn from ``generator`` with the reference's
     distributions: normal * scale / sqrt(d_in) for dense weights (scale 0.5
@@ -33,8 +37,9 @@ def build_model(cfg: ModelConfig, device=DEFAULT_DEVICE,
     for the embedding, zero biases, norms at one (zero with
     ``rms_offset``), the MoE router f32; for the Mamba2 layers
     also A_log = log(linspace(1, 16, H)), D at one, dt_bias at zero and the
-    conv weights normal * 0.1.  Without a generator, one seeded with 0 on
-    the device is used."""
+    conv weights normal * 0.1; for the encoder the positional conv normal *
+    0.05 and the mask embedding normal * 0.02.  Without a generator, one
+    seeded with 0 on the device is used."""
     dev = resolve_device(device)
     model = empty_model(cfg, dev)
     if generator is None:
@@ -43,7 +48,7 @@ def build_model(cfg: ModelConfig, device=DEFAULT_DEVICE,
     return model
 
 
-def empty_model(cfg: ModelConfig, device) -> Union[TransformerLM, Zamba2]:
+def empty_model(cfg: ModelConfig, device) -> Model:
     """The model of ``cfg`` with uninitialised weights (filled by
     ``build_model`` or ``weights.lm_from_reference``)."""
     if cfg.family in NOT_YET_PORTED:
@@ -51,6 +56,8 @@ def empty_model(cfg: ModelConfig, device) -> Union[TransformerLM, Zamba2]:
             f"family {cfg.family!r} is not ported yet: ROADMAP.md {NOT_YET_PORTED[cfg.family]}")
     if cfg.family == "hybrid":
         return Zamba2(cfg, device=resolve_device(device)).eval()
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family == "audio":
+        return Encoder(cfg, device=resolve_device(device)).eval()
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"unknown family {cfg.family!r}")
     return TransformerLM(cfg, device=resolve_device(device)).eval()

@@ -1,5 +1,6 @@
-"""Decoder-only transformer LM of the dense and MoE families (qwen2.5,
-smollm, olmo, gemma2; granite-moe, deepseek-v2-lite with MLA attention).
+"""Decoder-only transformer LM of the dense, MoE and VLM families (qwen2.5,
+smollm, olmo, gemma2; granite-moe, deepseek-v2-lite with MLA attention;
+phi-3-vision's backbone).
 
 The port of ``repro/models/transformer.py``: an ``nn.ModuleList`` of blocks
 takes the place of the reference's unrolled prefix and its stacked and
@@ -18,6 +19,13 @@ reference's (the parameters live in the module):
     model.init_cache(batch, max_seq) -> cache
     model.prefill(batch, cache) -> (logits [B, 1, V], cache)
     model.decode_step(token [B, 1], cache) -> (logits [B, 1, V], cache)
+
+A batch may hold ``vision_embeds`` [B, P, d_model] (phi-3-vision's stubbed
+frontend, for any config as in the reference): ``forward_train`` and
+``prefill`` cast them to the activations' dtype and prepend them to the
+embedded tokens (after ``embed_scale``), so that they take positions
+0..P-1 and the text P..P+S-1; a prefill leaves ``cache["pos"]`` at P + S,
+and ``forward_train`` returns the logits of the S text positions only.
 
 The cache is {"pos": int32 scalar on the device, "layers": [{"k", "v"}]},
 one entry a block (the reference's ``prefix`` entries first, then its
@@ -174,10 +182,16 @@ class TransformerLM(nn.Module):
         return {"pos": torch.zeros((), dtype=torch.int32, device=self.device), "layers": layers}
 
     # -- forward -------------------------------------------------------------
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, tokens: torch.Tensor,
+               vision_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The tokens' embeddings (scaled with ``embed_scale``), behind
+        ``vision_embeds`` in their dtype when given (the reference's
+        ``_embed``)."""
         x = self.embed[tokens.to(self.device).long()]
         if self.cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype, device=x.device)
+        if vision_embeds is not None:
+            x = torch.cat([vision_embeds.to(self.device, x.dtype), x], dim=1)
         return x
 
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
@@ -210,21 +224,22 @@ class TransformerLM(nn.Module):
 
     @torch.no_grad()
     def forward_train(self, batch: dict):
-        """-> (logits over the S positions [B, S, V] f32, the aux loss: 0.0,
-        or the MoE blocks' sum as an f32 0-d tensor)."""
-        if batch.get("vision_embeds") is not None:
-            raise NotImplementedError("vision inputs are not ported yet: "
-                                      "ROADMAP.md Queue 1 item 8d")
-        x = self._embed(batch["tokens"])
+        """-> (logits over the S text positions [B, S, V] f32, the aux loss:
+        0.0, or the MoE blocks' sum as an f32 0-d tensor)."""
+        vision = batch.get("vision_embeds")
+        x = self._embed(batch["tokens"], vision)
         B, S, _ = x.shape
         x, aux = self._run_layers(x, self._positions(B, S), with_aux=True)
+        if vision is not None:
+            x = x[:, vision.shape[1]:]                 # the text positions only
         return self._unembed(x), aux
 
     @torch.no_grad()
     def prefill(self, batch: dict, cache: dict):
-        """Writes the prompt's k/v at [0, S) of every layer's cache and sets
-        ``cache["pos"]`` to S -> (logits of the last position [B, 1, V])."""
-        x = self._embed(batch["tokens"])
+        """Writes the prompt's k/v at [0, S) of every layer's cache (S the
+        patches and the tokens) and sets ``cache["pos"]`` to S -> (logits of
+        the last position [B, 1, V])."""
+        x = self._embed(batch["tokens"], batch.get("vision_embeds"))
         B, S, _ = x.shape
         x, _ = self._run_layers(x, self._positions(B, S), cache=cache, cache_pos=0)
         cache["pos"].fill_(S)

@@ -22,9 +22,14 @@ and ``wo`` under ``mla``);
 for the hybrid ``Zamba2`` its ``init``'s (``embed``, ``final_norm``,
 ``layers`` a dict of Mamba2 leaves stacked [num_layers, ...], and
 ``shared`` = {in_proj, ln1, attn, ln2, mlp, out_proj [apps, d, d]}).
-``lm_to_numpy`` goes the other way.  Both packages store linear weights
-[d_in, d_out], so nothing is transposed: the stacked leaves are only cut
-per layer.
+``lm_to_numpy`` goes the other way.  The VLM family (phi-3-vision) is a
+``TransformerLM`` and carries as the dense one does.
+``encoder_from_reference`` and ``encoder_to_numpy`` do the same for the
+audio family's ``Encoder`` and its ``init``'s layout (``pos_conv_w``,
+``mask_embed``, ``layers`` one block's tree with every leaf stacked
+[num_layers, ...], ``final_norm`` {"scale", "bias"} and ``head``).  Both
+packages store linear weights [d_in, d_out], so nothing is transposed: the
+stacked leaves are only cut per layer.
 """
 from __future__ import annotations
 
@@ -151,6 +156,8 @@ def _shared_tensors(shared) -> dict:
 def lm_from_reference(cfg, params_np: dict, device=DEFAULT_DEVICE):
     """The port's model of ``cfg`` with the reference's weights (its params
     pytree, leaves as numpy arrays) on ``device``."""
+    if cfg.family == "audio":
+        raise ValueError("an audio config builds an Encoder: use encoder_from_reference")
     model = empty_model(cfg, device)
     if cfg.family == "hybrid":
         _put(model.embed, params_np["embed"])
@@ -170,8 +177,7 @@ def lm_from_reference(cfg, params_np: dict, device=DEFAULT_DEVICE):
     if len(groups) != G:
         raise ValueError(f"{len(groups)} layer groups for a plan of {G}")
     _put(model.embed, params_np["embed"])
-    for key, t in _norm_params(model.final_norm).items():
-        _put(t, params_np["final_norm"] if key == "" else params_np["final_norm"][key])
+    _put_final_norm(model.final_norm, params_np["final_norm"])
     if model.lm_head is not None:
         _put(model.lm_head, params_np["lm_head"])
     for i, block in enumerate(model.blocks):
@@ -181,6 +187,48 @@ def lm_from_reference(cfg, params_np: dict, device=DEFAULT_DEVICE):
             else:
                 _put(t, _get(groups[(i - P) % G], path)[(i - P) // G])
     return model
+
+
+def _norm_tree(norm, values: dict):
+    """A norm's parameters as the reference holds them, from ``values``
+    keyed as ``_norm_params`` keys them."""
+    if norm.kind == "rmsnorm":
+        return values[""]
+    if norm.kind == "layernorm":
+        return {"scale": values["scale"], "bias": values["bias"]}
+    return None
+
+
+def _block_tree(blocks, stack: bool) -> dict:
+    """The reference's tree of ``blocks``: each leaf stacked over them, or
+    the one block's own."""
+    per_layer = [_layer_tensors(b) for b in blocks]
+
+    def leaf(path):
+        values = [_arr(layer[path]) for layer in per_layer]
+        return np.stack(values) if stack else values[0]
+
+    tree = {}
+    for name in _NORMS:
+        if hasattr(blocks[0], name):
+            norm = getattr(blocks[0], name)
+            tree[name] = _norm_tree(norm, {key: leaf((name, key)) for key in _norm_params(norm)})
+    for path in per_layer[0]:
+        if path[0] not in _NORMS:
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = leaf(path)
+    return tree
+
+
+def _final_norm_numpy(norm):
+    return _norm_tree(norm, {k: _arr(t) for k, t in _norm_params(norm).items()})
+
+
+def _put_final_norm(norm, value) -> None:
+    for key, t in _norm_params(norm).items():
+        _put(t, value if key == "" else value[key])
 
 
 def lm_to_numpy(model) -> dict:
@@ -200,45 +248,38 @@ def lm_to_numpy(model) -> dict:
                 "shared": shared,
                 "final_norm": _arr(model.final_norm)}
 
-    def norm_tree(norm, values):
-        if norm.kind == "rmsnorm":
-            return values[""]
-        if norm.kind == "layernorm":
-            return {"scale": values["scale"], "bias": values["bias"]}
-        return None
-
-    def block_tree(blocks, stack: bool) -> dict:
-        """The reference's tree of ``blocks``: each leaf stacked over them,
-        or the one block's own."""
-        per_layer = [_layer_tensors(b) for b in blocks]
-
-        def leaf(path):
-            values = [_arr(layer[path]) for layer in per_layer]
-            return np.stack(values) if stack else values[0]
-
-        tree = {}
-        for name in _NORMS:
-            if hasattr(blocks[0], name):
-                norm = getattr(blocks[0], name)
-                tree[name] = norm_tree(norm, {key: leaf((name, key)) for key in _norm_params(norm)})
-        for path in per_layer[0]:
-            if path[0] not in _NORMS:
-                node = tree
-                for key in path[:-1]:
-                    node = node.setdefault(key, {})
-                node[path[-1]] = leaf(path)
-        return tree
-
-    out = {"embed": _arr(model.embed),
-           "final_norm": norm_tree(model.final_norm, {k: _arr(t) for k, t in
-                                                      _norm_params(model.final_norm).items()})}
+    out = {"embed": _arr(model.embed), "final_norm": _final_norm_numpy(model.final_norm)}
     if model.lm_head is not None:
         out["lm_head"] = _arr(model.lm_head)
     P = num_prefix(model.cfg)
     if P:
-        out["prefix"] = [block_tree([b], stack=False) for b in model.blocks[:P]]
+        out["prefix"] = [_block_tree([b], stack=False) for b in model.blocks[:P]]
     G = len(group_windows(model.cfg))
     scanned = model.blocks[P:]
     # group j stacks scanned blocks j, G + j, 2 G + j, ...
-    out["layers"] = [block_tree(scanned[j::G], stack=True) for j in range(G)]
+    out["layers"] = [_block_tree(scanned[j::G], stack=True) for j in range(G)]
     return out
+
+
+def encoder_from_reference(cfg, params_np: dict, device=DEFAULT_DEVICE):
+    """The port's ``Encoder`` of ``cfg`` (family "audio") with the
+    reference's weights (its params pytree, leaves as numpy arrays) on
+    ``device``."""
+    if cfg.family != "audio":
+        raise ValueError(f"an encoder takes an audio config, got family {cfg.family!r}")
+    model = empty_model(cfg, device)
+    for name in ("pos_conv_w", "mask_embed", "head"):
+        _put(getattr(model, name), params_np[name])
+    _put_final_norm(model.final_norm, params_np["final_norm"])
+    for i, block in enumerate(model.blocks):
+        for path, t in _layer_tensors(block).items():
+            _put(t, _get(params_np["layers"], path)[i])
+    return model
+
+
+def encoder_to_numpy(model) -> dict:
+    """The inverse of ``encoder_from_reference``: the reference's params
+    pytree with numpy leaves (f32 for bf16 weights)."""
+    return {"pos_conv_w": _arr(model.pos_conv_w), "mask_embed": _arr(model.mask_embed),
+            "layers": _block_tree(list(model.blocks), stack=True),
+            "final_norm": _final_norm_numpy(model.final_norm), "head": _arr(model.head)}

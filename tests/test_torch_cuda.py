@@ -35,7 +35,12 @@ The MoE dispatch and combine kernels bit for bit equal to their plain
 versions at the shared edge cases (``kernels.moe.MOE_CASES``), and reduced
 granite and deepseek (with MLA, and with mla=False) on the card to the CPU
 within 1e-4.  Both flash kernels with a V head dim of its own (MLA's 192
-and 128, the reduced 24 and 16) in the flash tolerances.
+and 128, the reduced 24 and 16) in the flash tolerances.  The decode's
+tensor-core body at phi-3-vision's D = 96 (G = 1 and 8, odd lengths, a
+window, a softcap), the prefill at D = 96 causal and hubert's D = 80
+bidirectional at ragged lengths, in the flash tolerances; reduced
+phi-3-vision (with its image prefix) and reduced hubert on the card give
+the CPU's logits within 1e-4.
 """
 import dataclasses
 
@@ -1615,3 +1620,105 @@ def assert_rel_scale(got: torch.Tensor, want: torch.Tensor, rel: float) -> None:
     """max |got - want| within ``rel`` of max |want|."""
     err = float((got.double() - want.double()).abs().max())
     assert err <= rel * float(want.double().abs().max()), err
+
+
+# phi-3-vision's decode (H = KV = 32, D = 96: G = 1) and a group of 8 at the
+# same head dim, on the tensor-core body.
+PHI3_DECODE = [(8, 1088, 32, 32, 96), (2, 300, 16, 2, 96)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Smax,H,KV,D", PHI3_DECODE)
+def test_flash_decode_tensor_core_body_at_head_dim_96(cuda_device, B, Smax, H, KV, D):
+    """bf16 at D = 96 takes the `mma` body: kv_len at 1, odd lengths, the
+    64-row tile edges and Smax - 1 and Smax, plain, with a softcap, with a
+    window; one launch a call."""
+    from repro_torch.kernels.flash_decode import choose_body
+
+    bf16 = torch.bfloat16
+    assert choose_body(bf16, H // KV, D) == "mma"
+    q = _normal((B, 1, H, D), bf16, cuda_device, 60)
+    k = _normal((B, Smax, KV, D), bf16, cuda_device, 61)
+    v = _normal((B, Smax, KV, D), bf16, cuda_device, 62)
+    lens = (1, 17, 63, 64, 65, 129, 257, Smax - 1, Smax)
+    kws = (dict(), dict(softcap=50.0), dict(window=40), dict(window=100, softcap=30.0))
+    ops.reset_launch_counts()
+    for kw in kws:
+        for kv_len in lens:
+            n = torch.tensor(kv_len, dtype=torch.int32, device=cuda_device)
+            got = ops.flash_decode(q, k, v, n, **kw)
+            want = flash_decode_ref(q, k, v, n, **kw)
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(host(got.float()), host(want.float()),
+                                       err_msg=f"kv_len={kv_len} {kw}", **_flash_tol(bf16))
+    assert ops.launch_counts["flash_decode"] == len(kws) * len(lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,causal,H,KV", [(96, True, 8, 8), (80, False, 4, 4),
+                                           (96, False, 8, 8), (80, True, 4, 4)],
+                         ids=["phi3_causal", "hubert_bidirectional", "d96_bidirectional",
+                              "d80_causal"])
+@pytest.mark.parametrize("Sq", [1, 63, 65, 129, 200])
+def test_flash_attention_at_phi3_and_hubert_head_dims(cuda_device, dtype, D, causal, H, KV,
+                                                      Sq):
+    """phi-3-vision's D = 96 causal and hubert's D = 80 bidirectional, H =
+    KV, at ragged lengths: bf16 on the tensor-core body, f32 on the SIMT
+    body."""
+    from repro_torch.kernels.flash_attention import body_launches
+
+    q = _normal((2, Sq, H, D), dtype, cuda_device, 63)
+    k = _normal((2, Sq, KV, D), dtype, cuda_device, 64)
+    v = _normal((2, Sq, KV, D), dtype, cuda_device, 65)
+    ops.reset_launch_counts()
+    _flash_case(q, k, v, dict(causal=causal))
+    body = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert body_launches[body] == 1 == ops.launch_counts["flash_attention"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "hubert-xlarge"])
+def test_reduced_vlm_and_encoder_on_the_card_give_the_cpu_logits(cuda_device, arch):
+    """Reduced phi-3-vision (a prefill over patches + text, then decode
+    steps) and reduced hubert (forward with and without a mask, prefill)
+    in f32 on the card give the CPU plain path's logits within 1e-4 of
+    scale, one flash_attention launch a layer a forward."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, reduce_for_smoke
+
+    cfg = reduce_for_smoke(get_config(arch))
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(12))
+    card = copy.deepcopy(cpu).to(cuda_device)
+    rng = np.random.default_rng(12)
+    outs = {}
+    if arch == "hubert-xlarge":
+        frames = torch.as_tensor(rng.normal(0, 1, (2, 77, cfg.d_model)).astype(np.float32))
+        mask = torch.as_tensor(rng.random((2, 77)) < 0.3)
+        for where, model in (("cpu", cpu), ("card", card)):
+            ops.reset_launch_counts()
+            got = [model.forward_train({"frames": frames, "mask": mask})[0].cpu(),
+                   model.prefill({"frames": frames})[0].cpu()]
+            outs[where] = (got, dict(ops.launch_counts))
+        assert outs["card"][1]["flash_attention"] == 2 * cfg.num_layers
+    else:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 16)))
+        patches = torch.as_tensor(rng.normal(0, 1, (2, cfg.num_patches, cfg.d_model))
+                                  .astype(np.float32))
+        for where, model in (("cpu", cpu), ("card", card)):
+            ops.reset_launch_counts()
+            cache = model.init_cache(2, 40)
+            logits, cache = model.prefill({"tokens": toks[:, :12], "vision_embeds": patches},
+                                          cache)
+            got = [logits.cpu()]
+            for s in range(12, 16):
+                logits, cache = model.decode_step(toks[:, s:s + 1].to(model.device), cache)
+                got.append(logits.cpu())
+            assert int(cache["pos"]) == cfg.num_patches + 16
+            outs[where] = (got, dict(ops.launch_counts))
+        assert outs["card"][1]["flash_attention"] == cfg.num_layers
+        assert outs["card"][1]["flash_decode"] == 4 * cfg.num_layers
+    for a, b in zip(outs["card"][0], outs["cpu"][0]):
+        assert_rel_scale(a, b, 1e-4)

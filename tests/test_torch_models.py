@@ -298,9 +298,10 @@ def test_unported_variants_raise(change, match):
 def test_window_with_a_cache_raises_and_unported_archs_name_their_item():
     """A sliding window with a KV cache now serves (windowed prefill and
     decode on a full cache match the teacher-forced forward); gemma2-9b,
-    granite-moe-1b-a400m and deepseek-v2-lite-16b (the reference's MLA
-    config) are ported, and an architecture still unported names its
-    ROADMAP item (phi-3-vision, item 8d's)."""
+    granite-moe-1b-a400m, deepseek-v2-lite-16b (the reference's MLA
+    config), phi-3-vision-4.2b and hubert-xlarge are ported with the
+    reference's numbers, and an architecture still unported names its
+    ROADMAP item (xlstm-125m, item 8d's)."""
     cfg = dataclasses.replace(reduce_for_smoke(get_config("smollm-360m")), window=8)
     m = _windowed_route(cfg)
     toks = torch.zeros((1, 4), dtype=torch.int64)
@@ -313,8 +314,10 @@ def test_window_with_a_cache_raises_and_unported_archs_name_their_item():
                              deepseek.v_head_dim) == (192, 128)
     assert (dataclasses.asdict(deepseek)
             == dataclasses.asdict(ref_get_config("deepseek-v2-lite-16b")))
+    for arch in ("phi-3-vision-4.2b", "hubert-xlarge"):
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(ref_get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8d"):
-        get_config("phi-3-vision-4.2b")
+        get_config("xlstm-125m")
 
 
 def test_attn_batch_shard_matches_reference(pair):
