@@ -318,7 +318,38 @@ Phases (each raises on failure, so the script exits non-zero):
      held to the plain version on its inputs (in query chunks), the idle
      share of a profiled forward; then reduced hubert in f32 on the card and
      the CPU, with and without a mask, within 1e-4 of scale.
- 12. A ``{"kernels": [...]}`` line (the flash kernels' launches summed over
+ 12. xlstm-125m at full width (hubert freed first): the two scan kernels
+     (``mlstm_scan``, ``slstm_scan``) against their plain versions on the
+     card at xlstm-125m's widths (B=8, H=4; Dh=384 for mLSTM, 192 for
+     sLSTM with bf16 recurrent matrices) at S=1 and 17 from a seeded
+     nonzero bf16 state (the state written back within one bf16 ulp of the
+     plain version's) and at S=256 and 2,048 from an f32 one, and at the
+     reduced widths (Dh=32, 16) at S=33, the gates drawn up to |20| so
+     that the stabiliser switches branch, h within 1e-5 of its scale (the
+     mLSTM's also within 1e-5 * kappa * |h|, kappa its denominator's
+     cancellation factor), each timed at S=32,768 beside its bound (bytes
+     or f32 operations; the sLSTM also its chain floor) and at S=2,048
+     beside its plain version (no one PyTorch call computes either);
+     then full-width xlstm-125m in bf16 (155.6 M parameters drawn on the
+     card from a seeded generator) serves the 16 requests of phase 4 in 2
+     waves of 8 through ``ServeEngine``, the counts zeroed just before
+     (``mlstm_scan`` 10 x (waves + steps), ``slstm_scan`` 2 x (waves +
+     steps), no flash launch), with phase 4's checks and each wave's
+     decode ms a step beside its bytes bound; then the long context: 8
+     sequences of 32,768 tokens (the reference's prefill_32k length, its
+     batch cut from 32 to 8 for time), one ``prefill`` and 16
+     ``decode_step``s with the counts zeroed (prefill seconds beside the
+     linears' bf16 bound plus the scans', decode ms a step beside its
+     bytes bound, peak memory, the cache's bytes equal to those at phase
+     4's length), the prefill's own layer-0 ``mlstm_scan`` launch held to
+     the plain version over all 32,768 steps, and the first decode step
+     within 2^-3 of the largest logit of a 32,769-token prefill (two
+     planted faults, the state not carried and one token stale, must read
+     above that), and with the whole model in f32 (B=2) within 1e-3 of it;
+     then
+     reduced xlstm in f32 on the card and the CPU (logits and every cache
+     leaf) within 1e-4 of scale.
+ 13. A ``{"kernels": [...]}`` line (the flash kernels' launches summed over
      the serving runs, gemma2's full and ring ones, granite's, deepseek's,
      phi-3-vision's image and text runs and hubert's forward included, with
      gemma2's, granite's, deepseek's, phi-3-vision's and hubert's shapes
@@ -328,7 +359,8 @@ Phases (each raises on failure, so the script exits non-zero):
      control loop, the service, the simulator's two pairs and the stream
      router's path, the shard-batched ones' over the measured fleet pass,
      the service and the simulator, the tier table's over every path that
-     sweeps, the compression kernels' over phase 6's six compressor steps),
+     sweeps, the compression kernels' over phase 6's six compressor steps,
+     the scans' over phase 12's serve and long context),
      then the card line again, then the final ``{"ok": true, "device":
      {...}}`` line.
 
@@ -611,6 +643,56 @@ AUDIO_BATCH = 2
 AUDIO_LEN = 32768
 AUDIO_CHECK_LEN = 4096
 AUDIO_CHUNK = 1024
+# The xLSTM slice (phase 12): full-width xlstm-125m serves the 16 requests of
+# phase 4 (DENSE_SPEC); then a long context of XLSTM_LONG = (batch, tokens):
+# the reference's prefill_32k length (configs/shapes.py), its batch of 32 cut
+# to 8 for time, one prefill and XLSTM_LONG_STEPS decode steps.  The scans
+# are held to their plain versions at xlstm-125m's widths at
+# XLSTM_CHECK_STEPS (S = 1 and 17 from a nonzero bf16 state, the cache's
+# dtype; 256 and 2,048 from a nonzero f32 one) and at the reduced widths at
+# XLSTM_SMALL_STEPS, each timed at XLSTM_LONG's length and its plain
+# version at XLSTM_PLAIN_STEPS.  Gates drawn up to |20|
+# (kernels.xlstm.GATE_RANGE), so that the stabiliser m switches branch.
+XLSTM_ARCH = "xlstm-125m"
+XLSTM_SRC = "src/repro_torch/kernels/csrc/xlstm.cu"
+XLSTM_REPLACES = {"mlstm_scan": "src/repro/models/xlstm.py:104",
+                  "slstm_scan": "src/repro/models/xlstm.py:183"}
+XLSTM_CHECK_STEPS = (1, 17, 256, 2048)
+XLSTM_SMALL_STEPS = 33
+XLSTM_PLAIN_STEPS = 2048
+XLSTM_LONG = (8, 32768)
+XLSTM_LONG_STEPS = 16
+# The first decode step after the long prefill against a prefill one token
+# longer: in bf16 within XLSTM_LONG_TOL of the largest logit (the bf16
+# cache rounds C, n and m, m to 2^-8 of itself, once at the prefill's end;
+# the decode's conv rounds once where the prefill's rounds term by term;
+# and the projections round their other-shaped sums: 0.0698 measured on
+# the H100, above phase 4's 2^-4; the reference's own decode parts from its
+# longer prefill as much at reduced width, tests/test_torch_xlstm.py).  Two
+# planted faults, the state not carried and the state one token stale, are
+# read the same way each run and must read above the limit.  The check runs
+# again with the whole model in f32 at batch XLSTM_LONG_F32_BATCH within
+# TEACHER_F32_TOL, where only the sums' order is left.
+XLSTM_LONG_TOL = 2.0 ** -3
+XLSTM_LONG_F32_BATCH = 2
+# The scans against their plain versions (kernels.xlstm.compare_scan): 1e-5
+# of each output's scale (both carry the state in f32, the sums run in
+# another order); the mLSTM's h also within 1e-5 * kappa * |h|
+# (kernels.xlstm.mlstm_condition: where the denominator's dot n . q nearly
+# cancels, h has few correct digits in any order); a bf16 state written back
+# within one bf16 ulp beyond that 1e-5 of its scale (where c' = f c + i z
+# nearly cancels, the f32 difference is many ulps of the small result).
+# f32 operations a step beyond the Dh^2 terms, the least the recurrence
+# needs (transcendentals counted as one): the mLSTM's per-head scalars (the
+# gates, the stabiliser, the denominator) and its 8 a row (k / sqrt(Dh), n's
+# update, n . q, i times v, h's division); the sLSTM's 25 an element (four
+# pre-activation adds, the gates, the cell).
+MLSTM_STEP_OPS = 15
+MLSTM_ROW_OPS = 8
+SLSTM_ELEMENT_OPS = 25
+# The sLSTM's chain floor a step: the pre-activation's dot over Dh summed as a
+# tree, ceil(log2 Dh) dependent adds and the add of w, 4 cycles each.
+FMA_LATENCY_CYCLES = 4
 REDUCED_STEPS = 4
 COMPRESS_REPLACES = {"compress_int8": "src/repro/distributed/compress.py:57",
                      "compress_bf16": "src/repro/distributed/compress.py:53",
@@ -1313,6 +1395,17 @@ HYBRID_DECODE_PHASES = {
     **DECODE_PHASES,
     "ssd_step": lambda f, n: n == "ssd_step" and f.endswith("mamba2.py"),
     "conv_step": lambda f, n: n == "conv_step" and f.endswith("mamba2.py"),
+}
+
+
+# An xLSTM decode step: projections, norms, one scan launch a layer.
+XLSTM_DECODE_PHASES = {
+    "linear layers (mm + cast)": _layers_call("linear"),
+    "norms": _layers_call("rmsnorm"),
+    "mlstm_scan (checks + launch)": _ops_call("mlstm_scan"),
+    "slstm_scan (checks + launch)": _ops_call("slstm_scan"),
+    "logits": lambda f, n: n == "_logits" and f.endswith("xlstm.py"),
+    "wait for the card (token copy)": lambda f, n: "'cpu' of 'torch._C" in n,
 }
 
 
@@ -2894,8 +2987,11 @@ def reduced_card_vs_cpu(arch: str, dev) -> dict:
     """Reduced ``arch`` in f32 on the card and on the CPU's plain path, the
     same weights: phi-3-vision a prefill over its patches and 12 text
     tokens, then REDUCED_STEPS decode steps; hubert a forward with and
-    without a mask and a prefill.  Logits within SMALL_REL of their scale,
-    one flash_attention launch a layer a forward on the card."""
+    without a mask and a prefill; xlstm a forward, a prefill of 12 tokens
+    and REDUCED_STEPS decode steps, and its caches.  Logits (and xlstm's
+    cache leaves) within SMALL_REL of their scale, one flash_attention
+    launch a layer a forward on the card (xlstm: one scan launch a layer a
+    call, no attention)."""
     import copy
 
     import numpy as np
@@ -2920,6 +3016,24 @@ def reduced_card_vs_cpu(arch: str, dev) -> dict:
                    model.prefill({"frames": frames})[0].cpu()]
             runs[name] = (got, dict(ops.launch_counts))
         want = {"flash_attention": 3 * cfg.num_layers, "flash_decode": 0}
+    elif cfg.family == "ssm":
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 12 + REDUCED_STEPS)))
+        what = (f"forward_train over {12 + REDUCED_STEPS} tokens, a prefill of 12, "
+                f"{REDUCED_STEPS} decode steps, every cache leaf")
+        for name, model in (("cpu", cpu), ("card", card)):
+            ops.reset_launch_counts()
+            got = [model.forward_train({"tokens": toks})[0].cpu()]
+            cache = model.init_cache(2, 40)
+            logits, cache = model.prefill({"tokens": toks[:, :12]}, cache)
+            got.append(logits.cpu())
+            for s in range(12, 12 + REDUCED_STEPS):
+                logits, cache = model.decode_step(toks[:, s:s + 1].to(model.device), cache)
+                got.append(logits.cpu())
+            got += [t.cpu() for layer in cache["layers"] for t in layer.values()]
+            runs[name] = (got, dict(ops.launch_counts))
+        n_s, calls = sum(cpu.is_slstm), 2 + REDUCED_STEPS
+        want = {"mlstm_scan": (cfg.num_layers - n_s) * calls, "slstm_scan": n_s * calls,
+                "flash_attention": 0, "flash_decode": 0}
     else:
         toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 12 + REDUCED_STEPS)))
         patches = torch.as_tensor(rng.normal(0, 1, (2, cfg.num_patches, cfg.d_model))
@@ -2943,8 +3057,7 @@ def reduced_card_vs_cpu(arch: str, dev) -> dict:
     rel = max(float((a.double() - b.double()).abs().max() / (b.double().abs().max() + 1e-30))
               for a, b in zip(gl, cl))
     print(f"reduced {arch} f32 ({what}): card vs CPU logits max rel {rel:.3e} (limit "
-          f"{SMALL_REL:g}), launches flash_attention {counts['flash_attention']}, flash_decode "
-          f"{counts['flash_decode']}", flush=True)
+          f"{SMALL_REL:g}), launches " + ", ".join(f"{k} {counts[k]}" for k in want), flush=True)
     if not rel <= SMALL_REL:
         raise AssertionError(f"reduced {arch}: the card parts from the CPU")
     if {k: counts[k] for k in want} != want:
@@ -3305,6 +3418,393 @@ def audio_phase(dev, record) -> dict:
                                          "flash_decode": 0},
             "wall_s": wall, "bound": bound, "idle": idle, "peak_gib": peak / 2**30,
             "capture_err": capture_err, "small": small}
+
+
+def xlstm_work(kind: str, B: int, S: int, H: int, Dh: int, state_bytes: int,
+               r_bytes: int = 0) -> tuple[float, float]:
+    """(bytes, operations) of one scan.  Bytes: the inputs read once (q, k,
+    v and the two gates, or w_in and the recurrent matrices), h written
+    once, the state read and written.  Operations (f32), the least the
+    recurrence needs: per step and head, the mLSTM's 5 a C element (f C,
+    then a multiply-add of (i v_i) k_s_j; C q's multiply-add), MLSTM_ROW_OPS
+    a row and MLSTM_STEP_OPS; the sLSTM's 8 Dh^2 (four mat-vecs) and
+    SLSTM_ELEMENT_OPS an element.  The kernel spends a sixth operation an
+    element of C, v_i k_s_j times i apart, to round as the plain version
+    does; that is its choice, not work of the function."""
+    if kind == "mlstm_scan":
+        nbytes = 4 * B * S * H * (4 * Dh + 2) + 2 * state_bytes
+        nops = B * H * S * (5 * Dh * Dh + MLSTM_ROW_OPS * Dh + MLSTM_STEP_OPS)
+    else:
+        nbytes = 4 * B * S * H * 5 * Dh + r_bytes + 2 * state_bytes
+        nops = B * H * S * (8 * Dh * Dh + SLSTM_ELEMENT_OPS * Dh)
+    return float(nbytes), float(nops)
+
+
+def xlstm_case_args(kind: str, B: int, S: int, H: int, Dh: int, dev, *, state_dtype,
+                    r_dtype=None, seed: int = 0):
+    """The shared seeded inputs of ``kind``'s scan (a nonzero state)."""
+    from repro_torch.kernels.xlstm import mlstm_case, slstm_case
+
+    if kind == "mlstm_scan":
+        return mlstm_case(B, S, H, Dh, state_dtype=state_dtype, seed=seed, device=dev)
+    return slstm_case(B, S, H, Dh, state_dtype=state_dtype, r_dtype=r_dtype, seed=seed,
+                      device=dev)
+
+
+def xlstm_compare(kind: str, h, state, want_h, want_state, kappa) -> dict:
+    """kernels.xlstm.compare_scan with the state leaves named for ``kind``."""
+    from repro_torch.kernels.xlstm import compare_scan
+
+    return compare_scan("Cnm" if kind == "mlstm_scan" else "cnhm", h, state, want_h, want_state,
+                        kappa)
+
+
+def check_xlstm(kind: str, B: int, S: int, H: int, Dh: int, dev, record, *, state_dtype,
+                r_dtype=None, seed: int = 0) -> dict:
+    """One scan kernel launch against its plain version on the same seeded
+    inputs (a nonzero state in ``state_dtype``), both on the card; the
+    launch goes through the CUDA wrapper, outside the counts."""
+    import torch
+    from repro_torch.kernels.ref import mlstm_scan_ref, slstm_scan_ref
+    from repro_torch.kernels.xlstm import mlstm_condition, mlstm_scan_cuda, slstm_scan_cuda
+
+    args = xlstm_case_args(kind, B, S, H, Dh, dev, state_dtype=state_dtype, r_dtype=r_dtype,
+                           seed=seed)
+    plain = [a.clone() for a in args]
+    mlstm = kind == "mlstm_scan"
+    kappa = mlstm_condition(*args) if mlstm else None
+    h, state = (mlstm_scan_cuda if mlstm else slstm_scan_cuda)(*args)
+    want_h, want_state = (mlstm_scan_ref if mlstm else slstm_scan_ref)(*plain)
+    torch.cuda.synchronize()
+    res = xlstm_compare(kind, h, state, want_h, want_state, kappa)
+    record[kind]["max_abs_err"] = max(record[kind]["max_abs_err"], res["max_abs_err"])
+    rdt = "" if mlstm else f", R {str(args[1].dtype)[6:]}"
+    print(f"{kind} B={B} S={S} H={H} Dh={Dh} (state {str(state_dtype)[6:]}{rdt}, gates up to "
+          f"|20|) vs plain: h max abs err {res['max_abs_err']:.3e} of scale {res['scale']:.4g}, "
+          f"{res['share']:.3f} of the allowed error"
+          + (f" (max kappa {res['kappa_max']:.4g})" if mlstm else "")
+          + f"; state {res['state']}", flush=True)
+    if not res["ok"]:
+        raise AssertionError(f"{kind} at B={B} S={S} H={H} Dh={Dh} parts from its plain version")
+    return res
+
+
+def time_xlstm(kind: str, B: int, H: int, Dh: int, dev, *, clock_mhz: float) -> dict:
+    """The kernel at XLSTM_LONG's length and at XLSTM_PLAIN_STEPS (a bf16
+    state and bf16 recurrent matrices, the long-context path's dtypes),
+    beside its bound and the plain version at XLSTM_PLAIN_STEPS; the sLSTM
+    also beside its chain floor per (batch, head)."""
+    import torch
+    from repro_torch.kernels.ref import mlstm_scan_ref, slstm_scan_ref
+    from repro_torch.kernels.xlstm import mlstm_scan_cuda, slstm_scan_cuda
+
+    bf16 = torch.bfloat16
+    cuda = mlstm_scan_cuda if kind == "mlstm_scan" else slstm_scan_cuda
+    plain = mlstm_scan_ref if kind == "mlstm_scan" else slstm_scan_ref
+    S = XLSTM_LONG[1]
+    out = {}
+    for steps, key in ((S, "ms"), (XLSTM_PLAIN_STEPS, "ms_at_plain_steps")):
+        args = xlstm_case_args(kind, B, steps, H, Dh, dev, state_dtype=bf16, r_dtype=bf16,
+                               seed=steps)
+        out[key] = time_ms(lambda: cuda(*args), reps=3, warmup=1)
+        if steps == XLSTM_PLAIN_STEPS:
+            out["plain_ms"] = time_ms(lambda: plain(*args), reps=2, warmup=1)
+        state_bytes = sum(t.numel() * t.element_size() for t in args[-3 if kind == "mlstm_scan"
+                                                                     else -4:])
+        r_bytes = 0 if kind == "mlstm_scan" else sum(r.numel() * r.element_size()
+                                                     for r in args[1:5])
+        del args
+        torch.cuda.empty_cache()
+        if steps == S:
+            nbytes, nops = xlstm_work(kind, B, S, H, Dh, state_bytes, r_bytes)
+            out["bound_ms"], out["bound_by"] = bound_ms(nbytes, nops)
+            out["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+            out["ops_ms"] = nops / F32_OPS_PER_S * 1e3
+    out["shape"] = (f"B={B} S={S} H={H} Dh={Dh}, bf16 state" + ("" if kind == "mlstm_scan"
+                                                                else " and R"))
+    out["plain_shape"] = f"S={XLSTM_PLAIN_STEPS}"
+    chain = ""
+    if kind == "slstm_scan":
+        cycles = FMA_LATENCY_CYCLES * (math.ceil(math.log2(Dh)) + 1)
+        out["chain_floor_ms"] = S * cycles / (clock_mhz * 1e6) * 1e3
+        chain = (f", chain floor {out['chain_floor_ms']:.4f} ms ({cycles} cycles a step at "
+                 f"{clock_mhz:.0f} MHz)")
+    print(f"{kind} {out['shape']} | kernel {out['ms']:.4f} ms ({out['ms'] / S * 1e3:.4f} us a "
+          f"step), bound {out['bound_ms']:.4f} ms ({out['bound_by']}; bytes {out['bytes_ms']:.4f} "
+          f"ms, f32 operations {out['ops_ms']:.4f} ms){chain}; at S={XLSTM_PLAIN_STEPS} kernel "
+          f"{out['ms_at_plain_steps']:.4f} ms, plain {out['plain_ms']:.4f} ms "
+          f"({out['plain_ms'] / out['ms_at_plain_steps']:.1f}x); no one PyTorch call computes "
+          "the recurrence (library: none)", flush=True)
+    return out
+
+
+class ScanTap:
+    """Wraps ``ops.mlstm_scan`` while a model runs (``install`` /
+    ``remove``): keeps the first call's inputs (by reference; the state it
+    updates in place cloned before the launch) and its output h."""
+
+    def __init__(self):
+        self.first = None
+
+    def install(self) -> None:
+        from repro_torch.kernels import ops
+
+        self._orig = ops.mlstm_scan
+        orig = self._orig
+
+        def tapped(q, k, v, i_raw, f_raw, C, n, m):
+            state = (C.clone(), n.clone(), m.clone()) if self.first is None else None
+            out = orig(q, k, v, i_raw, f_raw, C, n, m)
+            if self.first is None:
+                self.first = ((q, k, v, i_raw, f_raw) + state, out[0],
+                              tuple(t.clone() for t in out[1]))
+            return out
+
+        ops.mlstm_scan = tapped
+
+    def remove(self) -> None:
+        from repro_torch.kernels import ops
+
+        ops.mlstm_scan = self._orig
+
+
+def xlstm_prefill_bound(cfg, B: int, S: int) -> float:
+    """ms of the linears of a B x S prefill at the bf16 tensor-core rate (2
+    operations a multiply-add; the last position's logits only)."""
+    from repro_torch.models.xlstm import slstm_layers
+
+    d, H = cfg.d_model, cfg.num_heads
+    di = 2 * d
+    d_ff = int(d * 4 / 3)
+    n_s = sum(slstm_layers(cfg))
+    mlstm = 2 * (2 * d * di + 3 * di * di + di * 2 * H + di * d)
+    slstm = 2 * (4 * d * d + 3 * d * d_ff)
+    ops = ((cfg.num_layers - n_s) * mlstm + n_s * slstm) * B * S + 2 * d * cfg.vocab_size * B
+    return ops / BF16_OPS_PER_S * 1e3
+
+
+def cache_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for layer in cache["layers"] for t in layer.values())
+
+
+def xlstm_cache_bytes(cfg, B: int) -> int:
+    """Bytes of an xLSTM cache of B slots in bf16, whatever its length:
+    per mLSTM layer C, n, m and the conv's 3 rows, per sLSTM layer c, n, h,
+    m."""
+    from repro_torch.models.xlstm import slstm_layers
+
+    d, H = cfg.d_model, cfg.num_heads
+    di = 2 * d
+    Dm, Ds = di // H, d // H
+    n_s = sum(slstm_layers(cfg))
+    mlstm = B * H * Dm * Dm + B * H * Dm + B * H + B * 3 * di
+    return 2 * ((cfg.num_layers - n_s) * mlstm + n_s * 4 * B * H * Ds)
+
+
+def xlstm_long_context(cfg, dev, record, times) -> dict:
+    """XLSTM_LONG[0] sequences of XLSTM_LONG[1] tokens: one prefill and
+    XLSTM_LONG_STEPS decode steps with the counts zeroed just before, the
+    prefill's layer-0 mlstm_scan launch held to the plain version over all
+    its steps, the first decode step against a prefill one token longer
+    (and two planted faults read the same way)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import mlstm_scan_ref
+    from repro_torch.kernels.xlstm import mlstm_condition
+    from repro_torch.models import build_model
+
+    B, S = XLSTM_LONG
+    steps = XLSTM_LONG_STEPS
+    model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(
+        SERVE_SEED))
+    n_s = sum(model.is_slstm)
+    n_m = cfg.num_layers - n_s
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 12)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + steps), generator=gen, device=dev,
+                         dtype=torch.int32)
+    cache = model.init_cache(B, S + steps)
+    short = model.init_cache(SERVE_SLOTS, SERVE_MAX_SEQ)
+    long_bytes, short_bytes = cache_bytes(cache), cache_bytes(short)
+    del short
+    tap = ScanTap()
+    tap.install()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    logits, cache = model.prefill({"tokens": toks[:, :S]}, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    tap.remove()
+    first = None
+    t = time.perf_counter()
+    for i in range(steps):
+        out, cache = model.decode_step(toks[:, S + i:S + i + 1], cache)
+        if first is None:
+            first = out[:, 0].float()
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t) / steps * 1e3
+    launches = dict(ops.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"mlstm_scan": n_m * (1 + steps), "slstm_scan": n_s * (1 + steps),
+            "flash_attention": 0, "flash_decode": 0}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"{XLSTM_ARCH} long context launched {launches}, expected {want}")
+    if int(cache["pos"]) != S + steps or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{XLSTM_ARCH} long context: pos {int(cache['pos'])}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    if not long_bytes == short_bytes == xlstm_cache_bytes(cfg, B):
+        raise AssertionError(f"the {XLSTM_ARCH} cache takes {long_bytes} bytes at {S} tokens, "
+                             f"{short_bytes} at {SERVE_MAX_SEQ}")
+    linears = xlstm_prefill_bound(cfg, B, S)
+    scans = n_m * times["mlstm_scan"]["bound_ms"] + n_s * times["slstm_scan"]["bound_ms"]
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    step_bound = (param_bytes + 2 * long_bytes) / HBM_BYTES_PER_S * 1e3
+    print(f"long context {XLSTM_ARCH}: B={B} S={S} (the reference's prefill_32k length, its "
+          f"batch cut from 32 to {B} for time): prefill {prefill_s:.4f} s against a bound of "
+          f"{(linears + scans) / 1e3:.4f} s (linears {linears / 1e3:.4f} s at "
+          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s + the scans' bounds {scans / 1e3:.4f} s), then "
+          f"{steps} decode steps at {decode_ms:.4f} ms a step (bytes bound {step_bound:.4f} ms: "
+          f"weights + the cache read and written); launches {want}; peak memory "
+          f"{peak / 2**30:.3f} GiB; the cache {long_bytes} bytes at {S + steps} positions = "
+          f"{short_bytes} at {SERVE_MAX_SEQ}", flush=True)
+
+    # the prefill's own layer-0 launch against the plain version
+    (args, h, state) = tap.first
+    tap.first = None
+    kappa = mlstm_condition(*args)
+    want_h, want_state = mlstm_scan_ref(*[a.clone() for a in args])
+    torch.cuda.synchronize()
+    res = xlstm_compare("mlstm_scan", h, state, want_h, want_state, kappa)
+    del args, h, want_h, kappa
+    torch.cuda.empty_cache()
+    record["mlstm_scan"]["max_abs_err"] = max(record["mlstm_scan"]["max_abs_err"],
+                                              res["max_abs_err"])
+    print(f"capture {XLSTM_ARCH}: the prefill's layer-0 mlstm_scan (B={B}, S={S}, H="
+          f"{cfg.num_heads}, Dh={2 * cfg.d_model // cfg.num_heads}, bf16 state) against the plain "
+          f"version on its inputs over all {S} steps: h max abs err {res['max_abs_err']:.3e} of "
+          f"scale {res['scale']:.4g}, {res['share']:.3f} of the allowed error (max kappa "
+          f"{res['kappa_max']:.4g}); state {res['state']}", flush=True)
+    if not res["ok"]:
+        raise AssertionError(f"{XLSTM_ARCH}: the prefill's layer-0 mlstm_scan parts from the "
+                             "plain version")
+
+    # one decode step against a prefill one token longer
+    full, _ = model.prefill({"tokens": toks[:, :S + 1]}, model.init_cache(B, S + 1))
+    full = full[:, 0].float()
+    err, scale = float((first - full).abs().max()), float(full.abs().max())
+    agree = int((first.argmax(-1) == full.argmax(-1)).sum())
+    print(f"long-context check {XLSTM_ARCH}: the first decode step after {S} tokens vs a "
+          f"prefill of {S + 1}: max abs err {err:.4f} of max |logit| {scale:.4f} "
+          f"({err / scale:.4f} of it, tol {XLSTM_LONG_TOL:g}: the bf16 cache's rounding of the "
+          f"state and the two conv paths' roundings), argmax agree {agree}/{B}", flush=True)
+    if not (math.isfinite(err) and err <= XLSTM_LONG_TOL * scale):
+        raise AssertionError(f"{XLSTM_ARCH}: decode after the long prefill parts from the "
+                             "longer prefill")
+
+    # two planted faults read the same way: what the check reads where the
+    # state is wrong, so that its limit is seen to sit between the two
+    nxt = toks[:, S:S + 1]
+    dropped = model.init_cache(B, S + 1)            # the state not carried at all
+    dropped["pos"].fill_(S)
+    out, _ = model.decode_step(nxt, dropped)
+    faults = {"state not carried": out[:, 0].float()}
+    _, stale = model.prefill({"tokens": toks[:, :S - 1]}, model.init_cache(B, S + 1))
+    out, _ = model.decode_step(nxt, stale)          # the state one token stale
+    faults["state one token stale"] = out[:, 0].float()
+    faults = {name: float((got - full).abs().max()) / scale for name, got in faults.items()}
+    del dropped, stale, out
+    print(f"long-context check {XLSTM_ARCH}, planted faults: " + ", ".join(
+        f"{name} {rel:.4f} of max |logit|" for name, rel in faults.items())
+        + f" (the check's limit {XLSTM_LONG_TOL:g}, its reading {err / scale:.4f})", flush=True)
+    if not min(faults.values()) > XLSTM_LONG_TOL:
+        raise AssertionError(f"{XLSTM_ARCH}: the long-context check's limit does not tell a "
+                             f"planted fault: {faults}")
+    del model, cache, toks, full, first, logits
+    torch.cuda.empty_cache()
+
+    # the same check with the whole model in f32
+    t = time.perf_counter()
+    B32 = XLSTM_LONG_F32_BATCH
+    model = build_model(dataclasses.replace(cfg, param_dtype="float32"), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SERVE_SEED))
+    toks = torch.randint(0, cfg.vocab_size, (B32, S + 1), generator=gen, device=dev,
+                         dtype=torch.int32)
+    _, cache = model.prefill({"tokens": toks[:, :S]}, model.init_cache(B32, S + 1))
+    dec, cache = model.decode_step(toks[:, S:], cache)
+    full, _ = model.prefill({"tokens": toks}, model.init_cache(B32, S + 1))
+    dec, full = dec[:, 0].float(), full[:, 0].float()
+    err32, scale32 = float((dec - full).abs().max()), float(full.abs().max())
+    print(f"long-context check {XLSTM_ARCH} in f32 (B={B32}, {time.perf_counter() - t:.1f} s): "
+          f"the first decode step after {S} tokens vs a prefill of {S + 1}: max abs err "
+          f"{err32:.6g} of max |logit| {scale32:.6g} ({err32 / scale32:.3e} of it, limit "
+          f"{TEACHER_F32_TOL:g})", flush=True)
+    if not (math.isfinite(err32) and err32 <= TEACHER_F32_TOL * scale32):
+        raise AssertionError(f"{XLSTM_ARCH} in f32: decode after the long prefill parts from "
+                             "the longer prefill beyond what f32 roundings explain")
+    del model, cache, toks, dec, full
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_s": prefill_s, "bound_ms": linears + scans,
+            "decode_ms": decode_ms, "step_bound_ms": step_bound, "peak_gib": peak / 2**30,
+            "capture": res, "check": err / scale, "check_f32": err32 / scale32,
+            "faults": faults}
+
+
+def xlstm_phase(dev, record, *, clock_mhz: float) -> dict:
+    """Phase 12: both scan kernels against their plain versions at
+    xlstm-125m's widths and the reduced ones, timed at the long context's
+    length; then full-width xlstm-125m serves the 16 requests of phase 4;
+    then the long context; then reduced xlstm card against CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.xlstm import slstm_layers
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = get_config(XLSTM_ARCH)
+    H = cfg.num_heads
+    dims = {"mlstm_scan": 2 * cfg.d_model // H, "slstm_scan": cfg.d_model // H}
+    small = {"mlstm_scan": 32, "slstm_scan": 16}          # the reduced config's head dims
+    print(f"{XLSTM_ARCH}: {cfg.num_layers} layers (sLSTM every {cfg.slstm_every}), d_model "
+          f"{cfg.d_model}, H={H}: mLSTM Dh={dims['mlstm_scan']}, sLSTM Dh={dims['slstm_scan']}",
+          flush=True)
+
+    # -- 12a. the scans against their plain versions, timed -------------------------
+    for kind, Dh in dims.items():
+        for S in XLSTM_CHECK_STEPS:
+            check_xlstm(kind, SERVE_SLOTS, S, H, Dh, dev, record,
+                        state_dtype=bf16 if S < 256 else f32, r_dtype=bf16, seed=S)
+        check_xlstm(kind, 2, XLSTM_SMALL_STEPS, H, small[kind], dev, record, state_dtype=f32,
+                    seed=7)
+    times = {kind: time_xlstm(kind, SERVE_SLOTS, H, Dh, dev, clock_mhz=clock_mhz)
+             for kind, Dh in dims.items()}
+
+    # -- 12b. the serve ------------------------------------------------------------
+    n_s = sum(slstm_layers(cfg))
+    n_m = cfg.num_layers - n_s
+    serve = serve_slice(cfg, dev, lambda waves, steps: {
+        "mlstm_scan": n_m * (waves + steps), "slstm_scan": n_s * (waves + steps),
+        "flash_attention": 0, "flash_decode": 0}, XLSTM_DECODE_PHASES)
+    probe = xlstm_cache_bytes(cfg, SERVE_SLOTS)
+    step_bound = (serve["param_bytes"] + 2 * probe) / HBM_BYTES_PER_S * 1e3
+    for i, w in enumerate(serve["waves"]):
+        print(f"serve {XLSTM_ARCH} wave {i + 1}: decode {w['decode_ms_per_step']:.4f} ms a step "
+              f"against a bytes bound of {step_bound:.4f} ms (weights {serve['param_bytes']} B + "
+              f"the cache read and written, 2 x {probe} B) = "
+              f"{step_bound / w['decode_ms_per_step']:.3f} of it", flush=True)
+
+    # -- 12c. the long context -------------------------------------------------------
+    long = xlstm_long_context(cfg, dev, record, times)
+
+    # -- 12d. reduced card against CPU -----------------------------------------------
+    reduced = reduced_card_vs_cpu(XLSTM_ARCH, dev)
+    print(f"phase 12 ({XLSTM_ARCH}): {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {kind: serve["launches"][kind] + long["launches"][kind] for kind in dims}
+    by_path = {kind: {f"{XLSTM_ARCH} serve": serve["launches"][kind],
+                      f"{XLSTM_ARCH} long context": long["launches"][kind]} for kind in dims}
+    return {"times": times, "launches": launches, "by_path": by_path, "long": long,
+            "serve_waves": serve["waves"], "step_bound_ms": step_bound, "small": reduced}
 
 
 def optimal_phase(cluster, pp, obj0: float, record, dev, *, clock_mhz) -> dict:
@@ -5422,7 +5922,9 @@ def main() -> int:
               "compress_bf16": {"max_abs_err": 0.0},
               "decompress_int8": {"max_abs_err": 0.0},
               "moe_dispatch": {"max_abs_err": 0.0},
-              "moe_combine": {"max_abs_err": 0.0}}
+              "moe_combine": {"max_abs_err": 0.0},
+              "mlstm_scan": {"max_abs_err": 0.0},
+              "slstm_scan": {"max_abs_err": 0.0}}
 
     # -- 2a. sweep kernels at the stated shapes --------------------------------
     for N, T in ((300, 5), (500, 17), (100_000, 5), (100_000, 128)):
@@ -5763,7 +6265,14 @@ def main() -> int:
                             AUDIO_ARCH: audio["launches"][name]}
                      for name in ("flash_attention", "flash_decode")}
 
-    # -- 12. result lines -------------------------------------------------------
+    # -- 12. xlstm-125m at full width: the mLSTM and sLSTM scans -------------------
+    gc.collect()                           # audio_phase freed hubert's model
+    torch.cuda.empty_cache()
+    print(f"before phase 12: {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated on the "
+          "card", flush=True)
+    xlstm = xlstm_phase(dev, record, clock_mhz=clock)
+
+    # -- 13. result lines -------------------------------------------------------
     kernels = [
         {"name": "move_eval_best", "route": "cuda", "source": MOVE_EVAL_SRC,
          "replaces": "src/repro/kernels/move_eval.py:275",
@@ -5917,6 +6426,17 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "decode": {k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}})
+    for name, replaces in XLSTM_REPLACES.items():
+        t = xlstm["times"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": XLSTM_SRC,
+            "replaces": replaces,
+            "launches": xlstm["launches"][name], "launches_by_path": xlstm["by_path"][name],
+            "max_abs_err": record[name]["max_abs_err"], "shape": t["shape"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "plain_shape": t["plain_shape"],
+            "ms_at_plain_steps": t["ms_at_plain_steps"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "chain_floor_ms": t.get("chain_floor_ms"),
+            "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,13 +1,12 @@
-"""Architecture registry of the port: the dense configs (gemma2's
-alternating local/global layers among them), the MoE ones (granite-moe,
-and deepseek-v2-lite with MLA attention), the hybrid (Zamba2) one, the
-VLM (phi-3-vision, a dense trunk behind an image prefix) and the audio
-encoder (hubert-xlarge).
+"""Architecture registry of the port, all ten of the reference's: the dense
+configs (gemma2's alternating local/global layers among them), the MoE ones
+(granite-moe, and deepseek-v2-lite with MLA attention), the hybrid (Zamba2)
+one, the VLM (phi-3-vision, a dense trunk behind an image prefix), the
+audio encoder (hubert-xlarge) and the xLSTM one (xlstm-125m).
 
 ``get_config(arch_id)`` returns the exact published config (the same
 numbers as the reference's ``repro.configs``); the CLI aliases are the
-reference's.  xlstm-125m comes with its family in a later slice of the
-port (ROADMAP.md, Queue 1 item 8d).
+reference's.
 """
 from __future__ import annotations
 
@@ -23,6 +22,7 @@ ARCHS = (
     "deepseek_v2_lite_16b",
     "phi3_vision_4p2b",
     "hubert_xlarge",
+    "xlstm_125m",
 )
 
 # The reference's CLI aliases, all ten (--arch accepts either form).
@@ -39,11 +39,6 @@ ALIASES = {
     "hubert-xlarge": "hubert_xlarge",
 }
 
-# Where each architecture not yet ported stands in ROADMAP.md.
-NOT_YET_PORTED = {
-    "xlstm_125m": "Queue 1 item 8d (the xLSTM family, 8d-iii)",
-}
-
 
 def canonical(arch: str) -> str:
     return ALIASES.get(arch, arch)
@@ -51,9 +46,6 @@ def canonical(arch: str) -> str:
 
 def get_config(arch: str):
     name = canonical(arch)
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"{arch!r} is not ported yet: ROADMAP.md {NOT_YET_PORTED[name]}")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{name}")

@@ -34,7 +34,7 @@ COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas"
 EXTRA_FLAGS = {"move_eval": ["-fmad=false"], "commit": ["-fmad=false"],
                "optimal_round": ["-fmad=false"], "pack": [],
                "flash_attention": [], "flash_decode": [], "ssd_chunk": [],
-               "compress": ["-fmad=false"], "moe": ["-fmad=false"]}
+               "compress": ["-fmad=false"], "moe": ["-fmad=false"], "xlstm": []}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -78,6 +78,11 @@ SIGNATURES = {
     "moe": {
         "moe_dispatch_launch": [_I] * 8 + [_P] * 8,
         "moe_combine_launch": [_I] * 6 + [_P] * 7,
+    },
+    "xlstm": {
+        "mlstm_scan_launch": [_I] * 5 + [_P] * 4 + [_L] * 3 + [_P] + [_L] * 3 + [_P] * 6,
+        "slstm_scan_launch": [_I] * 6 + [_P] * 12,
+        "slstm_smem_gates": [_I, _I, _I],
     },
 }
 

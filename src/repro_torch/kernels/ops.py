@@ -19,7 +19,7 @@ launch_counts = {"move_eval": 0, "move_eval_best": 0, "commit_topk": 0, "pack_ff
                  "optimal_round": 0, "flash_attention": 0, "flash_decode": 0, "ssd_chunk": 0,
                  "move_eval_best_batched": 0, "commit_topk_batched": 0, "tier_stats": 0,
                  "tier_mean": 0, "compress_int8": 0, "compress_bf16": 0, "decompress_int8": 0,
-                 "moe_dispatch": 0, "moe_combine": 0}
+                 "moe_dispatch": 0, "moe_combine": 0, "mlstm_scan": 0, "slstm_scan": 0}
 
 
 def reset_launch_counts() -> None:
@@ -239,3 +239,29 @@ def moe_combine(h, idx, slot, gates, shared):
         launch_counts["moe_combine"] += 1
         return out
     return _ref.moe_combine_ref(h, idx, slot, gates, shared)
+
+
+def mlstm_scan(q, k, v, i_raw, f_raw, C, n, m):
+    """The mLSTM recurrence over S steps, q, k, v f32 [B, S, H, Dh], i_raw,
+    f_raw f32 [B, S, H], the state C [B, H, Dh, Dh], n [B, H, Dh], m [B, H]
+    updated in place in its dtype -> (h f32 [B, S, H, Dh], (C, n, m)); see
+    kernels.ref.mlstm_scan_ref."""
+    if q.is_cuda:
+        from repro_torch.kernels.xlstm import mlstm_scan_cuda
+        out = mlstm_scan_cuda(q, k, v, i_raw, f_raw, C, n, m)
+        launch_counts["mlstm_scan"] += 1
+        return out
+    return _ref.mlstm_scan_ref(q, k, v, i_raw, f_raw, C, n, m)
+
+
+def slstm_scan(w_in, r_z, r_i, r_f, r_o, c, n, h, m):
+    """The sLSTM recurrence over S steps, w_in f32 [B, S, 4 H Dh], r_*
+    [H, Dh, Dh], the state c, n, h, m [B, H, Dh] updated in place in its
+    dtype -> (h f32 [B, S, H, Dh], (c, n, h, m)); see
+    kernels.ref.slstm_scan_ref."""
+    if w_in.is_cuda:
+        from repro_torch.kernels.xlstm import slstm_scan_cuda
+        out = slstm_scan_cuda(w_in, r_z, r_i, r_f, r_o, c, n, h, m)
+        launch_counts["slstm_scan"] += 1
+        return out
+    return _ref.slstm_scan_ref(w_in, r_z, r_i, r_f, r_o, c, n, h, m)

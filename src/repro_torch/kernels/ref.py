@@ -11,6 +11,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.constraints import FEAS_TOL
 # move_eval plain versions == the solver's torch-ops path (one source of truth).
@@ -287,6 +288,86 @@ def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.
     xw = x * (torch.exp(total - cum) * dt)[..., None]                 # [B, C, Q, H, P]
     state = torch.einsum("bcqhp,bcqn->bchpn", xw, Bm)
     return y, state, cum
+
+
+# ---------------------------------------------------------------------------
+# xLSTM recurrences (models.xlstm): the mLSTM and sLSTM scans over time
+# ---------------------------------------------------------------------------
+
+def mlstm_scan_ref(q, k, v, i_raw, f_raw, C, n, m):
+    """The mLSTM recurrence over S steps (the reference's ``lax.scan`` of
+    ``_mlstm_cell``, ``src/repro/models/xlstm.py:45-61,104``), one step at
+    a time in its order of operations: q, k, v f32 [B, S, H, Dh], i_raw,
+    f_raw f32 [B, S, H]; the state C [B, H, Dh, Dh], n [B, H, Dh], m
+    [B, H], read in its own dtype, carried in f32 and written back into
+    the same tensors rounded to their dtype -> (h f32 [B, S, H, Dh],
+    (C, n, m)).  Each step: f_log = log_sigmoid(f_raw), m' = max(f_log + m,
+    i_raw), f = exp(f_log + m - m'), i = exp(i_raw - m'), k_s = k / sqrt(Dh)
+    (a true division by the f32 square root), C' = f C + i (v k_s^T),
+    n' = f n + i k_s, h = C' q / (max(|n' . q|, exp(-m')) + 1e-6)."""
+    Dh = q.shape[-1]
+    sqrt_dh = torch.sqrt(torch.tensor(float(Dh), dtype=torch.float32, device=q.device))
+    Cf, nf, mf = C.float(), n.float(), m.float()
+    hs = []
+    for t in range(q.shape[1]):
+        qt, vt = q[:, t], v[:, t]
+        f_log = F.logsigmoid(f_raw[:, t])
+        m_new = torch.maximum(f_log + mf, i_raw[:, t])
+        f_act = torch.exp(f_log + mf - m_new)
+        i_act = torch.exp(i_raw[:, t] - m_new)
+        k_s = k[:, t] / sqrt_dh
+        Cf = f_act[..., None, None] * Cf + i_act[..., None, None] * (
+            vt[..., :, None] * k_s[..., None, :])
+        nf = f_act[..., None] * nf + i_act[..., None] * k_s
+        denom = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", nf, qt)),
+                              torch.exp(-m_new)) + 1e-6
+        hs.append(torch.einsum("bhij,bhj->bhi", Cf, qt) / denom[..., None])
+        mf = m_new
+    C.copy_(Cf)
+    n.copy_(nf)
+    m.copy_(mf)
+    return torch.stack(hs, dim=1), (C, n, m)
+
+
+def slstm_scan_ref(w_in, r_z, r_i, r_f, r_o, c, n, h, m):
+    """The sLSTM recurrence over S steps (the reference's ``lax.scan`` of
+    ``_slstm_cell``, ``src/repro/models/xlstm.py:143-166,183``): w_in f32
+    [B, S, 4 d] the input pre-activations (z, i, f, o blocks of d = H Dh);
+    the block-diagonal recurrent matrices r_* [H, Dh, Dh] (row i of head h
+    takes h_{t-1} of that head), widened to f32; the state c, n, h, m
+    [B, H, Dh], read in its own dtype, carried in f32 and written back into
+    the same tensors rounded to their dtype -> (h f32 [B, S, H, Dh],
+    (c, n, h, m)).  Each step: pre_g = w_g + R_g h (the sum first), z =
+    tanh, o = sigmoid, f_log = log_sigmoid(pre_f), m' = max(f_log + m,
+    pre_i), i = exp(pre_i - m'), f = exp(f_log + m - m'), c' = f c + i z,
+    n' = f n + i, h' = o c' / max(n', 1e-6)."""
+    B, S, _ = w_in.shape
+    H, Dh, _ = r_z.shape
+    rz, ri, rf, ro = (r.float() for r in (r_z, r_i, r_f, r_o))
+    cf, nf, hf, mf = c.float(), n.float(), h.float(), m.float()
+    hs = []
+    for t in range(S):
+        wz, wi, wf, wo = (w.reshape(B, H, Dh) for w in torch.split(w_in[:, t], H * Dh, dim=-1))
+
+        def rec(r, pre):
+            return pre + torch.einsum("bhj,hij->bhi", hf, r)
+
+        z = torch.tanh(rec(rz, wz))
+        i_raw = rec(ri, wi)
+        f_raw = rec(rf, wf)
+        o = torch.sigmoid(rec(ro, wo))
+        f_log = F.logsigmoid(f_raw)
+        m_new = torch.maximum(f_log + mf, i_raw)
+        i_act = torch.exp(i_raw - m_new)
+        f_act = torch.exp(f_log + mf - m_new)
+        cf = f_act * cf + i_act * z
+        nf = f_act * nf + i_act
+        hf = o * cf / torch.clamp(nf, min=1e-6)
+        mf = m_new
+        hs.append(hf)
+    for dst, src in ((c, cf), (n, nf), (h, hf), (m, mf)):
+        dst.copy_(src)
+    return torch.stack(hs, dim=1), (c, n, h, m)
 
 
 def random_problem_arrays(N: int, T: int, seed: int = 0, device="cpu"):

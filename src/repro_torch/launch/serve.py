@@ -11,9 +11,13 @@ port of ``repro/launch/serve.py``).
 On a card every prefill runs the ``flash_attention`` kernel once per layer
 and every decode step the ``flash_decode`` kernel once per layer; for the
 hybrid Zamba2, once per shared-block application, and every prefill runs the
-``ssd_chunk`` kernel once per Mamba2 layer (``kernels.ops.launch_counts``).
+``ssd_chunk`` kernel once per Mamba2 layer; for xLSTM every prefill and
+every decode step runs ``mlstm_scan`` once per mLSTM layer and
+``slstm_scan`` once per sLSTM layer, and no attention kernel
+(``kernels.ops.launch_counts``).
 
 Run (reduced config, on the card; ``--arch zamba2-2.7b`` for the hybrid,
+``--arch xlstm-125m`` for the xLSTM family,
 ``--arch granite-moe-1b-a400m`` for the MoE family; ``--arch
 phi-3-vision-4.2b`` serves the VLM's trunk on text-only waves, as the
 reference's engine does: it takes no images; ``--arch hubert-xlarge`` exits,

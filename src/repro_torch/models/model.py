@@ -1,12 +1,12 @@
 """Model builder of the port: ``build_model(cfg)`` -> a module with random
 weights on the card (the reference's ``build_model`` plus its ``init``).
 
-The dense, MoE and VLM families (``TransformerLM``; MoE blocks hold
-``moe.MoE``, MLA configs ``attention.MLAttention``; the VLM's patch
-embeddings are a prefix of its batch), the hybrid family (``Zamba2``,
-Mamba2 layers plus a shared attention block) and the audio family
-(``Encoder``, a bidirectional encoder) are ported so far; the xLSTM family
-raises, naming its ROADMAP item.
+Every family of the reference is ported: the dense, MoE and VLM families
+(``TransformerLM``; MoE blocks hold ``moe.MoE``, MLA configs
+``attention.MLAttention``; the VLM's patch embeddings are a prefix of its
+batch), the hybrid family (``Zamba2``, Mamba2 layers plus a shared
+attention block), the audio family (``Encoder``, a bidirectional encoder)
+and the xLSTM family (``XLSTM``, mLSTM and sLSTM blocks).
 """
 from __future__ import annotations
 
@@ -19,13 +19,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.encoder import Encoder
 from repro_torch.models.mamba2 import Zamba2
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.xlstm import XLSTM
 
-NOT_YET_PORTED = {
-    "ssm": "Queue 1 item 8d (the xLSTM family, 8d-iii)",
-}
-
-
-Model = Union[TransformerLM, Zamba2, Encoder]
+Model = Union[TransformerLM, Zamba2, Encoder, XLSTM]
 
 
 def build_model(cfg: ModelConfig, device=DEFAULT_DEVICE,
@@ -38,8 +34,10 @@ def build_model(cfg: ModelConfig, device=DEFAULT_DEVICE,
     ``rms_offset``), the MoE router f32; for the Mamba2 layers
     also A_log = log(linspace(1, 16, H)), D at one, dt_bias at zero and the
     conv weights normal * 0.1; for the encoder the positional conv normal *
-    0.05 and the mask embedding normal * 0.02.  Without a generator, one
-    seeded with 0 on the device is used."""
+    0.05 and the mask embedding normal * 0.02; for the xLSTM blocks the
+    conv weights normal * 0.1 and the recurrent matrices normal /
+    sqrt(head dim).  Without a generator, one seeded with 0 on the device
+    is used."""
     dev = resolve_device(device)
     model = empty_model(cfg, dev)
     if generator is None:
@@ -51,13 +49,12 @@ def build_model(cfg: ModelConfig, device=DEFAULT_DEVICE,
 def empty_model(cfg: ModelConfig, device) -> Model:
     """The model of ``cfg`` with uninitialised weights (filled by
     ``build_model`` or ``weights.lm_from_reference``)."""
-    if cfg.family in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP.md {NOT_YET_PORTED[cfg.family]}")
     if cfg.family == "hybrid":
         return Zamba2(cfg, device=resolve_device(device)).eval()
     if cfg.family == "audio":
         return Encoder(cfg, device=resolve_device(device)).eval()
+    if cfg.family == "ssm":
+        return XLSTM(cfg, device=resolve_device(device)).eval()
     if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"unknown family {cfg.family!r}")
     return TransformerLM(cfg, device=resolve_device(device)).eval()

@@ -21,7 +21,13 @@ w_down}; a block's ``attn`` holds its attention's ``PARAMS``, MLA's
 and ``wo`` under ``mla``);
 for the hybrid ``Zamba2`` its ``init``'s (``embed``, ``final_norm``,
 ``layers`` a dict of Mamba2 leaves stacked [num_layers, ...], and
-``shared`` = {in_proj, ln1, attn, ln2, mlp, out_proj [apps, d, d]}).
+``shared`` = {in_proj, ln1, attn, ln2, mlp, out_proj [apps, d, d]}); for
+the xLSTM family's ``XLSTM`` its ``init``'s (``embed``, ``final_norm`` and
+``layers`` an unstacked list of one dict a layer, whose keys are the
+block's: an mLSTM's ``norm``, ``w_up``, ``w_gate_up``, ``conv_w``,
+``conv_b``, ``wq``, ``wk``, ``wv``, ``w_if``, ``out_norm``, ``w_down``; an
+sLSTM's ``norm``, ``w_in``, ``r_z``, ``r_i``, ``r_f``, ``r_o``,
+``out_norm`` and ``ffn`` = {w_gate, w_up, w_down}).
 ``lm_to_numpy`` goes the other way.  The VLM family (phi-3-vision) is a
 ``TransformerLM`` and carries as the dense one does.
 ``encoder_from_reference`` and ``encoder_to_numpy`` do the same for the
@@ -42,6 +48,7 @@ from repro_torch.core.problem import GOAL_NAMES, GoalWeights, Problem
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.model import empty_model
 from repro_torch.models.transformer import group_windows, num_prefix
+from repro_torch.models.xlstm import SLSTMBlock
 
 _CURVES = ("util_knee", "util_slope", "util_weight")
 
@@ -85,6 +92,9 @@ _MOE = ("router", "w_gate", "w_up", "w_down")
 _NORMS = ("ln1", "ln2", "ln1_post", "ln2_post")
 _MAMBA = ("norm", "in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias", "gate_norm",
           "out_proj")
+_MLSTM = ("norm", "w_up", "w_gate_up", "conv_w", "conv_b", "wq", "wk", "wv", "w_if",
+          "out_norm", "w_down")
+_SLSTM = ("norm", "w_in", "r_z", "r_i", "r_f", "r_o", "out_norm")
 
 
 def _norm_params(norm) -> dict:
@@ -153,6 +163,15 @@ def _shared_tensors(shared) -> dict:
     return out
 
 
+def _xlstm_tensors(layer) -> dict:
+    """(reference path in the layer's dict) -> port tensor of an xLSTM block."""
+    if isinstance(layer, SLSTMBlock):
+        out = {(name,): getattr(layer, name) for name in _SLSTM}
+        out.update({("ffn", name): getattr(layer.ffn, name) for name in _MLP})
+        return out
+    return {(name,): getattr(layer, name) for name in _MLSTM}
+
+
 def lm_from_reference(cfg, params_np: dict, device=DEFAULT_DEVICE):
     """The port's model of ``cfg`` with the reference's weights (its params
     pytree, leaves as numpy arrays) on ``device``."""
@@ -167,6 +186,16 @@ def lm_from_reference(cfg, params_np: dict, device=DEFAULT_DEVICE):
                 _put(getattr(layer, name), params_np["layers"][name][i])
         for path, t in _shared_tensors(model.shared).items():
             _put(t, _get(params_np["shared"], path))
+        return model
+    if cfg.family == "ssm":
+        if len(params_np["layers"]) != len(model.layers):
+            raise ValueError(f"{len(params_np['layers'])} layers for a model of "
+                             f"{len(model.layers)}")
+        _put(model.embed, params_np["embed"])
+        _put(model.final_norm, params_np["final_norm"])
+        for layer, tree in zip(model.layers, params_np["layers"]):
+            for path, t in _xlstm_tensors(layer).items():
+                _put(t, _get(tree, path))
         return model
     P = num_prefix(cfg)
     prefix = params_np.get("prefix", [])
@@ -246,6 +275,18 @@ def lm_to_numpy(model) -> dict:
                 "layers": {name: np.stack([_arr(getattr(layer, name)) for layer in model.layers])
                            for name in _MAMBA},
                 "shared": shared,
+                "final_norm": _arr(model.final_norm)}
+    if model.cfg.family == "ssm":
+        layers = []
+        for layer in model.layers:
+            tree: dict = {}
+            for path, t in _xlstm_tensors(layer).items():
+                node = tree
+                for key in path[:-1]:
+                    node = node.setdefault(key, {})
+                node[path[-1]] = _arr(t)
+            layers.append(tree)
+        return {"embed": _arr(model.embed), "layers": layers,
                 "final_norm": _arr(model.final_norm)}
 
     out = {"embed": _arr(model.embed), "final_norm": _final_norm_numpy(model.final_norm)}

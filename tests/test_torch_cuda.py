@@ -40,7 +40,16 @@ tensor-core body at phi-3-vision's D = 96 (G = 1 and 8, odd lengths, a
 window, a softcap), the prefill at D = 96 causal and hubert's D = 80
 bidirectional at ragged lengths, in the flash tolerances; reduced
 phi-3-vision (with its image prefix) and reduced hubert on the card give
-the CPU's logits within 1e-4.
+the CPU's logits within 1e-4.  The xLSTM scans (``mlstm_scan``,
+``slstm_scan``) within 1e-5 of the outputs' scale of their plain versions
+(both carry the state in f32; the sums run in another order; the mLSTM's h
+also within 1e-5 * kappa * |h|, kappa the cancellation factor of its
+denominator's dot n . q, ``kernels.xlstm.mlstm_condition``), at head dims
+16 to 384, 1 to 300 steps, from f32 and bf16 states, a bf16 state written
+back within one bf16 ulp of the plain version's (the mLSTM's C, n and m
+bit for bit: its updates are elementwise); reduced xlstm-125m on the
+card gives the CPU's logits and caches within 1e-4, and its serve the CPU's
+tokens.
 """
 import dataclasses
 
@@ -64,6 +73,7 @@ from repro_torch.kernels.ref import (commit_topk_batched_ref, commit_topk_ref,
                                     move_eval_best_batched_ref, optimal_round_ref,
                                     pack_ffd_tiers_ref, random_problem_arrays,
                                     random_shard_batch, ssd_chunk_ref, tier_stats_ref)
+from repro_torch.kernels.xlstm import compare_scan, mlstm_case, slstm_case
 
 from _bits import same_bits
 from _torch_port import (SERVICE_APPS, SERVICE_COOLDOWN, SERVICE_SEED,  # noqa: F401
@@ -1722,3 +1732,183 @@ def test_reduced_vlm_and_encoder_on_the_card_give_the_cpu_logits(cuda_device, ar
         assert outs["card"][1]["flash_decode"] == 4 * cfg.num_layers
     for a, b in zip(outs["card"][0], outs["cpu"][0]):
         assert_rel_scale(a, b, 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the xLSTM scans
+# ---------------------------------------------------------------------------
+
+XLSTM_HEAD_DIMS = (16, 32, 64, 192, 384)
+XLSTM_STEPS = (1, 2, 17, 300)
+
+
+def _held_to_plain(got_h, got_state, want_h, want_state, dtype, kappa=None) -> None:
+    """``kernels.xlstm.compare_scan``: h within 1e-5 of its scale (for the
+    mLSTM plus 1e-5 * kappa * |h|: where n . q cancels, the denominator has
+    few correct digits in any summation order); an f32 state within 1e-5 of
+    its scale, a bf16 one within one bf16 ulp beyond that."""
+    assert got_h.dtype == torch.float32 and got_h.shape == want_h.shape
+    assert all(got.dtype == dtype for got in got_state)
+    names = "Cnm" if len(got_state) == 3 else "cnhm"
+    res = compare_scan(names, got_h, got_state, want_h, want_state, kappa)
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", XLSTM_STEPS)
+@pytest.mark.parametrize("Dh", XLSTM_HEAD_DIMS)
+def test_mlstm_scan_kernel_matches_plain_version(cuda_device, Dh, S, state):
+    from repro_torch.kernels.ref import mlstm_scan_ref
+    from repro_torch.kernels.xlstm import mlstm_condition
+
+    dtype = getattr(torch, state)
+    args = mlstm_case(2, S, 2, Dh, state_dtype=dtype, seed=Dh * 1000 + S, device=cuda_device)
+    plain = [a.clone() for a in args]
+    kappa = mlstm_condition(*args)
+    ops.reset_launch_counts()
+    h, st = ops.mlstm_scan(*args)
+    want_h, want_st = mlstm_scan_ref(*plain)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["mlstm_scan"] == 1
+    assert all(a is b for a, b in zip(st, args[5:]))            # updated in place
+    _held_to_plain(h, st, want_h, want_st, dtype, kappa)
+    # the state's updates are elementwise, each operation rounded on its own
+    assert all(torch.equal(a, b) for a, b in zip(st, want_st))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", XLSTM_STEPS)
+@pytest.mark.parametrize("Dh", XLSTM_HEAD_DIMS)
+def test_slstm_scan_kernel_matches_plain_version(cuda_device, Dh, S, state):
+    from repro_torch.kernels.ref import slstm_scan_ref
+
+    dtype = getattr(torch, state)
+    args = slstm_case(2, S, 2, Dh, state_dtype=dtype, seed=Dh * 1000 + S, device=cuda_device)
+    plain = [a.clone() for a in args]
+    ops.reset_launch_counts()
+    h, st = ops.slstm_scan(*args)
+    want_h, want_st = slstm_scan_ref(*plain)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["slstm_scan"] == 1
+    assert all(a is b for a, b in zip(st, args[5:]))
+    _held_to_plain(h, st, want_h, want_st, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["mlstm", "slstm"])
+def test_xlstm_scans_at_full_width_from_zero_state_and_mixed_dtypes(cuda_device, kernel):
+    """xlstm-125m's widths (B = 8, H = 4; Dh 384 for mLSTM, 192 for sLSTM)
+    from a zero state, and the sLSTM with bf16 recurrent matrices over an
+    f32 state (the shared-memory and the global-memory rows both)."""
+    from repro_torch.kernels.ref import mlstm_scan_ref, slstm_scan_ref
+
+    from repro_torch.kernels.xlstm import mlstm_condition
+
+    kappa = None
+    if kernel == "mlstm":
+        args = mlstm_case(8, 33, 4, 384, zero_state=True, seed=3, device=cuda_device)
+        scan, ref = ops.mlstm_scan, mlstm_scan_ref
+        kappa = mlstm_condition(*args)
+    else:
+        args = slstm_case(8, 33, 4, 192, r_dtype=torch.bfloat16, seed=3, device=cuda_device)
+        scan, ref = ops.slstm_scan, slstm_scan_ref
+    plain = [a.clone() for a in args]
+    h, st = scan(*args)
+    want_h, want_st = ref(*plain)
+    torch.cuda.synchronize()
+    _held_to_plain(h, st, want_h, want_st, torch.float32, kappa)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", [8, 40, 400])
+def test_xlstm_kernels_refuse_head_dims_they_do_not_take(cuda_device, Dh):
+    from repro_torch.kernels.xlstm import mlstm_scan_cuda, slstm_scan_cuda
+
+    with pytest.raises(ValueError, match=f"Dh={Dh}"):
+        mlstm_scan_cuda(*mlstm_case(1, 2, 1, Dh, device=cuda_device))
+    with pytest.raises(ValueError, match=f"Dh={Dh}"):
+        slstm_scan_cuda(*slstm_case(1, 2, 1, Dh, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_xlstm_scans_on_the_card_never_give_way_to_the_plain_versions(cuda_device,
+                                                                       monkeypatch):
+    from repro_torch.kernels import ref
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA call reached the plain version")
+
+    monkeypatch.setattr(ref, "mlstm_scan_ref", refuse)
+    monkeypatch.setattr(ref, "slstm_scan_ref", refuse)
+    ops.reset_launch_counts()
+    ops.mlstm_scan(*mlstm_case(1, 3, 2, 32, device=cuda_device))
+    ops.slstm_scan(*slstm_case(1, 3, 2, 16, device=cuda_device))
+    torch.cuda.synchronize()
+    assert (ops.launch_counts["mlstm_scan"], ops.launch_counts["slstm_scan"]) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_reduced_xlstm_on_the_card_gives_the_cpu_logits_and_caches(cuda_device):
+    """Reduced xlstm-125m in f32 (4 layers, sLSTM at 1 and 3): forward_train,
+    a prefill of 12 tokens and 4 decode steps give the CPU plain path's
+    logits and every cache leaf within 1e-4 of scale, one scan launch a
+    layer a call."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, reduce_for_smoke
+
+    cfg = reduce_for_smoke(get_config("xlstm-125m"))
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(12))
+    card = copy.deepcopy(cpu).to(cuda_device)
+    toks = torch.as_tensor(np.random.default_rng(12).integers(0, cfg.vocab_size, (2, 16)))
+    outs = {}
+    for where, model in (("cpu", cpu), ("card", card)):
+        ops.reset_launch_counts()
+        got = [model.forward_train({"tokens": toks})[0].cpu()]
+        cache = model.init_cache(2, 16)
+        logits, cache = model.prefill({"tokens": toks[:, :12]}, cache)
+        got.append(logits.cpu())
+        for s in range(12, 16):
+            logits, cache = model.decode_step(toks[:, s:s + 1], cache)
+            got.append(logits.cpu())
+        assert int(cache["pos"]) == 16
+        leaves = [t.cpu() for layer in cache["layers"] for t in layer.values()]
+        outs[where] = (got, leaves, dict(ops.launch_counts))
+    n_s = sum(card.is_slstm)
+    assert outs["card"][2]["mlstm_scan"] == (cfg.num_layers - n_s) * 6
+    assert outs["card"][2]["slstm_scan"] == n_s * 6
+    for a, b in zip(outs["card"][0] + outs["card"][1], outs["cpu"][0] + outs["cpu"][1]):
+        assert_rel_scale(a, b, 1e-4)
+
+
+@pytest.mark.cuda
+def test_reduced_xlstm_serve_on_the_card_gives_the_cpu_tokens(cuda_device):
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model, reduce_for_smoke
+
+    cfg = reduce_for_smoke(get_config("xlstm-125m"))
+    cpu_model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(5))
+    card_model = copy.deepcopy(cpu_model).to(cuda_device)
+    done = {}
+    for name, model, dev in (("cpu", cpu_model, "cpu"), ("card", card_model, cuda_device)):
+        rng = np.random.default_rng(0)
+        queue = serve.RequestQueue()
+        for i in range(10):
+            queue.push(serve.Request(
+                rid=i, prompt=rng.integers(0, cfg.vocab_size, rng.integers(4, 9)).astype(np.int32),
+                slo=int(rng.choice(4)), max_new_tokens=6))
+        ops.reset_launch_counts()
+        engine = serve.ServeEngine(model, slots=4, max_seq=22, device=dev)
+        done[name] = {r.rid: r.tokens for r in serve.serve_all(engine, queue)}
+        if name == "card":
+            waves, steps = 3, 3 * 5
+            assert ops.launch_counts["mlstm_scan"] == 2 * (waves + steps)
+            assert ops.launch_counts["slstm_scan"] == 2 * (waves + steps)
+            assert ops.launch_counts["flash_attention"] == ops.launch_counts["flash_decode"] == 0
+    assert done["card"] == done["cpu"]

@@ -266,6 +266,24 @@ def _windowed_route(cfg, B: int = 2, P: int = 12, S: int = 16, max_seq: int = 20
     return m
 
 
+def _xlstm_route(cfg):
+    """``build_model`` of family "ssm" is an ``XLSTM``; with the reference's
+    weights its forward_train gives the reference's logits within REL."""
+    from repro_torch.models.xlstm import XLSTM
+
+    assert isinstance(build_model(cfg, device="cpu"), XLSTM)
+    ref = ref_build_model(dataclasses.replace(ref_reduce(ref_get_config("smollm-360m")),
+                                              family="ssm"))
+    assert not any(ref.is_slstm)
+    params = ref.init(jax.random.PRNGKey(5))
+    port = lm_from_reference(cfg, jax.tree.map(np.asarray, params), device="cpu")
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 10)).astype(np.int32)
+    want, _ = jax.jit(ref.forward_train)(params, {"tokens": jnp.asarray(toks)})
+    got, _ = port.forward_train({"tokens": torch.as_tensor(toks)})
+    assert isinstance(port, XLSTM) and len(port.layers) == cfg.num_layers
+    assert _scaled_err(got.numpy(), want) <= REL
+
+
 @pytest.mark.parametrize("change,match", [
     (dict(num_experts=4, top_k=2, d_ff_expert=32), "MoE"),
     (dict(local_global_pattern=True, window=8), "local_global_pattern"),
@@ -274,15 +292,20 @@ def _windowed_route(cfg, B: int = 2, P: int = 12, S: int = 16, max_seq: int = 20
     (dict(family="ssm"), "ssm"),
 ])
 def test_unported_variants_raise(change, match):
-    """Unported variants raise naming themselves; the two gemma2 brings
-    (alternating local/global windows, ring caches), MoE layers and MLA
-    (at the reference's reduced MLA widths) take their route."""
+    """Every variant now takes its route: the two gemma2 brings
+    (alternating local/global windows, ring caches), MoE layers, MLA (at
+    the reference's reduced MLA widths) and the xLSTM family (an ``XLSTM``
+    of reduced smollm's widths, every layer mLSTM as ``slstm_every`` is 0,
+    whose forward_train gives the reference's logits)."""
     cfg = dataclasses.replace(reduce_for_smoke(get_config("smollm-360m")), **change)
     if match == "MoE":
         _moe_route(cfg)
         return
     if match == "MLA":
         _mla_route(cfg)
+        return
+    if match == "ssm":
+        _xlstm_route(cfg)
         return
     if match in PORTED_VARIANTS:
         m = _windowed_route(cfg)
@@ -299,9 +322,8 @@ def test_window_with_a_cache_raises_and_unported_archs_name_their_item():
     """A sliding window with a KV cache now serves (windowed prefill and
     decode on a full cache match the teacher-forced forward); gemma2-9b,
     granite-moe-1b-a400m, deepseek-v2-lite-16b (the reference's MLA
-    config), phi-3-vision-4.2b and hubert-xlarge are ported with the
-    reference's numbers, and an architecture still unported names its
-    ROADMAP item (xlstm-125m, item 8d's)."""
+    config), phi-3-vision-4.2b, hubert-xlarge and xlstm-125m, the last
+    architecture to be ported, come with the reference's numbers."""
     cfg = dataclasses.replace(reduce_for_smoke(get_config("smollm-360m")), window=8)
     m = _windowed_route(cfg)
     toks = torch.zeros((1, 4), dtype=torch.int64)
@@ -314,10 +336,8 @@ def test_window_with_a_cache_raises_and_unported_archs_name_their_item():
                              deepseek.v_head_dim) == (192, 128)
     assert (dataclasses.asdict(deepseek)
             == dataclasses.asdict(ref_get_config("deepseek-v2-lite-16b")))
-    for arch in ("phi-3-vision-4.2b", "hubert-xlarge"):
+    for arch in ("phi-3-vision-4.2b", "hubert-xlarge", "xlstm-125m"):
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(ref_get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8d"):
-        get_config("xlstm-125m")
 
 
 def test_attn_batch_shard_matches_reference(pair):

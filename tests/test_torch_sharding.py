@@ -1,10 +1,11 @@
 """The partition-spec rules (``distributed/sharding.py``) in the port vs the
 live reference, on the CPU.
 
-Held: ``param_spec`` over the reference's parameter trees of eight ported
+Held: ``param_spec`` over the reference's parameter trees of nine ported
 configs at reduced size (deepseek-v2-lite's MLA leaves, phi-3-vision's
-trunk and hubert-xlarge's encoder tree among them; the encoder has no
-cache), spec for spec as tuples; ``sanitize`` and the specs of ``params_shardings``,
+trunk, hubert-xlarge's encoder tree and xlstm-125m's unstacked list of
+mLSTM and sLSTM layers among them; the encoder has no cache), spec for
+spec as tuples; ``sanitize`` and the specs of ``params_shardings``,
 ``opt_state_shardings`` (with and without ``zero1``), ``batch_shardings``,
 ``cache_shardings`` (``kv_shard`` "heads", "seq" and "auto"),
 ``logits_sharding`` and ``replicated`` on meshes of (1, 1), (2, 4) and
@@ -30,7 +31,7 @@ from repro_torch.distributed import tree as PT
 torch.set_num_threads(1)
 
 ARCHS = ("qwen2.5-3b", "smollm-360m", "olmo-1b", "zamba2-2.7b", "granite-moe-1b-a400m",
-         "deepseek-v2-lite-16b", "phi-3-vision-4.2b", "hubert-xlarge")
+         "deepseek-v2-lite-16b", "phi-3-vision-4.2b", "hubert-xlarge", "xlstm-125m")
 MESHES = {"1x1": ((1, 1), ("data", "model")), "2x4": ((2, 4), ("data", "model")),
           "pod2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
 
